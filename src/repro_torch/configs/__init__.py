@@ -1,0 +1,23 @@
+"""Architecture registry (a copy of ``repro.configs``' registry).
+
+Only the architectures the port can serve are registered; the others join
+as their layer kinds are ported (ROADMAP.md, Queue 1).
+"""
+from repro_torch.configs.base import (ArchConfig, SHAPES, ShapeSpec,
+                                      applicable_shapes)
+
+ARCH_IDS = ["qwen3_moe_235b"]
+
+__all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeSpec",
+           "applicable_shapes", "get_arch"]
+
+
+def get_arch(name: str) -> ArchConfig:
+    import importlib
+    name = name.replace("-", "_")
+    if name not in ARCH_IDS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ported: {ARCH_IDS}); "
+            "see ROADMAP.md, Queue 1")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return mod.CONFIG

@@ -1,0 +1,146 @@
+"""Tile-quantized FP8 tensors (QTensor) and the quantize/dequantize ops.
+
+Counterpart of the serving subset of ``repro.core.quant``: per-tile po2
+scales over 128 contiguous elements (paper Eq. 2), the same normative tile
+convention, and the cast-ledger records.  The training-only pieces (the
+quant-stats collector and the checkpoint tags) are not ported.
+
+Tile-metadata convention (as in the reference):
+
+  * ``len(tile) == data.ndim``; leading batch/expert axes get explicit 1s.
+  * Row-wise tiles are ``(1,) * (ndim - 1) + (TILE,)`` -- ``row_tile``.
+  * Weight blocks are ``(1,) * (ndim - 2) + (TILE, TILE)``.
+  * ``scale.shape[i] * tile[i] == data.shape[i]`` for every axis.
+
+These are the plain PyTorch quantizers, used for weights and KV pages.  The
+activation entry quantize on the MoE path runs through the hand-written
+kernel in ``repro_torch.kernels`` (same function, same bits).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import casts
+from repro_torch.core.fp8 import TILE, cast_to, po2_scale
+
+
+@dataclasses.dataclass(frozen=True)
+class QTensor:
+    data: torch.Tensor            # e4m3 payload
+    scale: torch.Tensor           # f32 po2 scales, one per tile
+    tile: Tuple[int, ...]
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def ndim(self):
+        return self.data.ndim
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def to(self, device) -> "QTensor":
+        return QTensor(self.data.to(device), self.scale.to(device), self.tile)
+
+
+def row_tile(ndim: int) -> Tuple[int, ...]:
+    return (1,) * (ndim - 1) + (TILE,)
+
+
+def _scale_shape(shape, tile):
+    if len(shape) != len(tile):
+        raise ValueError(f"tile {tile} does not match shape {shape}")
+    for s, t in zip(shape, tile):
+        if s % t:
+            raise ValueError(f"shape {tuple(shape)} not divisible by tile {tile}")
+    return tuple(s // t for s, t in zip(shape, tile))
+
+
+def _split_shape(shape, tile):
+    """(n0, n1, ...) -> interleaved (n0/t0, t0, ...) with 1s for the scale."""
+    xs, ss = [], []
+    for n, t in zip(shape, tile):
+        if t == 1:
+            xs.append(n)
+            ss.append(n)
+        else:
+            xs.extend((n // t, t))
+            ss.extend((n // t, 1))
+    return tuple(xs), tuple(ss)
+
+
+def _tiled_op(x, scale, tile, op):
+    """x <op> per-tile scale by reshape-broadcast (no upsampled copy)."""
+    xs, ss = _split_shape(x.shape, tile)
+    return op(x.reshape(xs), scale.reshape(ss)).reshape(x.shape)
+
+
+def _tile_amax(x: torch.Tensor, tile) -> torch.Tensor:
+    """amax over each tile, computed in the input dtype (max is exact in any
+    float format) and widened to f32 at the reduced size."""
+    _scale_shape(x.shape, tile)
+    xs, _ = _split_shape(x.shape, tile)
+    red, i = [], 0
+    for n, t in zip(x.shape, tile):
+        if t == 1:
+            i += 1
+        else:
+            red.append(i + 1)
+            i += 2
+    y = x.reshape(xs).abs()
+    return y.amax(dim=tuple(red)).to(torch.float32) if red else \
+        y.to(torch.float32)
+
+
+def compute_scale(x: torch.Tensor, tile) -> torch.Tensor:
+    return po2_scale(_tile_amax(x, tile))
+
+
+def quantize_fields(x: torch.Tensor, tile):
+    """(payload e4m3, po2 scales) of x under `tile`, without a ledger
+    record.  A bf16 input is divided in bf16: division by a power of two is
+    exact there, and bf16 -> e4m3 rounds as f32 -> e4m3 (same bits as the
+    f32 route at half the temporary bytes)."""
+    scale = compute_scale(x, tile)
+    if x.dtype == torch.bfloat16:
+        xf = _tiled_op(x, scale.to(torch.bfloat16), tile, torch.div)
+    else:
+        xf = _tiled_op(x.to(torch.float32), scale, tile, torch.div)
+    return cast_to(xf), scale
+
+
+def quantize(x: torch.Tensor, tile, tag: str = "q",
+             kind: str = "quantize") -> QTensor:
+    """Quantize a dense tensor to per-tile fp8; counted on the CastLedger."""
+    casts.record(kind, tag, x.numel())
+    data, scale = quantize_fields(x, tile)
+    return QTensor(data=data, scale=scale, tile=tuple(tile))
+
+
+def quantize_rowwise(x: torch.Tensor, tag="q_row", kind="quantize") -> QTensor:
+    return quantize(x, row_tile(x.ndim), tag=tag, kind=kind)
+
+
+def quantize_blockwise(w: torch.Tensor, tag="q_wblk") -> QTensor:
+    return quantize(w, (1,) * (w.ndim - 2) + (TILE, TILE), tag=tag)
+
+
+def dequantize(q: QTensor, dtype=torch.bfloat16, tag: str = "dq",
+               kind: str = "dequantize") -> torch.Tensor:
+    casts.record(kind, tag, q.data.numel())
+    return _dequantize_nocount(q, dtype)
+
+
+def _dequantize_nocount(q: QTensor, dtype=torch.float32) -> torch.Tensor:
+    if dtype == torch.bfloat16:
+        # e4m3 -> bf16 is exact, and x * po2 is exact in bf16
+        return _tiled_op(q.data.to(torch.bfloat16),
+                         q.scale.to(torch.bfloat16), q.tile, torch.mul)
+    return _tiled_op(q.data.to(torch.float32), q.scale, q.tile,
+                     torch.mul).to(dtype)

@@ -1,0 +1,135 @@
+"""The port's kernel twins against the JAX package's Pallas kernels (run in
+interpret mode through repro.kernels.ops, as tests/test_kernels.py does),
+on the same numpy inputs.  Quantize and permute+pad are bitwise; the
+grouped GEMM is held to rtol=atol=2e-2 (f32 summation order) plus the
+mean-relative-error check against the dequantized product; SwiGLU+quantize
+has equal scales and equal payload bytes except on lanes where the f32
+sigmoid bits of the two libraries differ, and there at most one e4m3 code.
+
+The launches of the hand-written CUDA kernels are held against the twins
+on the card in tests/test_torch_gpu.py (no jax there)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.fp8 import TILE
+from repro.core.quant import QTensor as JQ
+from repro.core.quant import _dequantize_nocount, quantize
+from repro.kernels import ops as jops
+from repro_torch import kernels
+from repro_torch.core.quant import QTensor
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused_permute_pad import fused_permute_pad_plain
+from repro_torch.kernels.fused_swiglu_quant import fused_swiglu_quant_plain
+from repro_torch.kernels.grouped_gemm_fp8 import grouped_gemm_fp8_plain
+from repro_torch.kernels.quantize import quantize_rowwise_plain
+
+
+def _u8(a):
+    return np.asarray(a).view(np.uint8)
+
+
+def _t(a, dtype=None):
+    """numpy / jax array -> torch tensor with the same bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
+
+
+def _x(seed, *shape, spread=1.5):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=shape) * np.exp(r.normal(size=shape) * spread)
+            ).astype(np.float32)
+
+
+def _q(x, tile):
+    q = quantize(jnp.asarray(x), tile, tag="t")
+    return q, QTensor(_t(q.data), _t(q.scale), tuple(q.tile))
+
+
+def _ordinal(b):
+    """e4m3 byte -> signed code index (sign-magnitude order)."""
+    b = b.astype(np.int32)
+    return np.where(b & 0x80, -(b & 0x7F), b & 0x7F)
+
+
+# ---------------------------------------------------------------------------
+# CPU: plain twins vs the Pallas kernels (interpret mode).
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(40, 256), (128, 384), (8, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_twin_matches_pallas(shape, dtype):
+    xj = jnp.asarray(_x(1, *shape)).astype(dtype)
+    qj = jops.quantize_rowwise(xj)
+    d, s = quantize_rowwise_plain(_t(xj))
+    assert np.array_equal(d.view(torch.uint8).numpy(), _u8(qj.data))
+    assert np.array_equal(s.numpy(), np.asarray(qj.scale))
+
+
+@pytest.mark.parametrize("t,d,n_out", [(32, 256, 48), (16, 128, 40),
+                                       (24, 384, 8)])
+def test_permute_pad_twin_matches_pallas(t, d, n_out):
+    r = np.random.default_rng(12)
+    x = jnp.asarray(r.normal(size=(t, d))).astype(jnp.float8_e4m3fn)
+    x = x.at[0, 0].set(jnp.nan)                     # NaN payloads are data
+    sc = jnp.asarray(np.exp2(r.integers(-8, 8, (t, d // TILE))
+                             ).astype(np.float32))
+    row_map = r.integers(-1, t, n_out).astype(np.int32)
+    row_map[0] = 0
+    qj = jops.fused_permute_pad(JQ(x, sc, (1, TILE)), jnp.asarray(row_map),
+                                n_out)
+    xo, so = fused_permute_pad_plain(_t(x), _t(sc), torch.from_numpy(row_map))
+    assert np.array_equal(xo.view(torch.uint8).numpy(), _u8(qj.data))
+    assert np.array_equal(so.numpy(), np.asarray(qj.scale))
+
+
+@pytest.mark.parametrize("e,c,k,n", [(2, 128, 128, 128), (4, 8, 256, 128),
+                                     (3, 40, 384, 256)])
+def test_grouped_gemm_twin_matches_pallas(e, c, k, n):
+    qxj, qx = _q(_x(5, e, c, k, spread=0.5), (1, 1, TILE))
+    qwj, qw = _q(_x(6, e, k, n, spread=0.3) * 0.05, (1, TILE, TILE))
+    out_j = np.asarray(jops.grouped_gemm_fp8(qxj, qwj), np.float32)
+    out_t = grouped_gemm_fp8_plain(qx.data, qx.scale, qw.data, qw.scale)
+    out_t = out_t.to(torch.float32).numpy()
+    np.testing.assert_allclose(out_t, out_j, rtol=2e-2, atol=2e-2)
+    gt = np.einsum("eck,ekn->ecn",
+                   np.asarray(_dequantize_nocount(qxj, jnp.float32)),
+                   np.asarray(_dequantize_nocount(qwj, jnp.float32)))
+    rel = np.abs(out_t - gt) / (np.abs(gt) + 1e-2)
+    assert rel.mean() < 2e-2
+
+
+@pytest.mark.parametrize("m,f", [(128, 128), (40, 256), (8, 384)])
+def test_swiglu_quant_twin_matches_pallas(m, f):
+    h = jnp.asarray(_x(11, m, 2 * f, spread=0.5)).astype(jnp.bfloat16)
+    qj = jops.fused_swiglu_quant(h)
+    d, s = fused_swiglu_quant_plain(_t(h))
+    assert np.array_equal(s.numpy(), np.asarray(qj.scale))
+    # lanes whose f32 sigmoid bits differ between torch and jax
+    g = np.array(h[:, :f].astype(jnp.float32))
+    sig_j = np.asarray(jax.nn.sigmoid(jnp.asarray(g))).view(np.uint32)
+    sig_t = torch.sigmoid(torch.from_numpy(g)).numpy().view(np.uint32)
+    differ = sig_j != sig_t
+    assert differ.mean() < 0.01
+    bt, bj = d.view(torch.uint8).numpy(), _u8(qj.data)
+    assert np.array_equal(bt[~differ], bj[~differ])
+    assert np.abs(_ordinal(bt) - _ordinal(bj))[differ].max(initial=0) <= 1
+
+
+def test_cpu_route_launches_no_kernel():
+    """On CPU tensors the wrappers take the twins: no launch is counted."""
+    before = dict(kernels.LAUNCHES)
+    qx = ops.quantize_rowwise(torch.randn(8, 256))
+    ops.fused_permute_pad(qx, torch.tensor([1, -1, 0], dtype=torch.int32))
+    ops.fused_swiglu_quant(torch.randn(8, 256).to(torch.bfloat16))
+    qw = QTensor(qx.data[:, :128].reshape(1, 8, 128).repeat(1, 16, 1),
+                 torch.ones(1, 1, 1), (1, TILE, TILE))
+    ops.grouped_gemm_fp8(QTensor(qx.data.reshape(1, 8, 256)[:, :, :128],
+                                 qx.scale.reshape(1, 8, 2)[:, :, :1],
+                                 (1, 1, TILE)), qw)
+    assert kernels.LAUNCHES == before
