@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's serve path: torch.profiler over the
-serve trace of chip_smoke.py on one NVIDIA GPU.
+"""Where the time goes on the port's serve and train paths: torch.profiler
+over chip_smoke.py's serve trace and train step on one NVIDIA GPU.
 
     python3 chip_profile.py        # from the repo root; needs one card
 
-Builds the same engine as chip_smoke.py's phase 3 (qwen3_moe_235b at full
-width, 4 layers, W8 experts, FP8 KV), runs the 16-request trace once to
-warm up, once more with no profiler to time it, then again under
-torch.profiler (CPU + CUDA activity), and prints one JSON line: the wall
+Serve pass: builds the same engine as chip_smoke.py's phase 3
+(qwen3_moe_235b at full width, 4 layers, W8 experts, FP8 KV), runs the
+16-request trace once to warm up, once more with no profiler to time it,
+then again under torch.profiler (CPU + CUDA activity).  Train pass: the
+same for chip_smoke.py's phase 6 train step (full width, 1 layer, AdamW,
+the fixed 2 x 1024-token batch): one warm-up step, three timed unprofiled
+steps, three profiled steps.  Each pass prints one JSON line: the wall
 seconds of the plain and the profiled run, the device's busy time (kernel
 self time under the profiler), its busy and idle shares of the plain
 run's wall time (the profiler adds host time, so its own wall would
-overstate the idle share) and device time by group (the four
-hand-written kernels, cuBLAS GEMMs, everything else), then a JSON line
-with the top kernels.
+overstate the idle share) and device time by group (the hand-written
+kernels, cuBLAS GEMMs, everything else), then a JSON line with the top
+kernels.
 """
 from __future__ import annotations
 
@@ -26,7 +29,14 @@ import torch
 import chip_smoke
 
 # kernel-name substrings -> group (first match wins)
-GROUPS = (("grouped_gemm_fp8", ("grouped_gemm_fp8_kernel",)),
+GROUPS = (("grouped_gemm_nt_fp8", ("grouped_gemm_nt_fp8_kernel",)),
+          ("grouped_gemm_fp8_quant_out",
+           ("grouped_gemm_fp8_kernel<64, true, true>",
+            "grouped_gemm_fp8_kernel<16, true, true>",
+            "grouped_gemm_fp8_kernel<64, false, true>",
+            "grouped_gemm_fp8_kernel<16, false, true>")),
+          ("grouped_gemm_fp8", ("grouped_gemm_fp8_kernel",)),
+          ("fp8_transpose", ("fp8_transpose_kernel",)),
           ("quantize_rowwise", ("quantize_rowwise_kernel",)),
           ("fused_permute_pad", ("permute_pad_kernel",)),
           ("fused_swiglu_quant", ("swiglu_quant_kernel",)),
@@ -48,31 +58,22 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_profile: torch.cuda.is_available() is False; this "
-              "script needs an NVIDIA GPU", file=sys.stderr)
-        return 2
+def profile_pass(label, run, unit):
+    """Time one warmed call of `run` unprofiled, then profile another; `run`
+    returns how many `unit`s it ran.  Prints the pass's JSON lines."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = torch.device("cuda")
-    print(torch.cuda.get_device_name(0))
-    eng, reqs = chip_smoke.make_serve(chip_smoke.serve_config(), dev)
-    eng.run(reqs, realtime=False)                      # warm-up pass
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run(reqs, realtime=False)                      # timed, unprofiled
+    run()                                              # timed, unprofiled
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    ticks0 = eng.stats()["ticks"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        results = eng.run(reqs, realtime=False)
+        n_units = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    chip_smoke.check(len(results) == len(reqs), "profiled run incomplete")
-
     kernels = [e for e in prof.key_averages() if device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     by_group = {}
@@ -84,7 +85,7 @@ def main() -> int:
     busy_ms = sum(v[0] for v in by_group.values())
     chip_smoke.check(busy_ms > 0, "the profiler recorded no device time")
     print(json.dumps({"profile": dict(
-        ticks=results.stats["ticks"] - ticks0, wall_s=plain_wall,
+        path=label, **{unit: n_units}, wall_s=plain_wall,
         profiled_wall_s=wall, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (plain_wall * 1e3),
         device_idle_share=1 - busy_ms / (plain_wall * 1e3),
@@ -94,7 +95,43 @@ def main() -> int:
     top = sorted(kernels, key=device_us, reverse=True)[:12]
     print(json.dumps({"top_kernels": [
         dict(name=e.key[:120], ms=device_us(e) / 1e3, count=e.count)
-        for e in top]}))
+        for e in top], "path": label}))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False; this "
+              "script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    print(torch.cuda.get_device_name(0))
+
+    eng, reqs = chip_smoke.make_serve(chip_smoke.serve_config(), dev)
+    eng.run(reqs, realtime=False)                      # warm-up pass
+
+    def serve():
+        t0 = eng.stats()["ticks"]
+        results = eng.run(reqs, realtime=False)
+        chip_smoke.check(len(results) == len(reqs), "a serve run incomplete")
+        return results.stats["ticks"] - t0
+
+    profile_pass("serve", serve, "ticks")
+    del eng
+    torch.cuda.empty_cache()
+
+    cfg = chip_smoke.train_config()
+    state, step, batch = chip_smoke.make_train(cfg, dev)
+    box = {"state": state}
+
+    def train(n=3):
+        for _ in range(n):
+            box["state"], m = step(box["state"], batch)
+            chip_smoke.check(bool(torch.isfinite(m["loss"])),
+                             "a non-finite train loss")
+        return n
+
+    train(1)                                           # warm-up step
+    profile_pass("train", train, "steps")
     return 0
 
 

@@ -5,7 +5,8 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. card + build: the card's name and power limit (nvidia-smi), then the
-     four CUDA kernels built from src/repro_torch/csrc for sm_90a;
+     CUDA kernels built from src/repro_torch/csrc for sm_90a (one nvcc a
+     source, all started together);
   2. kernels vs plain: each kernel against its plain PyTorch twin on the
      card at the serving path's full-width shapes (qwen3_moe_235b: bucket
      64 prefill, 8-slot decode), to the tolerances of the CPU tests, with
@@ -13,10 +14,30 @@ Phases (any failure raises and the script exits non-zero):
      of the H100 SXM and a library yardstick;
   3. the serve path: a ServeEngine over qwen3_moe_235b at full width, depth
      cut to 4 layers, random W8 weights from a seed, FP8 paged KV, serving
-     16 greedy requests; every kernel's launch count must be > 0;
+     16 greedy requests; every serving kernel's launch count must be > 0;
   4. GPU path vs CPU path: at reduced() size, one prefill + decode step on
      the card (kernels) and on the CPU (plain twins), logits cosine >= 0.999;
-  5. the {"kernels": [...]} summary line, then the result line.
+  5. all seven kernels vs plain at the train path's full-width shapes
+     (2048 tokens, 128 experts x 256 rows): quantize (entry, backward
+     island, dact_quant) and permute+pad (send, grouping, the backward
+     gather by the inverse map) bitwise, SwiGLU+quantize (equal scales,
+     codes within one on < 1% of lanes), the scaling-aware transpose
+     (bitwise), GEMM-1/GEMM-2, the NT Wgrad GEMMs and the transposed-weight
+     Dgrad-2 GEMM (rtol=atol=2e-2), the quant-out Dgrad-1 GEMM (equal
+     scales, payload codes within one on < 0.1% of lanes), with the same
+     timings as phase 2;
+  6. the train path: qwen3_moe_235b at full width, depth cut to 1 layer,
+     random bf16 params from a seed, AdamW (lr 1e-3 after the reference
+     make_train_step's default 100-step warmup), one fixed batch of
+     2 x 1024 tokens for 4 steps: finite and falling loss, 2 activation
+     casts per MoE layer per step, every one of the seven kernels launched;
+     tokens/s, ms a step and peak device memory;
+  7. GPU path vs CPU path for reduced() training from the same params and
+     batch (8 x 64 tokens): every leaf's gradient cosine >= 0.999 (the
+     expert weights' and the router's, nonzero, included), the first
+     step's loss within 1e-3 relative and global grad norm within 1%, the
+     second step's loss (after the first update) within 1e-3 relative;
+  8. the {"kernels": [...]} summary line, then the result line.
 It imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -39,6 +60,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # fp8 and bf16 tensor-core and f32 (non-tensor) FLOP/s; the bounds hold
 # only for that part, whose name torch reports as "NVIDIA H100 80GB HBM3"
 PEAKS = dict(bw=3.35e12, fp8=1979e12, bf16=989e12, f32=67e12)
+
+
+# the kernels of the serve path (the train path runs all seven)
+SERVE_KERNELS = ("quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8",
+                 "fused_swiglu_quant")
 
 
 class SmokeFailure(RuntimeError):
@@ -107,15 +133,182 @@ def dq(data, scale):
             * scale[..., None]).reshape(M, K)
 
 
+def timing_row(peaks, name, shape, kfn, pfn, lfn, nbytes, ops, peak_ops, err,
+               extra, plain_target_ms=25.0):
+    """Time kernel `kfn`, twin `pfn` and library call `lfn` (or None) on the
+    same inputs; print and return the row."""
+    b, by = bound(nbytes, ops, peak_ops, peaks)
+    row = dict(kernel=name, shape=shape, kernel_ms=time_ms(kfn),
+               call_ms=call_ms(kfn),
+               plain_ms=time_ms(pfn, target_ms=plain_target_ms),
+               library_ms=time_ms(lfn) if lfn else None, bound_ms=b,
+               bound_by=by, max_abs_err=err, **extra)
+    print(json.dumps(row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Each kernel against its twin on given inputs, timed (phases 2 and 5).
+# ---------------------------------------------------------------------------
+GEMM_LIBRARY = ("torch.bmm on bf16-dequantized operands (nearest yardstick; "
+                "not the same function)")
+
+
+def check_quantize(record, shape, x):
+    """quantize_rowwise on (M, K) x: bitwise its twin."""
+    from repro_torch.kernels import quantize
+    M, K = x.shape
+    d, s = quantize.quantize_rowwise_cuda(x)
+    dp, sp = quantize.quantize_rowwise_plain(x)
+    check(torch.equal(d.view(torch.uint8), dp.view(torch.uint8))
+          and torch.equal(s, sp), f"quantize {shape}: not bitwise")
+    record("quantize_rowwise", f"{shape} ({M},{K}) {str(x.dtype)[6:]}",
+           lambda: quantize.quantize_rowwise_cuda(x),
+           lambda: quantize.quantize_rowwise_plain(x), None,
+           M * K * x.element_size() + M * K + M * K // 128 * 4, 4 * M * K,
+           record.peaks["f32"], (dq(d, s) - dq(dp, sp)).abs().max().item(),
+           {"tolerance": "bitwise"})
+
+
+def check_permute(record, shape, x, s, row_map):
+    """fused_permute_pad of e4m3 rows x (+ scales s) by row_map: bitwise."""
+    from repro_torch.kernels import fused_permute_pad as fpp
+    row_map = row_map.to(torch.int32).contiguous()
+    xo, so = fpp.fused_permute_pad_cuda(x, s, row_map)
+    xp, sp = fpp.fused_permute_pad_plain(x, s, row_map)
+    check(torch.equal(xo.view(torch.uint8), xp.view(torch.uint8))
+          and torch.equal(so, sp), f"permute_pad {shape}: not bitwise")
+    (T, D), n_out = x.shape, row_map.numel()
+    live = int((row_map >= 0).sum())
+    # bytes: each distinct source row read once (the send layout reads a
+    # token's row for each of its top-k slots), the map, the output
+    distinct = int(torch.unique(row_map[row_map >= 0]).numel())
+    row_bytes = D + D // 128 * 4
+    record("fused_permute_pad", f"{shape} ({T},{D})->({n_out},{D})",
+           lambda: fpp.fused_permute_pad_cuda(x, s, row_map),
+           lambda: fpp.fused_permute_pad_plain(x, s, row_map), None,
+           distinct * row_bytes + n_out * (row_bytes + 4), 0,
+           record.peaks["f32"],
+           (dq(xo, so) - dq(xp, sp)).abs().max().item(),
+           {"tolerance": "bitwise", "live_rows": live,
+            "distinct_source_rows": distinct})
+
+
+def check_swiglu(record, shape, h):
+    """fused_swiglu_quant on (M, 2F) bf16 h: scales equal, payload codes
+    within one on < 1% of lanes (the sigmoid's last bits)."""
+    from repro_torch.kernels import fused_swiglu_quant as fsq
+    M, F2 = h.shape
+    F = F2 // 2
+    d, s = fsq.fused_swiglu_quant_cuda(h)
+    dp, sp = fsq.fused_swiglu_quant_plain(h)
+    check(torch.equal(s, sp), f"swiglu {shape}: scales differ")
+    frac = codes_within_one(d, dp, 0.01, f"swiglu {shape}")
+    record("fused_swiglu_quant", f"{shape} ({M},{F2}) bf16",
+           lambda: fsq.fused_swiglu_quant_cuda(h),
+           lambda: fsq.fused_swiglu_quant_plain(h), None,
+           M * F2 * 2 + M * F + M * F // 128 * 4, 8 * M * F,
+           record.peaks["f32"],
+           (dq(d, s) - dq(dp, sp)).abs().max().item(),
+           {"tolerance": "scales equal, payload codes within 1 on < 1% of "
+                         "lanes (sigmoid bits)", "mismatch_frac": frac})
+
+
+def codes_within_one(a, b, max_frac, what):
+    """Fraction of e4m3 codes of `a` that differ from `b`; fails unless it
+    is below max_frac and every difference is one step of the code."""
+    ua, ub = a.view(torch.uint8), b.view(torch.uint8)
+    oa = torch.where(ua >= 128, -(ua.int() & 127), ua.int())
+    ob = torch.where(ub >= 128, -(ub.int() & 127), ub.int())
+    frac = (ua != ub).float().mean().item()
+    check(frac < max_frac and (oa - ob).abs().max().item() <= 1,
+          f"{what}: {frac} of payload codes differ (not below {max_frac}, "
+          "or by more than one)")
+    return frac
+
+
+def check_gemm(record, shape, x, sx, qw, w_trans=False,
+               quant_out=False):
+    """grouped_gemm_fp8 of x (E, C, K) e4m3 + row scales by the
+    block-quantized qw, stored (E, K, N) or, with w_trans, (E, N, K) and
+    read transposed: bf16 out within rtol=atol=2e-2, or (quant_out) equal
+    scales and payload codes within one on < 0.1% of lanes."""
+    from repro_torch.core.quant import QTensor, _dequantize_nocount
+    from repro_torch.kernels import grouped_gemm_fp8 as gg
+    E, C, K = x.shape
+    N = qw.data.shape[1] if w_trans else qw.data.shape[2]
+    args = (x, sx, qw.data, qw.scale)
+    kw = dict(w_trans=w_trans, quant_out=quant_out)
+    out = gg.grouped_gemm_fp8_cuda(*args, **kw)
+    ref = gg.grouped_gemm_fp8_plain(*args, **kw)
+    if quant_out:
+        check(torch.equal(out[1], ref[1]), f"gemm {shape}: scales differ")
+        extra = {"tolerance": "scales equal, payload codes within 1 on "
+                              "< 0.1% of lanes",
+                 "mismatch_frac": codes_within_one(out[0], ref[0], 1e-3,
+                                                   f"gemm {shape}")}
+        err = (_dequantize_nocount(QTensor(*out, (1, 1, 128)), torch.float32)
+               - _dequantize_nocount(QTensor(*ref, (1, 1, 128)),
+                                     torch.float32)).abs().max().item()
+        name = "grouped_gemm_fp8_quant_out"
+        out_bytes = E * C * N * (1 + 4 / 128)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2, msg=f"grouped_gemm {shape}")
+        extra = {"tolerance": "rtol=atol=2e-2"}
+        err = (out.float() - ref.float()).abs().max().item()
+        name, out_bytes = "grouped_gemm_fp8", E * C * N * 2
+    del out, ref
+    xb = _dequantize_nocount(QTensor(x, sx, (1, 1, 128)), torch.bfloat16)
+    wb = _dequantize_nocount(qw, torch.bfloat16)
+    wb = wb.transpose(1, 2) if w_trans else wb
+    wshape = f"({E},{N},{K})^T" if w_trans else f"({E},{K},{N})"
+    record(name, f"{shape} ({E},{C},{K})x{wshape}",
+           lambda: gg.grouped_gemm_fp8_cuda(*args, **kw),
+           lambda: gg.grouped_gemm_fp8_plain(*args, **kw),
+           lambda: torch.bmm(xb, wb),
+           E * C * K * (1 + 4 / 128) + E * K * N
+           + E * (K // 128) * (N // 128) * 4 + out_bytes,
+           2 * E * C * K * N, record.peaks["fp8"], err,
+           {**extra, "library": GEMM_LIBRARY}, plain_target_ms=50)
+    del xb, wb
+    torch.cuda.empty_cache()
+
+
+class KernelRows:
+    """Collects the timed rows of phases 2 and 5 by kernel name."""
+
+    def __init__(self, peaks):
+        self.peaks, self.rows = peaks, {}
+
+    def __call__(self, *args, **kw):
+        row = timing_row(self.peaks, *args, **kw)
+        self.rows.setdefault(row["kernel"], []).append(row)
+
+
+def rowq(gen, dev, M, K, spread=0.0):
+    """(M, K) e4m3 + (M, K/128) scales quantized from a random bf16 tensor
+    (with `spread`, row magnitudes vary over 2**+-6, so the transpose's
+    rebasing reaches the subnormal range)."""
+    from repro_torch.kernels import quantize
+    x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
+    if spread:
+        x = x * torch.exp2(torch.randint(
+            -6, 7, (M, 1), generator=gen, device=dev)).to(x.dtype)
+    return quantize.quantize_rowwise_cuda(x)
+
+
+def blockq(gen, dev, *shape):
+    from repro_torch.core.quant import quantize_blockwise
+    return quantize_blockwise(torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: each kernel against its twin at the serving shapes.
 # ---------------------------------------------------------------------------
 def kernel_checks(cfg, peaks, dev):
     from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
-    from repro_torch.core.quant import (QTensor, _dequantize_nocount,
-                                        quantize_blockwise)
-    from repro_torch.kernels import (fused_permute_pad, fused_swiglu_quant,
-                                     grouped_gemm_fp8, quantize)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     D, F, E, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.top_k
@@ -123,40 +316,17 @@ def kernel_checks(cfg, peaks, dev):
     C_send = _round_up(max(int(T_pf * k * 1.25), 8), 8)          # 640
     C_exp = _round_up(max(C_send // E, 8), 128)                  # 128
     C_dec = _round_up(max(int(2.0 * B_dec * k / E), 8), 8)       # 8
+    record = KernelRows(peaks)
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
 
     def route(T):
         return torch.topk(randn(T, E), k, dim=-1).indices
 
-    results = {}
-
-    def record(name, shape, kfn, pfn, lfn, nbytes, ops, peak_ops, err, extra,
-               plain_target_ms=25.0):
-        """Time kernel `kfn`, twin `pfn` and library call `lfn` (or None)."""
-        b, by = bound(nbytes, ops, peak_ops, peaks)
-        row = dict(kernel=name, shape=shape, kernel_ms=time_ms(kfn),
-                   call_ms=call_ms(kfn),
-                   plain_ms=time_ms(pfn, target_ms=plain_target_ms),
-                   library_ms=time_ms(lfn) if lfn else None, bound_ms=b,
-                   bound_by=by, max_abs_err=err, **extra)
-        print(json.dumps(row))
-        results.setdefault(name, []).append(row)
-
     # -- quantize: entry quantize of a prefill bucket and of a decode batch
     for shape, M in (("prefill", T_pf), ("decode", B_dec)):
-        x = randn(M, D).to(torch.bfloat16)
-        d, s = quantize.quantize_rowwise_cuda(x)
-        dp, sp = quantize.quantize_rowwise_plain(x)
-        check(torch.equal(d.view(torch.uint8), dp.view(torch.uint8))
-              and torch.equal(s, sp), f"quantize {shape}: not bitwise")
-        err = (dq(d, s) - dq(dp, sp)).abs().max().item()
-        record("quantize_rowwise", f"{shape} ({M},{D}) bf16",
-               lambda: quantize.quantize_rowwise_cuda(x),
-               lambda: quantize.quantize_rowwise_plain(x), None,
-               M * D * 2 + M * D + M * D // 128 * 4, 4 * M * D, peaks["f32"],
-               err, {"tolerance": "bitwise"})
+        check_quantize(record, shape, randn(M, D).to(torch.bfloat16))
 
     # -- permute+pad: prefill send layout, expert grouping, decode gather
     ids = route(T_pf)
@@ -167,71 +337,26 @@ def kernel_checks(cfg, peaks, dev):
     for shape, T, row_map in (("prefill_send", T_pf, rms),
                               ("prefill_group", C_send, rme),
                               ("decode_gather", B_dec, tok_dec)):
-        x, s = quantize.quantize_rowwise_cuda(randn(T, D))
-        row_map = row_map.to(torch.int32).contiguous()
-        xo, so = fused_permute_pad.fused_permute_pad_cuda(x, s, row_map)
-        xp, sp = fused_permute_pad.fused_permute_pad_plain(x, s, row_map)
-        check(torch.equal(xo.view(torch.uint8), xp.view(torch.uint8))
-              and torch.equal(so, sp), f"permute_pad {shape}: not bitwise")
-        n_out = row_map.numel()
-        live = int((row_map >= 0).sum())
-        row_bytes = D + D // 128 * 4
-        record("fused_permute_pad", f"{shape} ({T},{D})->({n_out},{D})",
-               lambda: fused_permute_pad.fused_permute_pad_cuda(x, s, row_map),
-               lambda: fused_permute_pad.fused_permute_pad_plain(x, s, row_map),
-               None,
-               live * row_bytes + n_out * (row_bytes + 4), 0, peaks["f32"],
-               (dq(xo, so) - dq(xp, sp)).abs().max().item(),
-               {"tolerance": "bitwise", "live_rows": live})
+        check_permute(record, shape, *rowq(gen, dev, T, D), row_map)
 
     # -- grouped GEMM: GEMM-1 and GEMM-2 of prefill and decode
-    w13 = quantize_blockwise(randn(E, D, 2 * F, scale=0.02).to(torch.bfloat16))
-    w2 = quantize_blockwise(randn(E, F, D, scale=0.02).to(torch.bfloat16))
+    w13 = blockq(gen, dev, E, D, 2 * F)
+    w2 = blockq(gen, dev, E, F, D)
     for shape, C, qw in (("prefill_gemm1", C_exp, w13),
                          ("prefill_gemm2", C_exp, w2),
                          ("decode_gemm1", C_dec, w13),
                          ("decode_gemm2", C_dec, w2)):
-        K, N = qw.data.shape[1], qw.data.shape[2]
-        xd, xs = quantize.quantize_rowwise_cuda(randn(E * C, K))
-        xd, xs = xd.reshape(E, C, K), xs.reshape(E, C, K // 128)
-        args = (xd, xs, qw.data, qw.scale)
-        out = grouped_gemm_fp8.grouped_gemm_fp8_cuda(*args).to(torch.float32)
-        ref = grouped_gemm_fp8.grouped_gemm_fp8_plain(*args).to(torch.float32)
-        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2,
-                                   msg=f"grouped_gemm {shape}")
-        xb = _dequantize_nocount(QTensor(xd, xs, (1, 1, 128)), torch.bfloat16)
-        wb = _dequantize_nocount(qw, torch.bfloat16)
-        record("grouped_gemm_fp8", f"{shape} ({E},{C},{K})x({E},{K},{N})",
-               lambda: grouped_gemm_fp8.grouped_gemm_fp8_cuda(*args),
-               lambda: grouped_gemm_fp8.grouped_gemm_fp8_plain(*args),
-               lambda: torch.bmm(xb, wb),
-               E * C * K + E * C * K // 128 * 4 + E * K * N
-               + E * (K // 128) * (N // 128) * 4 + E * C * N * 2,
-               2 * E * C * K * N, peaks["fp8"],
-               (out - ref).abs().max().item(),
-               {"tolerance": "rtol=atol=2e-2",
-                "library": "torch.bmm on bf16-dequantized operands "
-                           "(nearest yardstick; not the same function)"},
-               plain_target_ms=50)
-        del xb, wb
+        K = qw.data.shape[1]
+        xd, xs = rowq(gen, dev, E * C, K)
+        check_gemm(record, shape, xd.reshape(E, C, K),
+                   xs.reshape(E, C, K // 128), qw)
+    del w13, w2
 
     # -- fused SwiGLU + quantize on GEMM-1's output
     for shape, M in (("prefill", E * C_exp), ("decode", E * C_dec)):
-        h = randn(M, 2 * F).to(torch.bfloat16)
-        d, s = fused_swiglu_quant.fused_swiglu_quant_cuda(h)
-        dp, sp = fused_swiglu_quant.fused_swiglu_quant_plain(h)
-        check(torch.equal(s, sp), f"swiglu {shape}: scales differ")
-        frac = (d.view(torch.uint8) != dp.view(torch.uint8)).float().mean()
-        check(frac.item() < 0.01, f"swiglu {shape}: {frac.item()} mismatch")
-        record("fused_swiglu_quant", f"{shape} ({M},{2 * F}) bf16",
-               lambda: fused_swiglu_quant.fused_swiglu_quant_cuda(h),
-               lambda: fused_swiglu_quant.fused_swiglu_quant_plain(h), None, M * 2 * F * 2 + M * F + M * F // 128 * 4, 8 * M * F,
-               peaks["f32"], (dq(d, s) - dq(dp, sp)).abs().max().item(),
-               {"tolerance": "scales equal, <1% payload bytes differ "
-                             "(sigmoid bits)", "mismatch_frac": frac.item()})
-    del w13, w2
+        check_swiglu(record, shape, randn(M, 2 * F).to(torch.bfloat16))
     torch.cuda.empty_cache()
-    return results
+    return record.rows
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +418,7 @@ def serve_path(cfg, dev):
     check(all(0 <= t < cfg.vocab for v in results.values()
               for t in v["tokens"]), "a token outside the vocabulary")
     check(eng.alloc.free_pages == ecfg.n_pages - 1, "pages were not returned")
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[k] > 0 for k in SERVE_KERNELS),
           f"a kernel was never launched on the serve path: {launches}")
     s = results.stats
     print(json.dumps({"serve": dict(
@@ -369,6 +494,319 @@ def gpu_vs_cpu(dev):
     check(min(cos) >= 0.999, f"GPU path vs CPU path cosine {cos} < 0.999")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the training path's kernels against their twins at full width.
+# ---------------------------------------------------------------------------
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 4
+
+
+def train_config():
+    """qwen3_moe_235b at full width, depth cut to 1 of 94 layers: one
+    layer plus the embedding and lm_head is 3.73 G parameters, and AdamW
+    with f32 master weights and moments holds 16 bytes a parameter
+    (59.7 GB); two layers would not fit one 80 GB card."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("qwen3_moe_235b"), n_layers=1)
+
+
+def train_capacity(cfg) -> int:
+    """Rows an expert on the train path: moe_block's C_exp at B*S tokens."""
+    from repro_torch.core.moe import _round_up
+    T = TRAIN_B * TRAIN_S
+    C_send = _round_up(max(int(T * cfg.top_k * cfg.capacity_factor), 8), 8)
+    return _round_up(max(C_send // cfg.n_experts, 8), 128)
+
+
+def train_kernel_checks(cfg, peaks, dev):
+    """Every kernel of the train path against its twin at the shapes one
+    full-width train step gives it (T = 2048 tokens, C = 256 rows an
+    expert)."""
+    from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
+    from repro_torch.kernels import fp8_transpose, grouped_gemm_nt_fp8
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    D, F, E, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.top_k
+    T = TRAIN_B * TRAIN_S                                       # 2048
+    C_send = _round_up(max(int(T * k * cfg.capacity_factor), 8), 8)
+    C = train_capacity(cfg)                                     # 256
+    record = KernelRows(peaks)
+
+    def erowq(M, K, spread=0.0):
+        d, s = rowq(gen, dev, E * M, K, spread)
+        return d.reshape(E, M, K), s.reshape(E, M, K // 128)
+
+    def bf(d, s):
+        from repro_torch.core.quant import QTensor, _dequantize_nocount
+        return _dequantize_nocount(QTensor(d, s, (1, 1, 128)), torch.bfloat16)
+
+    # -- #1: the entry quantize, the backward island and dact_quant
+    for shape, M, K in (("q_entry", T, D), ("q_bwd_island", E * C, D),
+                        ("dact_quant", E * C, 2 * F)):
+        check_quantize(record, shape, torch.randn(
+            (M, K), generator=gen, device=dev, dtype=torch.bfloat16))
+
+    # -- #2: the dispatch send, the expert grouping, and the backward gather
+    # of the FP8 cotangent by the grouping's inverse map
+    ids = torch.topk(torch.randn((T, E), generator=gen, device=dev), k,
+                     dim=-1).indices
+    rms, slot_e, _, _ = _dispatch_plan(ids, k, 1, E, C_send)
+    rme, ret = _expert_plan(slot_e, E, C)
+    for shape, M, row_map in (("train_send", T, rms),
+                              ("train_group", C_send, rme),
+                              ("train_bwd_inv_map", E * C, ret)):
+        check_permute(record, shape, *rowq(gen, dev, M, D), row_map)
+
+    # -- #8: SwiGLU + quantize on GEMM-1's output
+    check_swiglu(record, "train", torch.randn(
+        (E * C, 2 * F), generator=gen, device=dev, dtype=torch.bfloat16))
+
+    # -- #9 the scaling-aware transpose: T(qx) and T(qa) of Wgrad-1 / -2
+    for shape, K in (("T(qx)", D), ("T(qa)", F)):
+        d, s = erowq(C, K, spread=1.0)
+        out, so = fp8_transpose.fp8_transpose_cuda(d, s)
+        pd, ps = fp8_transpose.fp8_transpose_plain(d, s)
+        check(torch.equal(out.view(torch.uint8), pd.view(torch.uint8))
+              and torch.equal(so, ps), f"fp8_transpose {shape}: not bitwise")
+        nbytes = 2 * (E * C * K + E * C * K // 128 * 4)
+        record("fp8_transpose", f"{shape} ({E},{C},{K})->({E},{K},{C})",
+               lambda: fp8_transpose.fp8_transpose_cuda(d, s),
+               lambda: fp8_transpose.fp8_transpose_plain(d, s),
+               lambda: d.view(torch.uint8).transpose(-1, -2).contiguous(),
+               nbytes, 0, peaks["fp8"], 0.0,
+               {"tolerance": "bitwise",
+                "library": "uint8 .transpose(-1,-2).contiguous(): a relayout "
+                           "copy, not the same function"})
+        del out, so, pd, ps
+
+    # -- #10 the NT grouped GEMM: Wgrad-1 and Wgrad-2, bf16 out
+    for shape, M, N in (("wgrad1", D, 2 * F), ("wgrad2", F, D)):
+        a, sa = erowq(M, C)
+        b, sb = erowq(N, C)
+        bf16 = torch.bfloat16
+        out = grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_cuda(a, sa, b, sb, bf16)
+        ref = grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_plain(a, sa, b, sb, bf16)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2, msg=f"grouped_gemm_nt {shape}")
+        err = (out.float() - ref.float()).abs().max().item()
+        del out, ref
+        ab, bb = bf(a, sa), bf(b, sb).transpose(1, 2)
+        record("grouped_gemm_nt_fp8",
+               f"{shape} ({E},{M},{C})x({E},{N},{C})^T bf16 out",
+               lambda: grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_cuda(
+                   a, sa, b, sb, bf16),
+               lambda: grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_plain(
+                   a, sa, b, sb, bf16),
+               lambda: torch.bmm(ab, bb),
+               E * (M + N) * C * (1 + 4 / 128) + E * M * N * 2,
+               2 * E * M * N * C, peaks["fp8"], err,
+               {"tolerance": "rtol=atol=2e-2", "library": GEMM_LIBRARY},
+               plain_target_ms=50)
+        del ab, bb
+        torch.cuda.empty_cache()
+
+    # -- #3 GEMM-1 (and the h recompute, same shape) and GEMM-2 at C = 256;
+    # -- #4 Dgrad-1 with the quantizing epilogue, w13 read transposed;
+    # -- #3 Dgrad-2 with w2 read transposed
+    for shape, K, N, w_trans, quant_out in (
+            ("train_gemm1", D, 2 * F, False, False),
+            ("train_gemm2", F, D, False, False),
+            ("dgrad1", 2 * F, D, True, True),
+            ("dgrad2", D, F, True, False)):
+        x, sx = erowq(C, K)
+        qw = blockq(gen, dev, *((E, N, K) if w_trans else (E, K, N)))
+        check_gemm(record, shape, x, sx, qw, w_trans=w_trans,
+                   quant_out=quant_out)
+        del x, sx, qw
+    return record.rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the train path at full width.
+# ---------------------------------------------------------------------------
+def make_train(cfg, dev):
+    """The train path's state (random bf16 params from seed 0, AdamW at the
+    reference's defaults with lr=1e-3), step function (the reference
+    make_train_step's default schedule: 100 warmup steps of a cosine over
+    100k) and its one fixed batch (make_batch step 0, B=2, S=1024).  With
+    no warmup, lr 1e-3 overshoots at this width: the loss falls at the
+    second step and rises from the third (PERF.md, section 6)."""
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    opt = AdamWConfig(lr=1e-3)
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, get_recipe("fp8_flow"), opt)
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B), 0, device=dev)
+    return state, step, batch
+
+
+def expert_grad_zero_fraction(cfg, params, batch):
+    """Fraction of exactly-zero entries in the expert weights' gradients
+    of one more forward+backward (the scaling-aware transpose flushes a
+    128-row block that holds a padding row; ROADMAP.md, Queue 3)."""
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.models.lm import forward
+    from repro_torch.optim.adamw import tree_leaves
+    loss, _ = forward(cfg, get_recipe("fp8_flow"), params, batch)
+    loss.backward()
+    out = {}
+    for name in ("we13", "we2"):
+        g = params["layers"][name].grad
+        nz = sum(int(torch.count_nonzero(g[:, e]))
+                 for e in range(g.shape[1]))
+        out[name] = 1.0 - nz / g.numel()
+    for p in tree_leaves(params):
+        p.grad = None
+    return out
+
+
+def train_path(cfg, dev):
+    from repro_torch import kernels
+    from repro_torch.core import casts
+    from repro_torch.optim.adamw import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step, batch = make_train(cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    kernels.reset_launches()
+    losses, gnorms, step_s, n_casts = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with casts.ledger() as led:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+        n_casts.append(led.activation_casts())
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    zero_frac = expert_grad_zero_fraction(cfg, state["params"], batch)
+    check(all(np.isfinite(losses)), f"a non-finite train loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(n == 2 * cfg.n_layers for n in n_casts),
+          f"activation casts per step {n_casts}, expected "
+          f"{2 * cfg.n_layers} (2 per MoE layer)")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel was never launched on the train path: {launches}")
+    tokens = TRAIN_B * TRAIN_S
+    warm = step_s[1:]
+    print(json.dumps({"train": dict(
+        config=f"{cfg.name} n_layers={cfg.n_layers} full width",
+        params=sum(p.numel() for p in tree_leaves(state["params"])),
+        batch=[TRAIN_B, TRAIN_S], steps=TRAIN_STEPS, losses=losses,
+        grad_norms=gnorms, step_s=step_s, init_s=init_s,
+        ms_per_step_warm=1e3 * statistics.mean(warm),
+        tokens_per_s_warm=tokens / statistics.mean(warm),
+        activation_casts_per_step=n_casts, state_gib=state_gib,
+        expert_grad_zero_fraction=zero_frac,
+        max_memory_allocated_gib=peak_gib, launches=launches,
+        launches_per_step_per_layer={
+            k: v / (TRAIN_STEPS * cfg.n_layers) for k, v in launches.items()
+        })}))
+    del state, step, batch, m
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: one train step on the GPU path against the CPU path (reduced).
+# ---------------------------------------------------------------------------
+def named_leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in named_leaves(v, f"{prefix}/{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def cosine(a, b):
+    """Cosine of two tensors in f64 (1.0 for two zero tensors)."""
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0.0 and nb == 0.0:
+        return 1.0
+    return (a @ b).item() / max(na * nb, 1e-300)
+
+
+GRAD_COSINE_MIN = 0.999
+MOE_LEAVES = ("layers/we13", "layers/we2", "layers/w_router")
+
+
+def gpu_vs_cpu_train(dev):
+    """From the same params and batch on the card and on the CPU: every
+    leaf's gradient (the expert weights' through the hand-written FP8
+    backward), then two train steps, the second's loss depending on the
+    first's update.  The batch is 8 x 64 tokens: at 4 x 64 every expert's
+    128-row block holds padding rows, and the scaling-aware transpose then
+    flushes all of Wgrad-1 to zero on both paths (a fault the port keeps
+    from the reference; ROADMAP.md, Queue 3), so the comparison could not
+    see it.  The MoE leaves' CPU gradients must be nonzero."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.data.pipeline import DataConfig, make_batch_np
+    from repro_torch.models.lm import forward, init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    from repro_torch.weights import params_to
+
+    cfg = get_arch("qwen3_moe_235b").reduced()
+    recipe = get_recipe("fp8_flow")
+    opt = AdamWConfig(lr=1e-3)
+    batch_np = make_batch_np(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                        global_batch=8), 0)
+    out, grads = {}, {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        # the same random params on both paths (a fresh CPU draw each)
+        state = init_train_state(cfg, opt, device=d, params=params_to(
+            init_params(cfg, seed=0, device="cpu"), d))
+        step = make_train_step(cfg, recipe, opt, total_steps=10,
+                               warmup_steps=1)
+        batch = {k: torch.from_numpy(v).to(d) for k, v in batch_np.items()}
+        loss, _ = forward(cfg, recipe, state["params"], batch)
+        loss.backward()
+        grads[name] = {path: p.grad.float().cpu()
+                       for path, p in named_leaves(state["params"])}
+        for _, p in named_leaves(state["params"]):
+            p.grad = None
+        state, m1 = step(state, batch)
+        state, m2 = step(state, batch)
+        out[name] = (float(m1["loss"]), float(m1["grad_norm"]),
+                     float(m2["loss"]))
+        del state, step
+    (lg, gg, lg2), (lc, gc, lc2) = out["cuda"], out["cpu"]
+    rel_loss, rel_gn = abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc)
+    rel_loss2 = abs(lg2 - lc2) / abs(lc2)
+    cos = {path: cosine(grads["cuda"][path], grads["cpu"][path])
+           for path in grads["cpu"]}
+    print(json.dumps({"gpu_vs_cpu_train": dict(
+        config="qwen3_moe_235b.reduced()", loss=[lg, lc],
+        grad_norm=[gg, gc], rel_loss=rel_loss, rel_grad_norm=rel_gn,
+        step2_loss=[lg2, lc2], rel_step2_loss=rel_loss2,
+        grad_cosine=cos)}))
+    check(np.isfinite([lg, lc, gg, gc, lg2, lc2]).all(),
+          "a non-finite train step")
+    check(rel_loss <= 1e-3, f"GPU vs CPU train loss rel diff {rel_loss}")
+    check(rel_gn <= 1e-2, f"GPU vs CPU grad norm rel diff {rel_gn}")
+    check(rel_loss2 <= 1e-3,
+          f"GPU vs CPU second-step loss rel diff {rel_loss2}")
+    check(set(MOE_LEAVES) <= set(cos),
+          f"the expert and router leaves are missing: {sorted(cos)}")
+    check(all(grads["cpu"][p].abs().max().item() > 0 for p in MOE_LEAVES),
+          "a MoE leaf's gradient is zero on the CPU path")
+    low = {p: c for p, c in cos.items() if not c >= GRAD_COSINE_MIN}
+    check(not low, f"GPU vs CPU gradient cosine < {GRAD_COSINE_MIN}: {low}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -402,21 +840,38 @@ def main() -> int:
 
     cfg = serve_config()
     timings = kernel_checks(cfg, PEAKS, dev)
-    launches = serve_path(cfg, dev)
+    serve_launches = serve_path(cfg, dev)
     gpu_vs_cpu(dev)
+    tcfg = train_config()
+    for kname, rows in train_kernel_checks(tcfg, PEAKS, dev).items():
+        timings.setdefault(kname, []).extend(rows)
+    train_launches = train_path(tcfg, dev)
+    gpu_vs_cpu_train(dev)
 
-    from repro_torch.kernels import (fused_permute_pad, fused_swiglu_quant,
-                                     grouped_gemm_fp8, quantize)
+    from repro_torch.kernels import (fp8_transpose, fused_permute_pad,
+                                     fused_swiglu_quant, grouped_gemm_fp8,
+                                     grouped_gemm_nt_fp8, quantize)
     modules = {"quantize_rowwise": quantize,
                "fused_permute_pad": fused_permute_pad,
                "grouped_gemm_fp8": grouped_gemm_fp8,
-               "fused_swiglu_quant": fused_swiglu_quant}
+               "fused_swiglu_quant": fused_swiglu_quant,
+               "fp8_transpose": fp8_transpose,
+               "grouped_gemm_nt_fp8": grouped_gemm_nt_fp8,
+               "grouped_gemm_fp8_quant_out": grouped_gemm_fp8}
+    replaces = {"grouped_gemm_fp8_quant_out":
+                grouped_gemm_fp8.REPLACES_QUANT_OUT}
     rows = []
     for kname in kernels.KERNELS:
-        main_row = timings[kname][0]          # the first prefill shape
+        # the main row: the first shape of the first path that runs it
+        main_row = timings[kname][0]
+        main_launches = serve_launches if kname in SERVE_KERNELS else \
+            train_launches
         rows.append(dict(
             name=kname, route="cuda", source=modules[kname].SOURCE,
-            replaces=modules[kname].REPLACES, launches=launches[kname],
+            replaces=replaces.get(kname, modules[kname].REPLACES),
+            launches=main_launches[kname],
+            launches_by_path={"serve": serve_launches[kname],
+                              "train": train_launches[kname]},
             max_abs_err=max(r["max_abs_err"] for r in timings[kname]),
             ms=main_row["kernel_ms"], call_ms=main_row["call_ms"],
             plain_ms=main_row["plain_ms"],

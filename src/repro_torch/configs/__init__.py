@@ -1,7 +1,7 @@
 """Architecture registry (a copy of ``repro.configs``' registry).
 
 Only the architectures the port can serve are registered; the others join
-as their layer kinds are ported (ROADMAP.md, Queue 1).
+as their layer kinds are ported (ROADMAP.md, Queue 1, item 2).
 """
 from repro_torch.configs.base import (ArchConfig, SHAPES, ShapeSpec,
                                       applicable_shapes)
@@ -18,6 +18,6 @@ def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ported: {ARCH_IDS}); "
-            "see ROADMAP.md, Queue 1")
+            "see ROADMAP.md, Queue 1, item 2")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG

@@ -9,6 +9,13 @@ stack records once at trace time.
 Weight quantization is tagged separately (``q_w*``) and excluded from
 ``activation_casts()``; fused casts (``fused_*`` kinds, folded into a
 surrounding kernel) are counted by ``fused_casts()``.
+
+The active ledger is a ``ContextVar``.  PyTorch runs a CUDA backward on a
+per-device autograd thread, which does not see the caller's context, so
+every ``autograd.Function`` of the FP8 path captures the ledger in its
+forward (``current()``) and re-enters it in its backward (``use``): the
+backward's casts land in the ledger of the step that built the graph, on
+the CPU and on the card alike.
 """
 from __future__ import annotations
 
@@ -63,11 +70,22 @@ def record(kind: str, tag: str, numel: int) -> None:
         led.events.append(CastEvent(kind, tag, int(numel)))
 
 
+def current() -> Optional[CastLedger]:
+    """The active ledger (None outside ``ledger()``)."""
+    return _LEDGER.get()
+
+
 @contextlib.contextmanager
-def ledger():
-    led = CastLedger()
+def use(led: Optional[CastLedger]):
+    """Make `led` the active ledger in this thread for the block."""
     tok = _LEDGER.set(led)
     try:
         yield led
     finally:
         _LEDGER.reset(tok)
+
+
+@contextlib.contextmanager
+def ledger():
+    with use(CastLedger()) as led:
+        yield led

@@ -1,8 +1,8 @@
-"""The MoE block, EP = 1, forward only: router -> FP8 dispatch (entry
-quantize + fused permute+pad) -> expert grouping -> grouped expert FFN ->
-combine.
+"""The MoE block, EP = 1: router -> FP8 dispatch (entry quantize + fused
+permute+pad) -> expert grouping -> grouped expert FFN -> combine, forward
+and backward.
 
-Counterpart of the serving subset of ``repro.core.moe``.  With one
+Counterpart of the EP = 1 subset of ``repro.core.moe``.  With one
 expert-parallel rank every all-to-all and psum of the reference is an
 identity, so it is left out; the routing plans, the capacities and the
 drop rules are kept bit for bit, because they decide which assignments
@@ -10,6 +10,13 @@ drop (core/moe.py:279, :283, :503 in the reference; the 128-row rounding
 of C_exp is part of that).  The plans use stable argsorts, and their
 scatters hit duplicate indices only on the scratch slot that is sliced
 off, as in the reference.
+
+The FP8 boundaries are ``torch.autograd.Function``s, as they are
+``custom_vjp``s in the reference: ``dispatch_quantize`` (backward: the FP8
+gradient rows dequantized inside the per-token segment sum) and
+``permute_q`` (backward: the same fused permute+pad kernel gathers the
+FP8 cotangent by the inverse map, with no dequantize).  The router, the
+probability weighting and the combine are plain differentiable ops.
 """
 from __future__ import annotations
 
@@ -17,9 +24,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import casts
 from repro_torch.core.fp8 import TILE
 from repro_torch.core.linear import expert_ffn, quantize_entry
-from repro_torch.core.quant import QTensor
+from repro_torch.core.quant import QTensor, _dequantize_nocount, row_tile
 from repro_torch.core.recipes import Recipe
 from repro_torch.kernels import ops
 
@@ -122,17 +130,60 @@ def _segment_sum(rows, seg, n: int):
 
 
 # ---------------------------------------------------------------------------
-# Dispatch: the entry quantize fused with the send permute.
+# QTensor permute and the dispatch boundary, each with its explicit VJP.
 # ---------------------------------------------------------------------------
-def permute_q(recipe: Recipe, q: QTensor, row_map) -> QTensor:
-    """Gather QTensor rows by row_map (fused permute+pad kernel)."""
-    return ops.fused_permute_pad(q, row_map)
+class _PermuteQ(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, scale, row_map, inv_map):
+        ctx.save_for_backward(inv_map)
+        q = ops.fused_permute_pad(QTensor(data, scale, row_tile(2)), row_map)
+        return q.data, q.scale
+
+    @staticmethod
+    def backward(ctx, gd, gs):
+        (inv_map,) = ctx.saved_tensors
+        q = ops.fused_permute_pad(QTensor(gd, gs, row_tile(2)), inv_map)
+        return q.data, q.scale, None, None
+
+
+def permute_q(recipe: Recipe, q: QTensor, row_map, inv_map) -> QTensor:
+    """Gather the rows of a 2-D row-tiled QTensor by row_map (fused
+    permute+pad kernel).  row_map must be injective on valid slots; the
+    backward gathers the FP8 cotangent by inv_map -- FP8 gradients route
+    without any dequantization."""
+    data, scale = _PermuteQ.apply(q.data, q.scale, row_map, inv_map)
+    return QTensor(data, scale, q.tile)
+
+
+class _DispatchQuantize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, row_map):
+        ctx.ledger = casts.current()
+        ctx.save_for_backward(row_map)
+        ctx.T, ctx.x_dtype = x.shape[0], x.dtype
+        casts.record("quantize", "q_entry", x.numel())
+        q = ops.fused_permute_pad(ops.quantize_rowwise(x), row_map)
+        return q.data, q.scale
+
+    @staticmethod
+    def backward(ctx, gd, gs):
+        (row_map,) = ctx.saved_tensors
+        with casts.use(ctx.ledger):
+            casts.record("fused_dequantize", "dispatch_bwd", gd.numel())
+        g_rows = _dequantize_nocount(QTensor(gd, gs, row_tile(2)),
+                                     torch.bfloat16)
+        seg = torch.where(row_map >= 0, row_map, ctx.T)
+        return _segment_sum(g_rows, seg, ctx.T).to(ctx.x_dtype), None
 
 
 def dispatch_quantize(recipe: Recipe, x, row_map) -> QTensor:
-    """fp8_flow entry: ONE explicit quantize, then the fused permute+pad
-    into the padded send layout."""
-    return ops.fused_permute_pad(quantize_entry(recipe, x), row_map)
+    """fp8_flow entry: ONE explicit quantize (the paper's entry cast), then
+    the fused permute+pad into the padded send layout.  Backward: the FP8
+    gradient rows are dequantized inside the consuming segment sum (fused)
+    and summed per source token (the top-k reduction, kept in f32/bf16 by
+    design)."""
+    data, scale = _DispatchQuantize.apply(x, row_map)
+    return QTensor(data, scale, row_tile(2))
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +210,7 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
                          0.0)
 
     row_map_exp, ret_map = _expert_plan(slot_expert, E_loc, C_exp)
-    q_exp = permute_q(recipe, q_recv, row_map_exp)
+    q_exp = permute_q(recipe, q_recv, row_map_exp, ret_map)
     ffn_in = QTensor(q_exp.data.reshape(E_loc, C_exp, D),
                      q_exp.scale.reshape(E_loc, C_exp, D // TILE),
                      (1, 1, TILE))

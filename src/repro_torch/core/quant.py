@@ -24,7 +24,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import casts
-from repro_torch.core.fp8 import TILE, cast_to, po2_scale
+from repro_torch.core.fp8 import E4M3, TILE, cast_to, po2_scale
+from repro_torch.device import CHUNK_ELEMS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +107,23 @@ def quantize_fields(x: torch.Tensor, tile):
     """(payload e4m3, po2 scales) of x under `tile`, without a ledger
     record.  A bf16 input is divided in bf16: division by a power of two is
     exact there, and bf16 -> e4m3 rounds as f32 -> e4m3 (same bits as the
-    f32 route at half the temporary bytes)."""
+    f32 route at half the temporary bytes).  Tiles never span the leading
+    axis when tile[0] == 1, so a tensor larger than CHUNK_ELEMS (the
+    (E, K, N) expert weights) is quantized a slice of experts at a time,
+    with the same bits and temporaries of a slice, not of the whole leaf."""
+    if x.ndim >= 3 and tile[0] == 1 and x.numel() > CHUNK_ELEMS:
+        step = max(1, CHUNK_ELEMS // (x.numel() // x.shape[0]))
+        data = torch.empty(x.shape, dtype=E4M3, device=x.device)
+        scale = torch.empty(_scale_shape(x.shape, tile), dtype=torch.float32,
+                            device=x.device)
+        for i in range(0, x.shape[0], step):
+            data[i:i + step], scale[i:i + step] = _quantize_fields(
+                x[i:i + step], tile)
+        return data, scale
+    return _quantize_fields(x, tile)
+
+
+def _quantize_fields(x: torch.Tensor, tile):
     scale = compute_scale(x, tile)
     if x.dtype == torch.bfloat16:
         xf = _tiled_op(x, scale.to(torch.bfloat16), tile, torch.div)

@@ -18,6 +18,9 @@ PORTED = ("fp8_flow",)
 class Recipe:
     name: str = "fp8_flow"
     scale_mode: str = "po2"
+    # the reference's options that the port does not run yet; True raises
+    save_h: bool = False
+    masked_experts: bool = False
 
     def __post_init__(self):
         if self.name not in RECIPES:
@@ -28,6 +31,14 @@ class Recipe:
                 "fp8_flow only (ROADMAP.md, Queue 1, item 4)")
         if self.scale_mode != "po2":
             raise NotImplementedError("fp8_flow uses po2 scales only")
+        if self.save_h:
+            raise NotImplementedError(
+                "save_h=True (keep the bf16 h for the backward) is not ported "
+                "yet; the port recomputes h (ROADMAP.md, Queue 1, item 6)")
+        if self.masked_experts:
+            raise NotImplementedError(
+                "masked experts (and their SwiGLU GEMM-1 epilogue) are not "
+                "ported yet (ROADMAP.md, Queue 1, item 5)")
 
 
 def get_recipe(name: str) -> Recipe:

@@ -7,6 +7,12 @@ from __future__ import annotations
 
 import torch
 
+# elements of a large tensor that an f32-widening pass (the weight
+# quantizer, the global norm, the AdamW update, the cross-entropy) handles
+# at once: 128 MiB of f32, where a whole full-width expert leaf widened to
+# f32 would be 6.4 GB
+CHUNK_ELEMS = 1 << 25
+
 
 def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)

@@ -1,4 +1,4 @@
-"""The serving path's hand-written Hopper kernels.
+"""The port's hand-written Hopper kernels (serving and training paths).
 
 Each kernel module holds the plain PyTorch twin (``*_plain``), the CUDA
 launch (``*_cuda``, source under ``repro_torch/csrc``) and a note naming
@@ -12,7 +12,8 @@ through the kernels.
 from __future__ import annotations
 
 KERNELS = ("quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8",
-           "fused_swiglu_quant")
+           "fused_swiglu_quant", "fp8_transpose", "grouped_gemm_nt_fp8",
+           "grouped_gemm_fp8_quant_out")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 

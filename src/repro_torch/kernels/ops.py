@@ -11,12 +11,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import QTensor, row_tile
+from repro_torch.kernels.fp8_transpose import (fp8_transpose_cuda,
+                                               fp8_transpose_plain)
 from repro_torch.kernels.fused_permute_pad import (fused_permute_pad_cuda,
                                                    fused_permute_pad_plain)
 from repro_torch.kernels.fused_swiglu_quant import (fused_swiglu_quant_cuda,
                                                     fused_swiglu_quant_plain)
 from repro_torch.kernels.grouped_gemm_fp8 import (grouped_gemm_fp8_cuda,
                                                   grouped_gemm_fp8_plain)
+from repro_torch.kernels.grouped_gemm_nt_fp8 import (
+    grouped_gemm_nt_fp8_cuda, grouped_gemm_nt_fp8_plain)
 from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
                                           quantize_rowwise_plain)
 
@@ -50,7 +54,49 @@ def fused_permute_pad(q: QTensor, row_map: torch.Tensor) -> QTensor:
     return QTensor(data, scale, q.tile)
 
 
+def _weight_fields(qw: QTensor):
+    """(payload, scales, w_trans) of a block-tiled (E, K, N) weight: the
+    stored tensors, or -- when qw is the transposed view of a stored
+    (E, N, K) weight, as ``core.linear._block_t`` makes it -- that stored
+    layout and w_trans=True (the kernel reads it transposed)."""
+    d, s = qw.data, qw.scale
+    if d.is_contiguous() and s.is_contiguous():
+        return d, s, False
+    dt, st = d.transpose(1, 2), s.transpose(1, 2)
+    if dt.is_contiguous() and st.is_contiguous():
+        return dt, st, True
+    raise ValueError("grouped_gemm_fp8: the weight must be contiguous or "
+                     "the transpose of a contiguous weight")
+
+
 def grouped_gemm_fp8(qx: QTensor, qw: QTensor) -> torch.Tensor:
     """qx (E, C, K) row-tiled x qw (E, K, N) block-tiled -> (E, C, N) bf16."""
     fn = grouped_gemm_fp8_cuda if _on_card(qx.data) else grouped_gemm_fp8_plain
-    return fn(qx.data, qx.scale, qw.data, qw.scale)
+    w, sw, w_trans = _weight_fields(qw)
+    return fn(qx.data, qx.scale, w, sw, w_trans=w_trans)
+
+
+def grouped_gemm_fp8_quant_out(qx: QTensor, qw: QTensor) -> QTensor:
+    """As grouped_gemm_fp8, with the f32 accumulator quantized row-wise to
+    e4m3 in the epilogue -> row-tiled QTensor (E, C, N)."""
+    fn = grouped_gemm_fp8_cuda if _on_card(qx.data) else grouped_gemm_fp8_plain
+    w, sw, w_trans = _weight_fields(qw)
+    data, scale = fn(qx.data, qx.scale, w, sw, w_trans=w_trans,
+                     quant_out=True)
+    return QTensor(data, scale, row_tile(3))
+
+
+def grouped_gemm_nt_fp8(qa: QTensor, qb: QTensor,
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """qa (E, M, C), qb (E, N, C), both row-tiled over C -> (E, M, N)."""
+    fn = grouped_gemm_nt_fp8_cuda if _on_card(qa.data) else \
+        grouped_gemm_nt_fp8_plain
+    return fn(qa.data, qa.scale, qb.data, qb.scale, out_dtype)
+
+
+def fp8_transpose(q: QTensor) -> QTensor:
+    """Scaling-aware direct transpose of a row-tiled (E, M, K) QTensor ->
+    row-tiled (E, K, M), scales block-aligned."""
+    fn = fp8_transpose_cuda if _on_card(q.data) else fp8_transpose_plain
+    data, scale = fn(q.data, q.scale)
+    return QTensor(data, scale, row_tile(3))

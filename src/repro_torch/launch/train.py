@@ -1,0 +1,64 @@
+"""Training launcher: the fp8_flow train step on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_moe_235b \\
+      --reduced --device cuda [--steps 20] [--seq-len 256] [--global-batch 8]
+
+The flags are the reference launcher's (``repro.launch.train``) that the
+single-device port runs, plus ``--device`` (``cuda``: the hand-written
+kernels; ``cpu``: their plain twins).  Checkpointing, the DP wire,
+guardrails, rematerialization policies, gradient accumulation and
+telemetry are not ported yet (ROADMAP.md, Queue 1, items 6-9).  Without
+``--reduced`` the full 94-layer config is built, which one card cannot
+hold.
+"""
+import argparse
+import time
+
+from repro_torch.configs import get_arch
+from repro_torch.core.recipes import get_recipe
+from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.train_step import init_train_state, make_train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3_moe_235b")
+    ap.add_argument("--recipe", default="fp8_flow")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain twins)")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    recipe = get_recipe(args.recipe)
+    opt = AdamWConfig(lr=args.lr)
+    state = init_train_state(cfg, opt, seed=0, device=args.device)
+    step_fn = make_train_step(cfg, recipe, opt, total_steps=args.steps,
+                              warmup_steps=max(args.steps // 10, 1))
+    data = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                      global_batch=args.global_batch)
+    print(f"[train] {args.arch} ({cfg.n_params() / 1e9:.2f}B params) "
+          f"recipe={recipe.name} device={args.device}")
+    losses = []
+    for step in range(args.steps):
+        batch = make_batch(data, step, device=args.device)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])        # one host sync a step
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        print(f"[train] step {step} loss {loss:.4f} grad_norm "
+              f"{float(metrics['grad_norm']):.4f} {dt * 1e3:.0f} ms")
+    print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
-"""Transformer layer primitives for the serving path: norms, RoPE, the QKV
-projection, blocked (flash-style) prefill attention and per-request decode
-attention.
+"""Transformer layer primitives for the serving and training paths: norms,
+RoPE, the QKV projection, blocked (flash-style) prefill attention and
+per-request decode attention.
 
 Counterpart of the forward subset of ``repro.models.layers``, in plain
 PyTorch ops with the reference's layouts (q (B, S, H, hd), k/v
 (B, S, KV, hd)) and arithmetic: f32 softmax, the softmax scale folded
-into q for prefill, -1e30 masking.  Attention stays bf16 in every recipe
+into q for prefill, -1e30 masking.  Training differentiates these with
+autograd: the reference's hand-written flash-attention VJP is XLA code,
+not a Pallas kernel, and a hand-written backward is a later slice's.  Attention stays bf16 in every recipe
 (the paper's FP8 scope is the MoE stage).  ``scaled_dot_product_attention``
 is not used: it is a library kernel.
 """

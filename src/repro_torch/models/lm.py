@@ -1,13 +1,13 @@
-"""Decoder LM, paged-serving subset: parameters, embedding, logits, the MoE
-stage and the paged prefill / decode stacks.
+"""Decoder LM: parameters, embedding, logits, the MoE stage, the training
+forward with its loss, and the paged prefill / decode stacks.
 
-Counterpart of the serving subset of ``repro.models.lm`` for
-attention-only decoders whose every layer is an MoE layer (qwen3_moe).
-Parameters keep the reference's stacked layout (``params["layers"][name]``
-is (L, ...)), so ``repro_torch.weights.params_from_numpy`` carries the
-reference's trees across unchanged; the stack runs as a Python loop over
-layer slices.  Architectures with dense layers or shared experts raise
-until the dense MLP is ported (ROADMAP.md, Queue 1).
+Counterpart of ``repro.models.lm`` for attention-only decoders whose every
+layer is an MoE layer (qwen3_moe).  Parameters keep the reference's
+stacked layout (``params["layers"][name]`` is (L, ...)), so
+``repro_torch.weights.params_from_numpy`` carries the reference's trees
+across unchanged; the stack runs as a Python loop over layer slices.
+Architectures with dense layers or shared experts raise until the dense
+MLP is ported (ROADMAP.md, Queue 1, item 2).
 
 Pools are updated IN PLACE (the reference returns new pools from a pure
 function): a page write is an indexed store into the pool tensors.
@@ -20,7 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import MoEConfig, moe_block, moe_block_decode
 from repro_torch.core.quant import QTensor
 from repro_torch.core.recipes import Recipe
-from repro_torch.device import resolve_device
+from repro_torch.device import CHUNK_ELEMS, resolve_device
 from repro_torch.models.layers import (apply_norm, decode_attention,
                                        flash_attention, project_qkv)
 from repro_torch.serve.paged_kv import (SCRATCH_PAGE, page_read,
@@ -41,7 +41,7 @@ def _paged_stacks(cfg: ArchConfig):
     if not cfg.moe or cfg.n_dense_layers or cfg.n_shared_experts:
         raise NotImplementedError(
             f"{cfg.name}: dense layers and shared experts are not ported yet "
-            "(ROADMAP.md, Queue 1)")
+            "(ROADMAP.md, Queue 1, item 2)")
     return kinds
 
 
@@ -146,6 +146,138 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False):
     block = moe_block_decode if decode else moe_block
     y, m = block(recipe, mcfg, x.reshape(B * S, D), p["w_router"], we13, we2)
     return y.reshape(B, S, D), m["aux_loss"]
+
+
+# ---------------------------------------------------------------------------
+# Training / prefill forward + loss.
+# ---------------------------------------------------------------------------
+AUX_LOSS_COEF = 0.01
+
+
+class _LayerSlice(torch.autograd.Function):
+    """leaf[i] of a stacked (L, ...) parameter.  Plain indexing would give
+    the stacked leaf a full-size zero gradient per layer; a one-layer stack
+    takes its layer's gradient as it comes (a view, no copy), which at full
+    width saves a 3.2 GB transient on w13."""
+
+    @staticmethod
+    def forward(ctx, leaf, i):
+        ctx.i, ctx.shape = i, leaf.shape
+        return leaf[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.shape[0] == 1:
+            return g.unsqueeze(0), None
+        full = g.new_zeros(ctx.shape)
+        full[ctx.i] = g
+        return full, None
+
+
+def _train_layer_slice(stack_params, i: int):
+    return {name: _LayerSlice.apply(leaf, i)
+            for name, leaf in stack_params.items()}
+
+
+def stage_ln_attn(cfg, p, x, positions, window: int):
+    """Pre-norm + causal attention + residual add (autograd differentiates
+    the flash forward; the reference's hand-written flash VJP is XLA, not
+    Pallas, and comes with a later slice)."""
+    B, S, _ = x.shape
+    h = apply_norm(cfg.norm, x, p, "ln1")
+    q, k, v = project_qkv(cfg, p, h, positions)
+    o = flash_attention(q, k, v, q_pos=positions, kv_pos=positions,
+                        causal=True, window=window, softcap=cfg.attn_softcap)
+    return x + o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
+def _sub_layer(cfg, recipe, kind, p, x, positions):
+    """One decoder layer: attention, then the MoE stage.  Returns (x, aux)."""
+    x = stage_ln_attn(cfg, p, x, positions,
+                      cfg.window if kind == "local" else 0)
+    mo, aux = _moe_stage(cfg, recipe, p, apply_norm(cfg.norm, x, p, "ln2"))
+    return x + mo, aux
+
+
+def _run_stack(cfg, recipe, stack_params, pattern, n_layers, x, positions):
+    """The reference's scanned stack as a Python loop over layer slices."""
+    if n_layers % len(pattern):
+        pattern = (pattern[0],)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_layers):
+        x, a = _sub_layer(cfg, recipe, pattern[i % len(pattern)],
+                          _train_layer_slice(stack_params, i), x, positions)
+        aux = aux + a
+    return x, aux
+
+
+class _Xent(torch.autograd.Function):
+    """Cross-entropy over bf16 logits (the reference's custom VJP): the
+    forward reductions and the backward dlogits run in f32 a block of rows
+    at a time, so the (T, V) tensor never exists in f32; dlogits is bf16."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, mask):
+        V = logits.shape[-1]
+        lf2 = logits.reshape(-1, V)
+        t = targets.reshape(-1).long()
+        step = max(1, CHUNK_ELEMS // V)
+        lse, gold = [], []
+        for r in range(0, lf2.shape[0], step):
+            lf = lf2[r:r + step].to(torch.float32)
+            m = lf.amax(dim=-1)
+            lse.append(torch.log(torch.exp(lf - m[:, None]).sum(-1)) + m)
+            gold.append(lf.gather(-1, t[r:r + step, None])[:, 0])
+        lse, gold = torch.cat(lse), torch.cat(gold)
+        mk = mask.reshape(-1).to(torch.float32)
+        denom = torch.clamp(mk.sum(), min=1.0)
+        ctx.save_for_backward(logits, t, mk, lse, denom)
+        return ((lse - gold) * mk).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, t, mk, lse, denom = ctx.saved_tensors
+        V = logits.shape[-1]
+        lf2 = logits.reshape(-1, V)
+        out = torch.empty_like(lf2)
+        w = mk * g / denom
+        step = max(1, CHUNK_ELEMS // V)
+        for r in range(0, lf2.shape[0], step):
+            p = torch.exp(lf2[r:r + step].to(torch.float32)
+                          - lse[r:r + step, None])
+            p.scatter_add_(-1, t[r:r + step, None],
+                           torch.full_like(p[:, :1], -1.0))   # p - onehot
+            out[r:r + step] = (p * w[r:r + step, None]).to(out.dtype)
+        return out.reshape(logits.shape), None, None
+
+
+def xent(logits, targets, mask):
+    return _Xent.apply(logits, targets, mask)
+
+
+def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
+            compute_loss: bool = True):
+    """batch: {'tokens' (B, S) int, 'targets' (B, S), optional 'mask'
+    (B, S)}.  Returns (loss, metrics) or, with compute_loss=False,
+    (logits, metrics)."""
+    _paged_stacks(cfg)
+    tokens = batch["tokens"]
+    x = _embed_tokens(cfg, params, tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    x, aux = _run_stack(cfg, recipe, params["layers"], cfg.pattern,
+                        cfg.n_layers, x, positions)
+    logits = _lm_logits(cfg, params, _final_norm(cfg, params, x))
+    metrics = {"aux_loss": aux}
+    if not compute_loss:
+        return logits, metrics
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=x.device)
+    loss = xent(logits, batch["targets"], mask) + AUX_LOSS_COEF * aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,15 @@
 """The port's kernel twins against the JAX package's Pallas kernels (run in
 interpret mode through repro.kernels.ops, as tests/test_kernels.py does),
-on the same numpy inputs.  Quantize and permute+pad are bitwise; the
-grouped GEMM is held to rtol=atol=2e-2 (f32 summation order) plus the
-mean-relative-error check against the dequantized product; SwiGLU+quantize
-has equal scales and equal payload bytes except on lanes where the f32
-sigmoid bits of the two libraries differ, and there at most one e4m3 code.
+on the same numpy inputs.  Quantize, permute+pad and the scaling-aware
+transpose are bitwise (the transpose also against the reference's float
+``transpose_direct``, subnormal edge included); the grouped GEMMs (NN,
+transposed-weight and NT) are held to rtol=atol=2e-2 (f32 summation
+order), the NN one also to the mean-relative-error check against the
+dequantized product; the quant-out GEMM has equal scales and payload codes
+within one on at most 0.1% of lanes (the f32 sums' order moves a value
+across a rounding boundary); SwiGLU+quantize has equal scales and equal
+payload bytes except on lanes where the f32 sigmoid bits of the two
+libraries differ, and there at most one e4m3 code.
 
 The launches of the hand-written CUDA kernels are held against the twins
 on the card in tests/test_torch_gpu.py (no jax there)."""
@@ -17,13 +22,20 @@ import torch
 from repro.core.fp8 import TILE
 from repro.core.quant import QTensor as JQ
 from repro.core.quant import _dequantize_nocount, quantize
+from repro.core.transpose import transpose_direct as jtranspose_direct
 from repro.kernels import ops as jops
+from repro.kernels.fp8_transpose import fp8_transpose_pallas
+from repro.kernels.grouped_gemm_fp8 import grouped_gemm_fp8_pallas
+from repro.kernels.grouped_gemm_nt_fp8 import grouped_gemm_nt_fp8_pallas
 from repro_torch import kernels
 from repro_torch.core.quant import QTensor
+from repro_torch.core.transpose import transpose_direct
 from repro_torch.kernels import ops
+from repro_torch.kernels.fp8_transpose import fp8_transpose_plain
 from repro_torch.kernels.fused_permute_pad import fused_permute_pad_plain
 from repro_torch.kernels.fused_swiglu_quant import fused_swiglu_quant_plain
 from repro_torch.kernels.grouped_gemm_fp8 import grouped_gemm_fp8_plain
+from repro_torch.kernels.grouped_gemm_nt_fp8 import grouped_gemm_nt_fp8_plain
 from repro_torch.kernels.quantize import quantize_rowwise_plain
 
 
@@ -121,6 +133,109 @@ def test_swiglu_quant_twin_matches_pallas(m, f):
     assert np.abs(_ordinal(bt) - _ordinal(bj))[differ].max(initial=0) <= 1
 
 
+@pytest.mark.parametrize("shape", [(128, 128), (256, 128), (128, 256),
+                                   (384, 384)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fp8_transpose_twin_matches_pallas_bitwise(shape, seed):
+    qj = jops.quantize_rowwise(jnp.asarray(_x(seed, *shape, spread=2.5)))
+    dj, sj = fp8_transpose_pallas(qj.data, qj.scale)
+    d, s = fp8_transpose_plain(_t(qj.data), _t(qj.scale))
+    assert np.array_equal(d.view(torch.uint8).numpy(), _u8(dj))
+    assert np.array_equal(s.numpy(), np.asarray(sj))
+
+
+def test_fp8_transpose_subnormal_edge_bitwise():
+    """Rows 2**22 apart in one block: rebasing shifts deep into and past the
+    subnormal range (tests/test_kernels.py's edge case)."""
+    r = np.random.default_rng(3)
+    x = r.normal(size=(128, 128)).astype(np.float32)
+    x[::2] *= 2.0 ** 12
+    x[1::2] *= 2.0 ** -10
+    qj = jops.quantize_rowwise(jnp.asarray(x))
+    dj, sj = fp8_transpose_pallas(qj.data, qj.scale)
+    d, s = fp8_transpose_plain(_t(qj.data), _t(qj.scale))
+    assert np.array_equal(d.view(torch.uint8).numpy(), _u8(dj))
+    assert np.array_equal(s.numpy(), np.asarray(sj))
+    assert (d.view(torch.uint8).numpy() & 0x78 == 0).any()   # subnormals
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (256, 128), (128, 256),
+                                   (384, 384), (2, 128, 256), (3, 256, 384)])
+def test_transpose_direct_matches_reference_bitwise(shape):
+    """The port's transpose_direct (through the kernel's twin) against the
+    reference's float formulation, and zero ledger events."""
+    qj, q = _q(_x(4, *shape, spread=2.5), (1,) * (len(shape) - 1) + (TILE,))
+    rj = jtranspose_direct(qj)
+    from repro_torch.core import casts
+    with casts.ledger() as led:
+        qt = transpose_direct(q)
+    assert led.total() == 0
+    assert qt.tile == tuple(rj.tile)
+    assert np.array_equal(qt.data.view(torch.uint8).numpy(), _u8(rj.data))
+    assert np.array_equal(qt.scale.numpy(), np.asarray(rj.scale))
+
+
+@pytest.mark.parametrize("e,m,n,c", [(2, 128, 128, 128), (2, 256, 128, 256),
+                                     (3, 128, 384, 384)])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_grouped_gemm_nt_twin_matches_pallas(e, m, n, c, out_dtype):
+    qaj, qa = _q(_x(7, e, m, c, spread=0.5), (1, 1, TILE))
+    qbj, qb = _q(_x(8, e, n, c, spread=0.5) * 0.05, (1, 1, TILE))
+    oj = np.asarray(grouped_gemm_nt_fp8_pallas(
+        qaj.data, qaj.scale, qbj.data, qbj.scale,
+        out_dtype=jnp.dtype(out_dtype)), np.float32)
+    ot = grouped_gemm_nt_fp8_plain(qa.data, qa.scale, qb.data, qb.scale,
+                                   getattr(torch, out_dtype))
+    np.testing.assert_allclose(ot.to(torch.float32).numpy(), oj, rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("e,c,k,n", [(2, 128, 256, 128), (2, 256, 384, 256)])
+@pytest.mark.parametrize("w_trans", [False, True])
+def test_grouped_gemm_quant_out_twin_matches_pallas(e, c, k, n, w_trans):
+    """The quant-out epilogue, reading w as stored or transposed, against
+    grouped_gemm_fp8_pallas(quant_out=True) on the same (logical) w."""
+    qxj, qx = _q(_x(9, e, c, k, spread=0.5), (1, 1, TILE))
+    stored = (e, n, k) if w_trans else (e, k, n)
+    qwj, qw = _q(_x(10, *stored, spread=0.3) * 0.05, (1, TILE, TILE))
+    wj, swj = qwj.data, qwj.scale
+    if w_trans:
+        wj, swj = jnp.swapaxes(wj, 1, 2), jnp.swapaxes(swj, 1, 2)
+    dj, sj = grouped_gemm_fp8_pallas(qxj.data, qxj.scale, wj, swj,
+                                     quant_out=True)
+    d, s = grouped_gemm_fp8_plain(qx.data, qx.scale, qw.data, qw.scale,
+                                  w_trans=w_trans, quant_out=True)
+    assert np.array_equal(s.numpy(), np.asarray(sj))
+    diff = np.abs(_ordinal(d.view(torch.uint8).numpy()) - _ordinal(_u8(dj)))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("e,c,k,n", [(2, 128, 256, 128), (3, 40, 384, 256)])
+def test_grouped_gemm_transposed_weight_twin(e, c, k, n):
+    """Reading a stored (E, N, K) weight transposed equals the product with
+    its materialized transpose bit for bit, and the Pallas kernel within
+    rtol=atol=2e-2; ops routes a transposed view there."""
+    _, qx = _q(_x(11, e, c, k, spread=0.5), (1, 1, TILE))
+    qwj, qw = _q(_x(12, e, n, k, spread=0.3) * 0.05, (1, TILE, TILE))
+    out = grouped_gemm_fp8_plain(qx.data, qx.scale, qw.data, qw.scale,
+                                 w_trans=True)
+    wt = qw.data.transpose(1, 2).contiguous()
+    swt = qw.scale.transpose(1, 2).contiguous()
+    assert torch.equal(out, grouped_gemm_fp8_plain(qx.data, qx.scale, wt,
+                                                   swt))
+    view = QTensor(qw.data.transpose(1, 2), qw.scale.transpose(1, 2),
+                   qw.tile)
+    assert torch.equal(out, ops.grouped_gemm_fp8(qx, view))
+    qxj = JQ(jnp.asarray(np.asarray(qx.data.view(torch.uint8)).view(
+        jnp.float8_e4m3fn)), jnp.asarray(qx.scale.numpy()), (1, 1, TILE))
+    oj = jops.grouped_gemm_fp8(qxj, JQ(jnp.swapaxes(qwj.data, 1, 2),
+                                       jnp.swapaxes(qwj.scale, 1, 2),
+                                       (1, TILE, TILE)))
+    np.testing.assert_allclose(out.to(torch.float32).numpy(),
+                               np.asarray(oj, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_cpu_route_launches_no_kernel():
     """On CPU tensors the wrappers take the twins: no launch is counted."""
     before = dict(kernels.LAUNCHES)
@@ -129,7 +244,11 @@ def test_cpu_route_launches_no_kernel():
     ops.fused_swiglu_quant(torch.randn(8, 256).to(torch.bfloat16))
     qw = QTensor(qx.data[:, :128].reshape(1, 8, 128).repeat(1, 16, 1),
                  torch.ones(1, 1, 1), (1, TILE, TILE))
-    ops.grouped_gemm_fp8(QTensor(qx.data.reshape(1, 8, 256)[:, :, :128],
-                                 qx.scale.reshape(1, 8, 2)[:, :, :1],
-                                 (1, 1, TILE)), qw)
+    q3 = QTensor(qx.data.reshape(1, 8, 256)[:, :, :128].contiguous(),
+                 qx.scale.reshape(1, 8, 2)[:, :, :1].contiguous(), (1, 1, TILE))
+    ops.grouped_gemm_fp8(q3, qw)
+    ops.grouped_gemm_fp8_quant_out(q3, qw)
+    q128 = QTensor(qw.data, torch.ones(1, 128, 1), (1, 1, TILE))
+    ops.grouped_gemm_nt_fp8(q128, q128)
+    ops.fp8_transpose(q128)
     assert kernels.LAUNCHES == before
