@@ -4,7 +4,9 @@ over chip_smoke.py's serve trace and train step on one NVIDIA GPU.
 
     python3 chip_profile.py        # from the repo root; needs one card
 
-Serve pass: builds the same engine as chip_smoke.py's phase 3
+Each pass runs with the padded recipe, then with the masked one
+(masked_experts + the fused SwiGLU GEMM-1 epilogue; chip_smoke.py phases
+3b and 6b).  Serve pass: builds the same engine as chip_smoke.py's phase 3
 (qwen3_moe_235b at full width, 4 layers, W8 experts, FP8 KV), runs the
 16-request trace once to warm up, once more with no profiler to time it,
 then again under torch.profiler (CPU + CUDA activity).  Train pass: the
@@ -21,6 +23,7 @@ kernels.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
@@ -28,14 +31,14 @@ import torch
 
 import chip_smoke
 
-# kernel-name substrings -> group (first match wins)
-GROUPS = (("grouped_gemm_nt_fp8", ("grouped_gemm_nt_fp8_kernel",)),
-          ("grouped_gemm_fp8_quant_out",
-           ("grouped_gemm_fp8_kernel<64, true, true>",
-            "grouped_gemm_fp8_kernel<16, true, true>",
-            "grouped_gemm_fp8_kernel<64, false, true>",
-            "grouped_gemm_fp8_kernel<16, false, true>")),
-          ("grouped_gemm_fp8", ("grouped_gemm_fp8_kernel",)),
+# the grouped GEMMs' template flags name their group:
+# grouped_gemm_fp8_kernel<BM, W_TRANS, QUANT_OUT, MASKED>,
+# grouped_gemm_nt_fp8_kernel<BF16_OUT, MASKED>
+GG = re.compile(r"grouped_gemm_fp8_kernel<\d+, \w+, (\w+), (\w+)>")
+NT = re.compile(r"grouped_gemm_nt_fp8_kernel<\w+, (\w+)>")
+# other kernel-name substrings -> group (first match wins)
+GROUPS = (("masked_grouped_gemm_swiglu_quant",
+           ("grouped_gemm_swiglu_quant_kernel",)),
           ("fp8_transpose", ("fp8_transpose_kernel",)),
           ("quantize_rowwise", ("quantize_rowwise_kernel",)),
           ("fused_permute_pad", ("permute_pad_kernel",)),
@@ -44,6 +47,15 @@ GROUPS = (("grouped_gemm_nt_fp8", ("grouped_gemm_nt_fp8_kernel",)),
 
 
 def group_of(name: str) -> str:
+    m = GG.search(name)
+    if m:
+        return (("masked_" if m.group(2) == "true" else "")
+                + "grouped_gemm_fp8"
+                + ("_quant_out" if m.group(1) == "true" else ""))
+    m = NT.search(name)
+    if m:
+        return ("masked_" if m.group(1) == "true" else "") + \
+            "grouped_gemm_nt_fp8"
     for group, pats in GROUPS:
         if any(p in name for p in pats):
             return group
@@ -106,32 +118,39 @@ def main() -> int:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0))
 
-    eng, reqs = chip_smoke.make_serve(chip_smoke.serve_config(), dev)
-    eng.run(reqs, realtime=False)                      # warm-up pass
+    for masked in (False, True):
+        eng, reqs = chip_smoke.make_serve(chip_smoke.serve_config(), dev,
+                                          masked)
+        eng.run(reqs, realtime=False)                  # warm-up pass
 
-    def serve():
-        t0 = eng.stats()["ticks"]
-        results = eng.run(reqs, realtime=False)
-        chip_smoke.check(len(results) == len(reqs), "a serve run incomplete")
-        return results.stats["ticks"] - t0
+        def serve():
+            t0 = eng.stats()["ticks"]
+            results = eng.run(reqs, realtime=False)
+            chip_smoke.check(len(results) == len(reqs),
+                             "a serve run incomplete")
+            return results.stats["ticks"] - t0
 
-    profile_pass("serve", serve, "ticks")
-    del eng
-    torch.cuda.empty_cache()
+        profile_pass("masked_serve" if masked else "serve", serve, "ticks")
+        del eng
+        torch.cuda.empty_cache()
 
     cfg = chip_smoke.train_config()
-    state, step, batch = chip_smoke.make_train(cfg, dev)
-    box = {"state": state}
+    for masked in (False, True):
+        state, step, batch = chip_smoke.make_train(cfg, dev, masked)
+        box = {"state": state}
+        del state
 
-    def train(n=3):
-        for _ in range(n):
-            box["state"], m = step(box["state"], batch)
-            chip_smoke.check(bool(torch.isfinite(m["loss"])),
-                             "a non-finite train loss")
-        return n
+        def train(n=3):
+            for _ in range(n):
+                box["state"], m = step(box["state"], batch)
+                chip_smoke.check(bool(torch.isfinite(m["loss"])),
+                                 "a non-finite train loss")
+            return n
 
-    train(1)                                           # warm-up step
-    profile_pass("train", train, "steps")
+        train(1)                                       # warm-up step
+        profile_pass("masked_train" if masked else "train", train, "steps")
+        box.clear()
+        torch.cuda.empty_cache()
     return 0
 
 

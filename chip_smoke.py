@@ -14,34 +14,55 @@ Phases (any failure raises and the script exits non-zero):
      of the H100 SXM and a library yardstick;
   3. the serve path: a ServeEngine over qwen3_moe_235b at full width, depth
      cut to 4 layers, random W8 weights from a seed, FP8 paged KV, serving
-     16 greedy requests; every serving kernel's launch count must be > 0;
+     16 greedy requests; every kernel of the path launched, no other;
+     3b. the same engine, trace and seed with the masked recipe
+     (masked_experts + the fused SwiGLU GEMM-1 epilogue): exactly the
+     padded pass's tokens, through #5 and #7 and never #3 or #8; its plans
+     (masked_m of a bucket-64 prefill and of a decode step) are kept;
+     2b. #7 and #5 on the dispatch layouts of those plans: against their
+     twins (GEMM rtol=atol=2e-2; #7 equal scales, codes within one on
+     < 1% of lanes) and bit for bit against #3 then #8 / #3, each timed
+     beside its padded counterpart, with the live-tile share;
   4. GPU path vs CPU path: at reduced() size, one prefill + decode step on
-     the card (kernels) and on the CPU (plain twins), logits cosine >= 0.999;
-  5. all seven kernels vs plain at the train path's full-width shapes
-     (2048 tokens, 128 experts x 256 rows): quantize (entry, backward
-     island, dact_quant) and permute+pad (send, grouping, the backward
-     gather by the inverse map) bitwise, SwiGLU+quantize (equal scales,
-     codes within one on < 1% of lanes), the scaling-aware transpose
-     (bitwise), GEMM-1/GEMM-2, the NT Wgrad GEMMs and the transposed-weight
-     Dgrad-2 GEMM (rtol=atol=2e-2), the quant-out Dgrad-1 GEMM (equal
-     scales, payload codes within one on < 0.1% of lanes), with the same
-     timings as phase 2;
+     the card (kernels) and on the CPU (plain twins), logits cosine >=
+     0.999, for the padded and the masked recipe;
+  5. all seven padded kernels vs plain at the train path's full-width
+     shapes (2048 tokens, 128 experts x 256 rows): quantize (entry,
+     backward island, dact_quant) and permute+pad (send, grouping, the
+     backward gather by the inverse map) bitwise, SwiGLU+quantize (equal
+     scales, codes within one on < 1% of lanes), the scaling-aware
+     transpose (bitwise), GEMM-1/GEMM-2, the NT Wgrad GEMMs and the
+     transposed-weight Dgrad-2 GEMM (rtol=atol=2e-2), the quant-out
+     Dgrad-1 GEMM (equal scales, payload codes within one on < 0.1% of
+     lanes), with the same timings as phase 2;
   6. the train path: qwen3_moe_235b at full width, depth cut to 1 layer,
      random bf16 params from a seed, AdamW (lr 1e-3 after the reference
      make_train_step's default 100-step warmup), one fixed batch of
      2 x 1024 tokens for 4 steps: finite and falling loss, 2 activation
-     casts per MoE layer per step, every one of the seven kernels launched;
-     tokens/s, ms a step and peak device memory;
+     casts per MoE layer per step, every kernel of the path launched and
+     no other; tokens/s, ms a step and peak device memory;
+     6b. the padded run's state freed, the same from the same seed with
+     the masked recipe: every step's loss the padded run's bit for bit,
+     through #5, #6, #7 and #11 and never #3, #4, #8 or #10; its first
+     step's plan is kept;
+     5b. the four masked kernels on the dispatch layout of that plan at
+     the train step's shapes (#7 GEMM-1; #5 GEMM-2, the h recompute,
+     Dgrad-2; #6 Dgrad-1; #11 Wgrad-1 and -2), to the tolerances of
+     phase 5 against their twins and bit for bit against their padded
+     kernels, timed beside them;
   7. GPU path vs CPU path for reduced() training from the same params and
-     batch (8 x 64 tokens): every leaf's gradient cosine >= 0.999 (the
-     expert weights' and the router's, nonzero, included), the first
-     step's loss within 1e-3 relative and global grad norm within 1%, the
-     second step's loss (after the first update) within 1e-3 relative;
-  8. the {"kernels": [...]} summary line, then the result line.
+     batch (8 x 64 tokens), padded and masked: every leaf's gradient
+     cosine >= 0.999 (the expert weights' and the router's, nonzero,
+     included), the first step's loss within 1e-3 relative and global
+     grad norm within 1%, the second step's loss (after the first update)
+     within 1e-3 relative;
+  8. the {"kernels": [...]} summary line (all eleven), then the result
+     line.
 It imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -62,9 +83,42 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAKS = dict(bw=3.35e12, fp8=1979e12, bf16=989e12, f32=67e12)
 
 
-# the kernels of the serve path (the train path runs all seven)
-SERVE_KERNELS = ("quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8",
-                 "fused_swiglu_quant")
+# the kernels each path runs; every other kernel must stay at 0 launches
+# in that path's run
+PATH_KERNELS = {
+    "serve": ("quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8",
+              "fused_swiglu_quant"),
+    "masked_serve": ("quantize_rowwise", "fused_permute_pad",
+                     "masked_grouped_gemm_fp8",
+                     "masked_grouped_gemm_swiglu_quant"),
+    "train": ("quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8",
+              "fused_swiglu_quant", "fp8_transpose", "grouped_gemm_nt_fp8",
+              "grouped_gemm_fp8_quant_out"),
+    "masked_train": ("quantize_rowwise", "fused_permute_pad",
+                     "fp8_transpose", "masked_grouped_gemm_fp8",
+                     "masked_grouped_gemm_fp8_quant_out",
+                     "masked_grouped_gemm_swiglu_quant",
+                     "masked_grouped_gemm_nt_fp8"),
+}
+
+
+def recipe_for(masked: bool):
+    """The padded fp8_flow recipe, or the masked one with the fused SwiGLU
+    GEMM-1 epilogue."""
+    from repro_torch.core.recipes import get_recipe
+    if masked:
+        return get_recipe("fp8_flow", masked_experts=True,
+                          swiglu_epilogue=True)
+    return get_recipe("fp8_flow")
+
+
+def check_launches(path, launches):
+    """Every kernel of the path launched, every other one never."""
+    run = PATH_KERNELS[path]
+    check(all(launches[k] > 0 for k in run),
+          f"a kernel of the {path} path was never launched: {launches}")
+    check(all(n == 0 for k, n in launches.items() if k not in run),
+          f"the {path} path launched a kernel not its own: {launches}")
 
 
 class SmokeFailure(RuntimeError):
@@ -275,6 +329,215 @@ def check_gemm(record, shape, x, sx, qw, w_trans=False,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The masked kernels against their twins and their padded counterparts, on
+# the dispatch layout of a plan's masked_m (phases 2b and 5b).
+# ---------------------------------------------------------------------------
+MASKED_LIBRARY = ("torch.bmm on the bf16-dequantized operands of the live "
+                  "experts, rows (or tokens) cut to the largest live count "
+                  "(nearest yardstick; not the same function)")
+
+
+def live_stats(mm, C):
+    """What a plan's masked_m leaves live in a capacity of C rows (host
+    reads, outside every path): live rows, experts, 128-row groups."""
+    mmc = mm.clamp(0, C).long()
+    groups = (C + 127) // 128
+    live_groups = int(((mmc + 127) // 128).sum())
+    return dict(live_rows=int(mmc.sum()), live_experts=int((mmc > 0).sum()),
+                live_tile_share=live_groups / (mm.numel() * groups),
+                max_live=int(mmc.max()))
+
+
+def dispatch_rows(gen, dev, mm, C, K):
+    """(E, C, K) e4m3 + row scales from random bf16 rows, the rows at or
+    beyond masked_m[e] zero (payload 0, scale 1.0): the dispatch layout."""
+    from repro_torch.kernels import quantize
+    E = mm.numel()
+    x = torch.randn((E, C, K), generator=gen, device=dev, dtype=torch.bfloat16)
+    live = torch.arange(C, device=dev)[None, :] < mm[:, None]
+    d, s = quantize.quantize_rowwise_cuda(
+        torch.where(live[..., None], x, 0).reshape(E * C, K))
+    return d.reshape(E, C, K), s.reshape(E, C, K // 128)
+
+
+def dispatch_cols(gen, dev, mm, M, C):
+    """(E, M, C) e4m3 + row scales over C with the token columns at or
+    beyond masked_m[e] zero: a Wgrad operand as the transpose of the
+    dispatch layout gives it."""
+    from repro_torch.kernels import quantize
+    E = mm.numel()
+    x = torch.randn((E, M, C), generator=gen, device=dev, dtype=torch.bfloat16)
+    live = torch.arange(C, device=dev)[None, None, :] < mm[:, None, None]
+    d, s = quantize.quantize_rowwise_cuda(
+        torch.where(live, x, 0).reshape(E * M, C))
+    return d.reshape(E, M, C), s.reshape(E, M, C // 128)
+
+
+def live_bf16(d, s, idx, rows=None, tile=(1, 1, 128)):
+    """bf16-dequantized (E, R, K) operand of the live experts idx, rows cut
+    to `rows` (row-tiled operands), for the library yardstick."""
+    from repro_torch.core.quant import QTensor, _dequantize_nocount
+    d, s = d[idx], s[idx]
+    if rows is not None:
+        d, s = d[:, :rows].contiguous(), s[:, :rows].contiguous()
+    return _dequantize_nocount(QTensor(d, s, tile), torch.bfloat16)
+
+
+def check_masked_gemm(record, shape, x, sx, qw, mm, w_trans=False,
+                      quant_out=False):
+    """#5 (bf16 out) or #6 (quant_out) on the dispatch layout of mm: within
+    the tolerances of check_gemm of its twin, and bit for bit the padded
+    kernel (#3 / #4) on the same inputs, which is timed beside it."""
+    from repro_torch.core.quant import QTensor, _dequantize_nocount
+    from repro_torch.kernels import grouped_gemm_fp8 as gg
+    E, C, K = x.shape
+    N = qw.data.shape[1] if w_trans else qw.data.shape[2]
+    args = (x, sx, qw.data, qw.scale)
+    kw = dict(w_trans=w_trans, quant_out=quant_out)
+    out = gg.masked_grouped_gemm_fp8_cuda(*args, mm, **kw)
+    ref = gg.masked_grouped_gemm_fp8_plain(*args, mm, **kw)
+    pad = gg.grouped_gemm_fp8_cuda(*args, **kw)
+    if quant_out:
+        check(torch.equal(out[1], ref[1]), f"masked gemm {shape}: scales "
+              "differ from the twin")
+        check(torch.equal(out[0].view(torch.uint8), pad[0].view(torch.uint8))
+              and torch.equal(out[1], pad[1]),
+              f"masked gemm {shape}: not bitwise the padded kernel")
+        extra = {"tolerance": "scales equal, payload codes within 1 on "
+                              "< 0.1% of lanes; bitwise the padded kernel",
+                 "mismatch_frac": codes_within_one(out[0], ref[0], 1e-3,
+                                                   f"masked gemm {shape}")}
+        err = (_dequantize_nocount(QTensor(*out, (1, 1, 128)), torch.float32)
+               - _dequantize_nocount(QTensor(*ref, (1, 1, 128)),
+                                     torch.float32)).abs().max().item()
+        name = "masked_grouped_gemm_fp8_quant_out"
+        out_bytes = E * C * N * (1 + 4 / 128)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2, msg=f"masked gemm {shape}")
+        check(torch.equal(out.view(torch.int16), pad.view(torch.int16)),
+              f"masked gemm {shape}: not bitwise the padded kernel")
+        extra = {"tolerance": "rtol=atol=2e-2; bitwise the padded kernel"}
+        err = (out.float() - ref.float()).abs().max().item()
+        name, out_bytes = "masked_grouped_gemm_fp8", E * C * N * 2
+    del out, ref, pad
+    st = live_stats(mm, C)
+    idx = torch.nonzero(mm > 0).squeeze(1)
+    xb = live_bf16(x, sx, idx, st["max_live"])
+    wb = live_bf16(qw.data, qw.scale, idx, tile=qw.tile)
+    wb = wb.transpose(1, 2) if w_trans else wb
+    wshape = f"({E},{N},{K})^T" if w_trans else f"({E},{K},{N})"
+    record(name, f"{shape} ({E},{C},{K})x{wshape}",
+           lambda: gg.masked_grouped_gemm_fp8_cuda(*args, mm, **kw),
+           lambda: gg.masked_grouped_gemm_fp8_plain(*args, mm, **kw),
+           lambda: torch.bmm(xb, wb),
+           st["live_rows"] * K * (1 + 4 / 128)
+           + st["live_experts"] * (K * N + (K // 128) * (N // 128) * 4)
+           + out_bytes,
+           2 * st["live_rows"] * K * N, record.peaks["fp8"], err,
+           {**extra, **st, "library": MASKED_LIBRARY,
+            "padded_ms": time_ms(lambda: gg.grouped_gemm_fp8_cuda(*args,
+                                                                   **kw))},
+           plain_target_ms=50)
+    del xb, wb
+    torch.cuda.empty_cache()
+
+
+def check_masked_swiglu(record, shape, x, sx, qw13, mm):
+    """#7 on the dispatch layout of mm: equal scales and payload codes
+    within one on < 1% of lanes against its twin (the sigmoid's last
+    bits), and bit for bit #3 (bf16 h) then #8, which is timed beside it."""
+    from repro_torch.kernels import fused_swiglu_quant as fsq
+    from repro_torch.kernels import grouped_gemm_fp8 as gg
+    from repro_torch.kernels import grouped_gemm_swiglu_quant as gsq
+    E, C, K = x.shape
+    F = qw13.data.shape[2] // 2
+    args = (x, sx, qw13.data, qw13.scale)
+    d, s = gsq.masked_grouped_gemm_swiglu_quant_cuda(*args, mm)
+    dp, sp = gsq.masked_grouped_gemm_swiglu_quant_plain(*args, mm)
+
+    def pair():
+        h = gg.grouped_gemm_fp8_cuda(*args)
+        return fsq.fused_swiglu_quant_cuda(h.reshape(E * C, 2 * F))
+
+    du, su = pair()
+    check(torch.equal(s, sp), f"swiglu epilogue {shape}: scales differ")
+    frac = codes_within_one(d, dp, 0.01, f"swiglu epilogue {shape}")
+    check(torch.equal(d.view(torch.uint8),
+                      du.view(torch.uint8).reshape(E, C, F))
+          and torch.equal(s, su.reshape(E, C, F // 128)),
+          f"swiglu epilogue {shape}: not bitwise the GEMM + SwiGLU pair")
+    err = (dq(d.reshape(E * C, F), s.reshape(E * C, -1))
+           - dq(dp.reshape(E * C, F), sp.reshape(E * C, -1))
+           ).abs().max().item()
+    del d, s, dp, sp, du, su
+    st = live_stats(mm, C)
+    idx = torch.nonzero(mm > 0).squeeze(1)
+    xb = live_bf16(x, sx, idx, st["max_live"])
+    wb = live_bf16(qw13.data, qw13.scale, idx, tile=qw13.tile)
+    record("masked_grouped_gemm_swiglu_quant",
+           f"{shape} ({E},{C},{K})x({E},{K},{2 * F})->({E},{C},{F}) e4m3",
+           lambda: gsq.masked_grouped_gemm_swiglu_quant_cuda(*args, mm),
+           lambda: gsq.masked_grouped_gemm_swiglu_quant_plain(*args, mm),
+           lambda: torch.bmm(xb, wb),
+           st["live_rows"] * K * (1 + 4 / 128)
+           + st["live_experts"] * (K * 2 * F + (K // 128) * (2 * F // 128) * 4)
+           + E * C * F * (1 + 4 / 128),
+           2 * st["live_rows"] * K * 2 * F, record.peaks["fp8"], err,
+           {"tolerance": "scales equal, payload codes within 1 on < 1% of "
+                         "lanes (sigmoid bits); bitwise GEMM then SwiGLU",
+            "mismatch_frac": frac, **st,
+            "library": MASKED_LIBRARY + "; the GEMM only",
+            "padded_ms": time_ms(pair)}, plain_target_ms=50)
+    del xb, wb
+    torch.cuda.empty_cache()
+
+
+def check_masked_nt(record, shape, a, sa, b, sb, mm):
+    """#11 (bf16 out) with the dead token columns zero: rtol=atol=2e-2
+    against its twin and bit for bit the padded #10, timed beside it."""
+    from repro_torch.kernels import grouped_gemm_nt_fp8 as nt
+    E, M, C = a.shape
+    N = b.shape[1]
+    bf16 = torch.bfloat16
+    args = (a, sa, b, sb)
+    out = nt.masked_grouped_gemm_nt_fp8_cuda(*args, mm, bf16)
+    ref = nt.masked_grouped_gemm_nt_fp8_plain(*args, mm, bf16)
+    pad = nt.grouped_gemm_nt_fp8_cuda(*args, bf16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2,
+                               msg=f"masked gemm_nt {shape}")
+    check(torch.equal(out.view(torch.int16), pad.view(torch.int16)),
+          f"masked gemm_nt {shape}: not bitwise the padded kernel")
+    err = (out.float() - ref.float()).abs().max().item()
+    del out, ref, pad
+    st = live_stats(mm, C)
+    mmc = mm.clamp(0, C).long()
+    steps = int(((mmc + 127) // 128).sum())
+    idx = torch.nonzero(mm > 0).squeeze(1)
+    cl = st["max_live"]
+    ab = live_bf16(a, sa, idx)[:, :, :cl].contiguous()
+    bb = live_bf16(b, sb, idx)[:, :, :cl].transpose(1, 2).contiguous()
+    record("masked_grouped_gemm_nt_fp8",
+           f"{shape} ({E},{M},{C})x({E},{N},{C})^T bf16 out",
+           lambda: nt.masked_grouped_gemm_nt_fp8_cuda(*args, mm, bf16),
+           lambda: nt.masked_grouped_gemm_nt_fp8_plain(*args, mm, bf16),
+           lambda: torch.bmm(ab, bb),
+           (M + N) * (st["live_rows"] + steps * 4) + E * M * N * 2,
+           2 * M * N * st["live_rows"], record.peaks["fp8"], err,
+           {"tolerance": "rtol=atol=2e-2; bitwise the padded kernel",
+            **st, "live_token_steps": steps, "library": MASKED_LIBRARY,
+            "padded_ms": time_ms(lambda: nt.grouped_gemm_nt_fp8_cuda(
+                *args, bf16))}, plain_target_ms=50)
+    del ab, bb
+    torch.cuda.empty_cache()
+
+
+def add_rows(timings, rows):
+    for kname, rs in rows.items():
+        timings.setdefault(kname, []).extend(rs)
+
+
 class KernelRows:
     """Collects the timed rows of phases 2 and 5 by kernel name."""
 
@@ -369,10 +632,9 @@ def serve_config():
     return dataclasses.replace(get_arch("qwen3_moe_235b"), n_layers=4)
 
 
-def make_serve(cfg, dev):
+def make_serve(cfg, dev, masked=False):
     """The serve path's engine (random W8 weights from seed 0, FP8 KV) and
     its trace: 16 greedy requests, prompts of 3-48 tokens, 16 new each."""
-    from repro_torch.core.recipes import get_recipe
     from repro_torch.models.lm import init_params
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.scheduler import Request
@@ -382,13 +644,13 @@ def make_serve(cfg, dev):
                        prefill_buckets=(16, 32, 64), fp8_kv=True,
                        w8_weights=True, seed=0)
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, get_recipe("fp8_flow"),
+    eng = ServeEngine(cfg, recipe_for(masked),
                       init_params(cfg, seed=0, device=dev), ecfg, device=dev)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name} n_layers={cfg.n_layers} d_model="
           f"{cfg.d_model} experts={cfg.n_experts} top{cfg.top_k} "
-          f"vocab={cfg.vocab}: random W8 params + FP8 pool in "
-          f"{time.perf_counter() - t0:.1f}s, kv pool "
+          f"vocab={cfg.vocab} masked={masked}: random W8 params + FP8 pool "
+          f"in {time.perf_counter() - t0:.1f}s, kv pool "
           f"{eng.kv_bytes() / 2**20:.1f} MiB")
     r = np.random.default_rng(0)
     reqs = [Request(prompt=[int(t) for t in
@@ -397,31 +659,68 @@ def make_serve(cfg, dev):
     return eng, reqs
 
 
-def serve_path(cfg, dev):
+@contextlib.contextmanager
+def recorded_plans():
+    """Keeps a device copy of every masked_m the MoE blocks compute, by
+    capacity (no host read inside the path)."""
+    from repro_torch.core import moe
+    orig, plans = moe._masked_m_or_none, {}
+
+    def record(recipe, row_map_exp, E_loc, C):
+        mm = orig(recipe, row_map_exp, E_loc, C)
+        if mm is not None:
+            plans.setdefault(C, []).append(mm.clone())
+        return mm
+
+    moe._masked_m_or_none = record
+    try:
+        yield plans
+    finally:
+        moe._masked_m_or_none = orig
+
+
+def pick_plan(plans):
+    """Of the calls with the most rows (prefill: the largest bucket), the
+    plan with the median number of live experts."""
+    totals = [int(p.sum()) for p in plans]
+    full = sorted((p for p, t in zip(plans, totals) if t == max(totals)),
+                  key=lambda p: int((p > 0).sum()))
+    return full[len(full) // 2]
+
+
+def serve_path(cfg, dev, masked=False, padded_tokens=None):
+    """The trace through the engine; with `masked`, the masked recipe,
+    whose tokens must be padded_tokens exactly.  Returns (launches, tokens
+    by request, the plans of a prefill and a decode step or None)."""
     from repro_torch import kernels
 
+    label = "masked_serve" if masked else "serve"
     torch.cuda.reset_peak_memory_stats()
-    eng, reqs = make_serve(cfg, dev)
+    eng, reqs = make_serve(cfg, dev, masked)
     ecfg = eng.ecfg
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = eng.run(reqs, realtime=False)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    with recorded_plans() as plans:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.run(reqs, realtime=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
 
-    n_tok = sum(len(v["tokens"]) for v in results.values())
+    tokens = [results[q.rid]["tokens"] for q in reqs]
+    n_tok = sum(len(t) for t in tokens)
     check(len(results) == len(reqs), "not every request finished")
-    check(all(len(results[q.rid]["tokens"]) == 16 for q in reqs),
+    check(all(len(t) == 16 for t in tokens),
           "a request stopped short of max_new_tokens")
-    check(all(0 <= t < cfg.vocab for v in results.values()
-              for t in v["tokens"]), "a token outside the vocabulary")
+    check(all(0 <= t < cfg.vocab for ts in tokens for t in ts),
+          "a token outside the vocabulary")
     check(eng.alloc.free_pages == ecfg.n_pages - 1, "pages were not returned")
-    check(all(launches[k] > 0 for k in SERVE_KERNELS),
-          f"a kernel was never launched on the serve path: {launches}")
+    check_launches(label, launches)
+    if masked:
+        check(tokens == padded_tokens, "the masked serve pass generated "
+              "other tokens than the padded pass")
     s = results.stats
-    print(json.dumps({"serve": dict(
+    print(json.dumps({label: dict(
         requests=len(results), tokens=n_tok, seconds=dt,
         tokens_per_s=n_tok / dt, ticks=s["ticks"],
         prefill_chunks=s["prefill_chunks"], evicted=s["evicted"],
@@ -446,18 +745,49 @@ def serve_path(cfg, dev):
                           torch.ones((8,), dtype=torch.bool, device=dev))
         per_step["decode_step_b8"] = dict(kernels.LAUNCHES)
     torch.cuda.synchronize()
-    print(json.dumps({"launches_per_step": per_step}))
+    print(json.dumps({f"{label}_launches_per_step": per_step}))
     del eng
     torch.cuda.empty_cache()
-    return launches
+    picked = None
+    if masked:
+        C_pf, C_dec = max(plans), min(plans)       # 128 (C_exp), 8 (C_dec)
+        # live experts of every MoE call, by (rows routed, live experts)
+        print(json.dumps({"masked_serve_plans": {
+            call: sorted((int(p.sum()), int((p > 0).sum())) for p in plans[C])
+            for call, C in (("prefill", C_pf), ("decode", C_dec))}}))
+        picked = {"prefill": pick_plan(plans[C_pf]),
+                  "decode": pick_plan(plans[C_dec])}
+    return launches, tokens, picked
+
+
+def masked_serve_kernel_checks(cfg, peaks, dev, plans):
+    """#7 (GEMM-1 + SwiGLU) and #5 (GEMM-2) on the dispatch layouts of the
+    masked serve pass's own plans: a bucket-64 prefill (C = 128) and an
+    8-slot decode step (C = 8); each against its twin and its padded
+    kernel(s), timed beside them."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    record = KernelRows(peaks)
+    w13 = blockq(gen, dev, E, D, 2 * F)
+    w2 = blockq(gen, dev, E, F, D)
+    for shape, C in (("prefill", 128), ("decode", 8)):
+        mm = plans[shape]
+        print(json.dumps({"masked_plan": dict(path="serve", call=shape,
+                                              **live_stats(mm, C))}))
+        check_masked_swiglu(record, f"{shape}_gemm1",
+                            *dispatch_rows(gen, dev, mm, C, D), w13, mm)
+        check_masked_gemm(record, f"{shape}_gemm2",
+                          *dispatch_rows(gen, dev, mm, C, F), w2, mm)
+    del w13, w2
+    torch.cuda.empty_cache()
+    return record.rows
 
 
 # ---------------------------------------------------------------------------
 # Phase 4: the GPU path against the CPU path at reduced() size.
 # ---------------------------------------------------------------------------
-def gpu_vs_cpu(dev):
+def gpu_vs_cpu(dev, masked=False):
     from repro_torch.configs import get_arch
-    from repro_torch.core.recipes import get_recipe
     from repro_torch.models.lm import (init_params, paged_decode_step,
                                        paged_prefill)
     from repro_torch.serve.paged_kv import init_paged_cache
@@ -465,7 +795,7 @@ def gpu_vs_cpu(dev):
     from repro_torch.weights import params_to
 
     cfg = get_arch("qwen3_moe_235b").reduced()
-    recipe = get_recipe("fp8_flow")
+    recipe = recipe_for(masked)
     params_cpu = quantize_params_for_serving(
         init_params(cfg, seed=0, device="cpu"))
     prompt = torch.from_numpy(
@@ -490,7 +820,8 @@ def gpu_vs_cpu(dev):
     same = [int(a.argmax()) == int(b.argmax())
             for a, b in zip(out["cuda"], out["cpu"])]
     print(json.dumps({"gpu_vs_cpu": dict(config="qwen3_moe_235b.reduced()",
-                                         cosine=cos, same_argmax=same)}))
+                                         masked=masked, cosine=cos,
+                                         same_argmax=same)}))
     check(min(cos) >= 0.999, f"GPU path vs CPU path cosine {cos} < 0.999")
 
 
@@ -623,14 +954,13 @@ def train_kernel_checks(cfg, peaks, dev):
 # ---------------------------------------------------------------------------
 # Phase 6: the train path at full width.
 # ---------------------------------------------------------------------------
-def make_train(cfg, dev):
+def make_train(cfg, dev, masked=False):
     """The train path's state (random bf16 params from seed 0, AdamW at the
     reference's defaults with lr=1e-3), step function (the reference
     make_train_step's default schedule: 100 warmup steps of a cosine over
     100k) and its one fixed batch (make_batch step 0, B=2, S=1024).  With
     no warmup, lr 1e-3 overshoots at this width: the loss falls at the
     second step and rises from the third (PERF.md, section 6)."""
-    from repro_torch.core.recipes import get_recipe
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_step import (init_train_state,
@@ -638,7 +968,7 @@ def make_train(cfg, dev):
 
     opt = AdamWConfig(lr=1e-3)
     state = init_train_state(cfg, opt, seed=0, device=dev)
-    step = make_train_step(cfg, get_recipe("fp8_flow"), opt)
+    step = make_train_step(cfg, recipe_for(masked), opt)
     batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
                                   global_batch=TRAIN_B), 0, device=dev)
     return state, step, batch
@@ -648,10 +978,9 @@ def expert_grad_zero_fraction(cfg, params, batch):
     """Fraction of exactly-zero entries in the expert weights' gradients
     of one more forward+backward (the scaling-aware transpose flushes a
     128-row block that holds a padding row; ROADMAP.md, Queue 3)."""
-    from repro_torch.core.recipes import get_recipe
     from repro_torch.models.lm import forward
     from repro_torch.optim.adamw import tree_leaves
-    loss, _ = forward(cfg, get_recipe("fp8_flow"), params, batch)
+    loss, _ = forward(cfg, recipe_for(False), params, batch)
     loss.backward()
     out = {}
     for name in ("we13", "we2"):
@@ -664,42 +993,51 @@ def expert_grad_zero_fraction(cfg, params, batch):
     return out
 
 
-def train_path(cfg, dev):
+def train_path(cfg, dev, masked=False, padded_losses=None):
+    """TRAIN_STEPS steps on the fixed batch; with `masked`, the masked
+    recipe from the same seed, whose every loss must be padded_losses'
+    bit for bit.  Returns (launches, losses, the first step's plan or
+    None)."""
     from repro_torch import kernels
     from repro_torch.core import casts
     from repro_torch.optim.adamw import tree_leaves
 
+    label = "masked_train" if masked else "train"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, step, batch = make_train(cfg, dev)
+    state, step, batch = make_train(cfg, dev, masked)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     state_gib = torch.cuda.memory_allocated() / 2**30
-    kernels.reset_launches()
     losses, gnorms, step_s, n_casts = [], [], [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with casts.ledger() as led:
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        gnorms.append(float(m["grad_norm"]))
-        n_casts.append(led.activation_casts())
-    launches = dict(kernels.LAUNCHES)
+    with recorded_plans() as plans:
+        kernels.reset_launches()
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with casts.ledger() as led:
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+            n_casts.append(led.activation_casts())
+        launches = dict(kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    zero_frac = expert_grad_zero_fraction(cfg, state["params"], batch)
+    zero_frac = None if masked else expert_grad_zero_fraction(
+        cfg, state["params"], batch)
     check(all(np.isfinite(losses)), f"a non-finite train loss: {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     check(all(n == 2 * cfg.n_layers for n in n_casts),
           f"activation casts per step {n_casts}, expected "
           f"{2 * cfg.n_layers} (2 per MoE layer)")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel was never launched on the train path: {launches}")
+    check_launches(label, launches)
+    if masked:
+        check(losses == padded_losses, f"masked train losses {losses} are "
+              f"not the padded run's {padded_losses} bit for bit")
     tokens = TRAIN_B * TRAIN_S
     warm = step_s[1:]
-    print(json.dumps({"train": dict(
+    print(json.dumps({label: dict(
         config=f"{cfg.name} n_layers={cfg.n_layers} full width",
         params=sum(p.numel() for p in tree_leaves(state["params"])),
         batch=[TRAIN_B, TRAIN_S], steps=TRAIN_STEPS, losses=losses,
@@ -714,7 +1052,42 @@ def train_path(cfg, dev):
         })}))
     del state, step, batch, m
     torch.cuda.empty_cache()
-    return launches
+    plan = plans[max(plans)][0] if masked else None
+    return launches, losses, plan
+
+
+def masked_train_kernel_checks(cfg, peaks, dev, mm):
+    """The four masked kernels at the shapes one full-width masked train
+    step gives them (C = 256 rows an expert), on the dispatch layout of
+    the masked train pass's own first plan: #7 GEMM-1, #5 GEMM-2, the h
+    recompute and Dgrad-2 (w2 read transposed), #6 Dgrad-1 (w13 read
+    transposed), #11 Wgrad-1 and Wgrad-2; each against its twin and its
+    padded kernel(s), timed beside them."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    C = train_capacity(cfg)                                     # 256
+    record = KernelRows(peaks)
+    print(json.dumps({"masked_plan": dict(path="train", call="step 1",
+                                          **live_stats(mm, C))}))
+    w13 = blockq(gen, dev, E, D, 2 * F)
+    check_masked_swiglu(record, "train_gemm1",
+                        *dispatch_rows(gen, dev, mm, C, D), w13, mm)
+    check_masked_gemm(record, "train_h_recompute",
+                      *dispatch_rows(gen, dev, mm, C, D), w13, mm)
+    del w13
+    for shape, K, N, w_trans, quant_out in (
+            ("train_gemm2", F, D, False, False),
+            ("dgrad2", D, F, True, False),
+            ("dgrad1", 2 * F, D, True, True)):
+        qw = blockq(gen, dev, *((E, N, K) if w_trans else (E, K, N)))
+        check_masked_gemm(record, shape, *dispatch_rows(gen, dev, mm, C, K),
+                          qw, mm, w_trans=w_trans, quant_out=quant_out)
+        del qw
+    for shape, M, N in (("wgrad1", D, 2 * F), ("wgrad2", F, D)):
+        check_masked_nt(record, shape, *dispatch_cols(gen, dev, mm, M, C),
+                        *dispatch_cols(gen, dev, mm, N, C), mm)
+    torch.cuda.empty_cache()
+    return record.rows
 
 
 # ---------------------------------------------------------------------------
@@ -741,7 +1114,7 @@ GRAD_COSINE_MIN = 0.999
 MOE_LEAVES = ("layers/we13", "layers/we2", "layers/w_router")
 
 
-def gpu_vs_cpu_train(dev):
+def gpu_vs_cpu_train(dev, masked=False):
     """From the same params and batch on the card and on the CPU: every
     leaf's gradient (the expert weights' through the hand-written FP8
     backward), then two train steps, the second's loss depending on the
@@ -751,7 +1124,6 @@ def gpu_vs_cpu_train(dev):
     from the reference; ROADMAP.md, Queue 3), so the comparison could not
     see it.  The MoE leaves' CPU gradients must be nonzero."""
     from repro_torch.configs import get_arch
-    from repro_torch.core.recipes import get_recipe
     from repro_torch.data.pipeline import DataConfig, make_batch_np
     from repro_torch.models.lm import forward, init_params
     from repro_torch.optim.adamw import AdamWConfig
@@ -760,7 +1132,7 @@ def gpu_vs_cpu_train(dev):
     from repro_torch.weights import params_to
 
     cfg = get_arch("qwen3_moe_235b").reduced()
-    recipe = get_recipe("fp8_flow")
+    recipe = recipe_for(masked)
     opt = AdamWConfig(lr=1e-3)
     batch_np = make_batch_np(DataConfig(vocab=cfg.vocab, seq_len=64,
                                         global_batch=8), 0)
@@ -789,7 +1161,7 @@ def gpu_vs_cpu_train(dev):
     cos = {path: cosine(grads["cuda"][path], grads["cpu"][path])
            for path in grads["cpu"]}
     print(json.dumps({"gpu_vs_cpu_train": dict(
-        config="qwen3_moe_235b.reduced()", loss=[lg, lc],
+        config="qwen3_moe_235b.reduced()", masked=masked, loss=[lg, lc],
         grad_norm=[gg, gc], rel_loss=rel_loss, rel_grad_norm=rel_gn,
         step2_loss=[lg2, lc2], rel_step2_loss=rel_loss2,
         grad_cosine=cos)}))
@@ -840,47 +1212,62 @@ def main() -> int:
 
     cfg = serve_config()
     timings = kernel_checks(cfg, PEAKS, dev)
-    serve_launches = serve_path(cfg, dev)
-    gpu_vs_cpu(dev)
+    launches = {}
+    launches["serve"], tokens, _ = serve_path(cfg, dev)
+    launches["masked_serve"], _, plans = serve_path(cfg, dev, masked=True,
+                                                    padded_tokens=tokens)
+    add_rows(timings, masked_serve_kernel_checks(cfg, PEAKS, dev, plans))
+    for masked in (False, True):
+        gpu_vs_cpu(dev, masked)
     tcfg = train_config()
-    for kname, rows in train_kernel_checks(tcfg, PEAKS, dev).items():
-        timings.setdefault(kname, []).extend(rows)
-    train_launches = train_path(tcfg, dev)
-    gpu_vs_cpu_train(dev)
+    add_rows(timings, train_kernel_checks(tcfg, PEAKS, dev))
+    launches["train"], losses, _ = train_path(tcfg, dev)
+    launches["masked_train"], _, plan = train_path(
+        tcfg, dev, masked=True, padded_losses=losses)
+    add_rows(timings, masked_train_kernel_checks(tcfg, PEAKS, dev, plan))
+    for masked in (False, True):
+        gpu_vs_cpu_train(dev, masked)
 
     from repro_torch.kernels import (fp8_transpose, fused_permute_pad,
                                      fused_swiglu_quant, grouped_gemm_fp8,
-                                     grouped_gemm_nt_fp8, quantize)
+                                     grouped_gemm_nt_fp8,
+                                     grouped_gemm_swiglu_quant, quantize)
     modules = {"quantize_rowwise": quantize,
                "fused_permute_pad": fused_permute_pad,
                "grouped_gemm_fp8": grouped_gemm_fp8,
                "fused_swiglu_quant": fused_swiglu_quant,
                "fp8_transpose": fp8_transpose,
                "grouped_gemm_nt_fp8": grouped_gemm_nt_fp8,
-               "grouped_gemm_fp8_quant_out": grouped_gemm_fp8}
-    replaces = {"grouped_gemm_fp8_quant_out":
-                grouped_gemm_fp8.REPLACES_QUANT_OUT}
+               "grouped_gemm_fp8_quant_out": grouped_gemm_fp8,
+               "masked_grouped_gemm_fp8": grouped_gemm_fp8,
+               "masked_grouped_gemm_fp8_quant_out": grouped_gemm_fp8,
+               "masked_grouped_gemm_swiglu_quant": grouped_gemm_swiglu_quant,
+               "masked_grouped_gemm_nt_fp8": grouped_gemm_nt_fp8}
+    replaces = {
+        "grouped_gemm_fp8_quant_out": grouped_gemm_fp8.REPLACES_QUANT_OUT,
+        "masked_grouped_gemm_fp8": grouped_gemm_fp8.REPLACES_MASKED,
+        "masked_grouped_gemm_fp8_quant_out":
+            grouped_gemm_fp8.REPLACES_MASKED_QUANT_OUT,
+        "masked_grouped_gemm_nt_fp8": grouped_gemm_nt_fp8.REPLACES_MASKED}
     rows = []
     for kname in kernels.KERNELS:
         # the main row: the first shape of the first path that runs it
         main_row = timings[kname][0]
-        main_launches = serve_launches if kname in SERVE_KERNELS else \
-            train_launches
+        main_path = next(p for p in PATH_KERNELS if kname in PATH_KERNELS[p])
         rows.append(dict(
             name=kname, route="cuda", source=modules[kname].SOURCE,
             replaces=replaces.get(kname, modules[kname].REPLACES),
-            launches=main_launches[kname],
-            launches_by_path={"serve": serve_launches[kname],
-                              "train": train_launches[kname]},
+            launches=launches[main_path][kname], launches_path=main_path,
+            launches_by_path={p: n[kname] for p, n in launches.items()},
             max_abs_err=max(r["max_abs_err"] for r in timings[kname]),
             ms=main_row["kernel_ms"], call_ms=main_row["call_ms"],
             plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"],
-            by_shape=[{k: r[k] for k in ("shape", "kernel_ms", "call_ms",
-                                         "plain_ms", "library_ms", "bound_ms",
-                                         "bound_by", "max_abs_err")}
-                      for r in timings[kname]]))
+            by_shape=[{k: r.get(k) for k in (
+                "shape", "kernel_ms", "call_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err", "padded_ms",
+                "live_tile_share")} for r in timings[kname]]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

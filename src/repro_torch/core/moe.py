@@ -115,6 +115,23 @@ def _expert_plan(recv_expert, E_loc: int, C_exp: int):
     return row_map_exp, ret_map
 
 
+def _expert_loads(row_map_exp, E_loc: int, C_exp: int):
+    """Per-expert live-row counts from the expert plan: the ``masked_m``
+    vector of the masked grouped-GEMM layout, computed on the device (no
+    host read).  _expert_plan fills each expert's slots contiguously from
+    0, so the count IS the live prefix length (rows >= count are the
+    zero-padded dead slots)."""
+    return (row_map_exp.reshape(E_loc, C_exp) >= 0).sum(
+        dim=1, dtype=torch.int32)
+
+
+def _masked_m_or_none(recipe: Recipe, row_map_exp, E_loc: int, C_exp: int):
+    """masked_m for the grouped FFN when the recipe opts in, else None."""
+    if recipe.masked_experts:
+        return _expert_loads(row_map_exp, E_loc, C_exp)
+    return None
+
+
 def _take_rows(x, row_map, fill=0.0):
     valid = (row_map >= 0)[:, None]
     rows = x[torch.clamp(row_map, min=0).to(torch.int64)]
@@ -123,10 +140,21 @@ def _take_rows(x, row_map, fill=0.0):
 
 
 def _segment_sum(rows, seg, n: int):
-    """f32 sum of rows into n segments (seg == n drops the row)."""
-    out = torch.zeros((n + 1, rows.shape[-1]), dtype=torch.float32,
-                      device=rows.device)
-    return out.index_add_(0, seg.to(torch.int64), rows.to(torch.float32))[:n]
+    """f32 sum of rows into n segments (seg == n drops the row), each
+    segment's rows added in row order, so a step gives the same bits in
+    every run.  The CPU's index_add_ adds serially.  On the card index_add_
+    adds with atomics, whose order changes from run to run, so there
+    index_put_ with accumulate (a stable sort of the indices, then ordered
+    adds) takes its place, each dropped row sent to a scratch row of its
+    own: in one shared row they would be added one after another."""
+    R, D = rows.shape
+    seg, rows = seg.to(torch.int64), rows.to(torch.float32)
+    if not rows.is_cuda:
+        out = torch.zeros((n + 1, D), dtype=torch.float32)
+        return out.index_add_(0, seg, rows)[:n]
+    out = torch.zeros((n + R, D), dtype=torch.float32, device=rows.device)
+    idx = torch.where(seg < n, seg, n + torch.arange(R, device=rows.device))
+    return out.index_put_((idx,), rows, accumulate=True)[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +242,8 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
     ffn_in = QTensor(q_exp.data.reshape(E_loc, C_exp, D),
                      q_exp.scale.reshape(E_loc, C_exp, D // TILE),
                      (1, 1, TILE))
-    y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2)
+    masked_m = _masked_m_or_none(recipe, row_map_exp, E_loc, C_exp)
+    y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m)
 
     p_exp = _take_rows(p_flat[:, None], row_map_exp).reshape(E_loc, C_exp)
     y_exp = y_exp * p_exp[..., None].to(y_exp.dtype)
@@ -259,7 +288,8 @@ def decode_stage_expert(recipe: Recipe, cfg: MoEConfig, ffn_in: QTensor, w13,
     """Grouped FFN + prob weighting + the per-token segment sum (f32)."""
     D = cfg.d_model
     E_loc, C_dec = ffn_in.data.shape[0], ffn_in.data.shape[1]
-    y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2)
+    masked_m = _masked_m_or_none(recipe, row_map_exp, E_loc, C_dec)
+    y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m)
     p_of_slot = torch.where(
         row_map_exp >= 0,
         p_c.reshape(-1)[torch.clamp(row_map_exp, min=0).long()], 0.0)

@@ -18,9 +18,17 @@ PORTED = ("fp8_flow",)
 class Recipe:
     name: str = "fp8_flow"
     scale_mode: str = "po2"
-    # the reference's options that the port does not run yet; True raises
+    # the reference's option that the port does not run yet; True raises
     save_h: bool = False
+    # Route the expert grouped GEMMs through the MASKED layout: per-expert
+    # live row counts from the expert plan skip dead 128-row capacity
+    # groups.  Bitwise the padded layout on the zero-padded dispatch
+    # buffers, so the padded path stays the default and the A/B baseline.
     masked_experts: bool = False
+    # Fuse the inter-GEMM SwiGLU + row-wise e4m3 quantize into GEMM-1's
+    # epilogue (masked layout only: it needs masked_experts; h never
+    # reaches device memory).  Bitwise the unfused pair.
+    swiglu_epilogue: bool = False
 
     def __post_init__(self):
         if self.name not in RECIPES:
@@ -35,11 +43,9 @@ class Recipe:
             raise NotImplementedError(
                 "save_h=True (keep the bf16 h for the backward) is not ported "
                 "yet; the port recomputes h (ROADMAP.md, Queue 1, item 6)")
-        if self.masked_experts:
-            raise NotImplementedError(
-                "masked experts (and their SwiGLU GEMM-1 epilogue) are not "
-                "ported yet (ROADMAP.md, Queue 1, item 5)")
 
 
-def get_recipe(name: str) -> Recipe:
-    return Recipe(name=name)
+def get_recipe(name: str, **kw) -> Recipe:
+    """The named recipe with the given fields overridden, e.g.
+    ``get_recipe("fp8_flow", masked_experts=True, swiglu_epilogue=True)``."""
+    return Recipe(name=name, **kw)

@@ -74,6 +74,15 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   v[2] = __low2float(b); v[3] = __high2float(b);
 }
 
+// silu(g) * u in f32: the fused SwiGLU of swiglu_quant.cu and of the
+// SwiGLU GEMM-1 epilogue (grouped_gemm_swiglu_quant.cu), one function so
+// the two agree bit for bit.  The sigmoid is 1 / (1 + exp(-g)) with every
+// rounding explicit (no contraction into an fma, whatever the caller).
+__device__ __forceinline__ float swiglu(float g, float u) {
+  const float sg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
+  return __fmul_rn(__fmul_rn(g, sg), u);
+}
+
 // Four e4m3 bytes of one 32-bit word -> four floats at dst (16-byte store).
 __device__ __forceinline__ void unpack4(uint32_t w, float* dst) {
   float4 f;

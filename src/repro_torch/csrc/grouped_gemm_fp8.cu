@@ -1,11 +1,15 @@
 // FP8 grouped GEMM with per-tile scaling: bf16 out, or FP8 out through a
-// quantizing epilogue; the weight read as stored or transposed.
+// quantizing epilogue; the weight read as stored or transposed; every
+// capacity row computed (padded layout) or dead 128-row groups skipped
+// (masked layout).
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 // repro/kernels/grouped_gemm_fp8.py::grouped_gemm_fp8_pallas in both forms:
 // bf16 out (pallas_call at grouped_gemm_fp8.py:135; body _gg_kernel :58)
 // and quant_out=True (pallas_call at :147; body _gg_quant_kernel :87,
-// epilogue _quant_epilogue :78).  For every expert e:
+// epilogue _quant_epilogue :78); and masked_grouped_gemm_fp8_pallas in both
+// forms (pallas_call at :297, body _gg_masked_kernel :168; :313,
+// _gg_masked_quant_kernel :194).  For every expert e:
 //   out[e] = sum over 128-wide K steps k of
 //            (x[e, :, k] @ w[e, k, :]) * (sx[e, :, k] * sw[e, k, n-block])
 //   x  (E, C, K) e4m3, sx (E, C, K/128) f32 row scales
@@ -15,24 +19,32 @@
 //   out (E, C, N) bf16, or with QUANT_OUT (E, C, N) e4m3 + (E, C, N/128)
 //      po2 scales quantized from the f32 accumulator (the Pallas epilogue;
 //      the reference's XLA route rounds to bf16 first)
+//   MASKED: masked_m (E,) int32 on the device, the live rows of each
+//      expert.  A 128-row group (the reference's BM = 128 tile) is dead
+//      when it starts at or beyond masked_m[e]; a block in a dead group
+//      reads masked_m[e] from device memory, skips the K loop and writes
+//      what the padded kernel writes for zero rows (bf16 +0; payload 0 and
+//      scale 1.0).  Live groups run the padded arithmetic unchanged, rows
+//      beyond masked_m included (the reference's tile-granular masking,
+//      grouped_gemm_fp8.py:24-31), so on the dispatch layout, whose rows
+//      beyond masked_m are zero, masked == padded bit for bit.  The host
+//      never reads masked_m: the full grid launches and dead blocks exit.
 // The partial of each K step is summed in f32 and promoted into the f32
 // accumulator with its scales, as the reference does at
 // grouped_gemm_fp8.py:71 (acc += partial * (sx * sw)).  Keep this per-step
 // promotion in later designs: Hopper's FP8 MMA accumulator loses precision
 // over a long K.
 //
-// Bound on H100: at the serving shapes, bytes.  Decode reads every
-// expert's weights (K*N bytes each, 1.6 GB for GEMM-1 at full width) for a
-// handful of rows; prefill at 128 rows per expert and the training GEMMs at
-// 256 are also at or below the fp8 ridge point.  This first design is
-// simple and exact rather than fast: CUDA-core FFMA on operands converted
-// to f32 in shared memory (no mma, wgmma or TMA yet).  A block computes a
-// BM x 128 output tile of one expert; per K step it stages the BM x 128 x
-// tile and the 128 x 128 w tile in shared memory as f32, every thread
-// accumulates TM x 8 partials in registers (columns strided by 16 so
-// shared reads are conflict-free or broadcast), then folds sx * sw into
-// its accumulators.  Rows >= C are masked, so ragged row counts (decode's
-// C = 8) need no padding: BM = 16 serves C <= 16 and BM = 64 the rest.
+// Bound on H100: at the serving shapes, bytes.  Decode reads every live
+// expert's weights (K*N bytes each, 1.6 GB for GEMM-1 at full width when
+// all are live) for a handful of rows; prefill at 128 rows per expert and
+// the training GEMMs at 256 are also at or below the fp8 ridge point.
+// This first design is simple and exact rather than fast: CUDA-core FFMA
+// on operands converted to f32 in shared memory (no mma, wgmma or TMA
+// yet), the tile loop of gemm_tile.cuh.  Rows >= C are masked, so ragged
+// row counts (decode's C = 8) need no padding: BM = 16 serves C <= 16 and
+// BM = 64 the rest.  A 128-row group spans one block at BM = 16 or 64 when
+// C <= 128, two blocks at BM = 64 otherwise.
 //
 // W_TRANS reads the stored weight rows (n, contiguous in k) with whole
 // 32-byte sectors and transposes the tile on its way into shared memory,
@@ -48,50 +60,42 @@
 // recipe of the quantize kernel (common.cuh), then acc / s, clip +-448 and
 // a saturating RNE cast.
 //
-// What it leaves: tensor cores (the FFMA loop is shared-memory bound),
-// double buffering of the tile loads, and the padded layout itself --
-// every expert's weights are read even when it has no live rows (the
-// masked layout is the later fix).
-#include "common.cuh"
+// What it leaves: tensor cores (the FFMA loop is shared-memory bound) and
+// double buffering of the tile loads.
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int BN = 128;
-constexpr int BK = 128;            // == the scale tile
-constexpr int THREADS = 256;
-static_assert(THREADS == 256, "stage_tile_n_major is written for 256 threads");
-constexpr int XS = BK + 4;         // x tile row stride (floats): 16-byte
-                                   // aligned, and rows 16 apart fall in
-                                   // different banks
-constexpr int WTS = repro::TILE_T_STRIDE;  // W_TRANS w tile row stride
+using namespace repro::gemm;
 
-template <int BM, bool W_TRANS>
-constexpr size_t smem_bytes() {
-  return (size_t)(BM * XS + (W_TRANS ? BN * WTS : BK * BN)) * sizeof(float);
-}
-
-template <int BM, bool W_TRANS, bool QUANT_OUT>
+template <int BM, bool W_TRANS, bool QUANT_OUT, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 grouped_gemm_fp8_kernel(const uint8_t* __restrict__ x,
                         const float* __restrict__ sx,
                         const uint8_t* __restrict__ w,
                         const float* __restrict__ sw,
+                        const int* __restrict__ masked_m,
                         void* __restrict__ out, float* __restrict__ sout,
                         int C, int K, int N) {
-  constexpr int TM = BM / 16, TN = BN / 16;
+  constexpr int TM = BM / 16;
   extern __shared__ float smem[];
   float* xs = smem;                // BM x XS
   float* ws = smem + BM * XS;      // BK x BN, or (W_TRANS) BN x WTS
   const int e = blockIdx.z, m0 = blockIdx.y * BM, nblk = blockIdx.x;
   const int n0 = nblk * BN;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  if (MASKED && group_dead(masked_m, e, m0)) {  // block-uniform exit
+    write_dead_tile<BM>(out, QUANT_OUT ? 1 : 2, QUANT_OUT ? sout : nullptr,
+                        e, m0, C, N, n0, nblk, tid);
+    return;
+  }
   const int nk = K / BK, nb = N / BN;
   const uint8_t* xe = x + (size_t)e * C * K;
   const float* sxe = sx + (size_t)e * C * nk;
   const uint8_t* we = w + (size_t)e * K * N;
   const float* swe = sw + (size_t)e * nk * nb;
 
-  float acc[TM][TN];
+  float acc[TM][TN], part[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -99,78 +103,23 @@ grouped_gemm_fp8_kernel(const uint8_t* __restrict__ x,
 
   for (int kb = 0; kb < nk; ++kb) {
     __syncthreads();  // the previous step's reads are done
-    // x tile: BM rows x 32 words; a warp covers one 128-byte row
-    for (int c = tid; c < BM * 32; c += THREADS) {
-      const int r = c / 32, col = (c % 32) * 4;
-      const uint32_t v =
-          (m0 + r < C)
-              ? *reinterpret_cast<const uint32_t*>(
-                    xe + (size_t)(m0 + r) * K + (size_t)kb * BK + col)
-              : 0u;
-      repro::unpack4(v, xs + r * XS + col);
-    }
-    if (W_TRANS) {
-      // stored rows n (k contiguous), staged n-major
-      repro::stage_tile_n_major(we + (size_t)n0 * K + (size_t)kb * BK, K, ws,
-                                tid);
-    } else {
-      // w tile: 128 K-rows x 32 words
-      for (int c = tid; c < BK * 32; c += THREADS) {
-        const int r = c / 32, col = (c % 32) * 4;
-        const uint32_t v = *reinterpret_cast<const uint32_t*>(
-            we + ((size_t)kb * BK + r) * N + n0 + col);
-        repro::unpack4(v, ws + r * BN + col);
-      }
-    }
+    stage_x<BM>(xe, m0, C, K, kb, xs, tid);
+    stage_w<W_TRANS>(we, K, N, n0, kb, ws, tid);
     __syncthreads();
-
-    float part[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[(ty + 16 * i) * XS + k];
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        b[j] = W_TRANS ? ws[(tx + 16 * j) * WTS + k] : ws[k * BN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-    }
+    tile_product<BM, W_TRANS>(xs, ws, tx, ty, part);
     const float swv = W_TRANS ? swe[(size_t)nblk * nk + kb]
                               : swe[(size_t)kb * nb + nblk];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = m0 + ty + 16 * i;
-      const float f = (row < C ? sxe[(size_t)row * nk + kb] : 0.f) * swv;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j] * f;
-    }
+    promote<BM>(acc, part, sxe, m0, C, nk, kb, swv, ty);
   }
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int row = m0 + ty + 16 * i;
     if (QUANT_OUT) {
-      // the row's 128 values sit in this half-warp: amax over 16 lanes
-      float amax = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) amax = repro::nan_max(amax, fabsf(acc[i][j]));
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        amax = repro::nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      if (row >= C) continue;
-      const float s = repro::po2_scale(amax);
-      uint8_t* q = reinterpret_cast<uint8_t*>(out) + ((size_t)e * C + row) * N + n0;
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        q[tx + 16 * j] = (uint8_t)repro::to_e4m3(__fdiv_rn(acc[i][j], s));
-      if (tx == 0) sout[((size_t)e * C + row) * nb + nblk] = s;
+      quantize_row_store(
+          acc[i], row < C,
+          reinterpret_cast<uint8_t*>(out) + ((size_t)e * C + row) * N + n0,
+          sout + ((size_t)e * C + row) * nb + nblk, tx);
     } else {
       if (row >= C) continue;
       __nv_bfloat16* o =
@@ -181,49 +130,68 @@ grouped_gemm_fp8_kernel(const uint8_t* __restrict__ x,
   }
 }
 
-template <int BM, bool W_TRANS, bool QUANT_OUT>
+template <int BM, bool W_TRANS, bool QUANT_OUT, bool MASKED>
 int launch(const void* x, const void* sx, const void* w, const void* sw,
-           void* out, void* sout, int E, int C, int K, int N,
-           cudaStream_t st) {
+           const void* masked_m, void* out, void* sout, int E, int C, int K,
+           int N, cudaStream_t st) {
   const size_t smem = smem_bytes<BM, W_TRANS>();
-  auto kern = grouped_gemm_fp8_kernel<BM, W_TRANS, QUANT_OUT>;
+  auto kern = grouped_gemm_fp8_kernel<BM, W_TRANS, QUANT_OUT, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(N / BN, (C + BM - 1) / BM, E);
   kern<<<grid, THREADS, smem, st>>>((const uint8_t*)x, (const float*)sx,
-                                    (const uint8_t*)w, (const float*)sw, out,
-                                    (float*)sout, C, K, N);
+                                    (const uint8_t*)w, (const float*)sw,
+                                    (const int*)masked_m, out, (float*)sout,
+                                    C, K, N);
   return (int)cudaGetLastError();
 }
 
-template <bool W_TRANS, bool QUANT_OUT>
+template <bool W_TRANS, bool QUANT_OUT, bool MASKED>
 int launch_bm(const void* x, const void* sx, const void* w, const void* sw,
-              void* out, void* sout, int E, int C, int K, int N,
-              cudaStream_t st) {
+              const void* masked_m, void* out, void* sout, int E, int C,
+              int K, int N, cudaStream_t st) {
   if (C <= 16)
-    return launch<16, W_TRANS, QUANT_OUT>(x, sx, w, sw, out, sout, E, C, K,
-                                          N, st);
-  return launch<64, W_TRANS, QUANT_OUT>(x, sx, w, sw, out, sout, E, C, K, N,
-                                        st);
+    return launch<16, W_TRANS, QUANT_OUT, MASKED>(x, sx, w, sw, masked_m, out,
+                                                  sout, E, C, K, N, st);
+  return launch<64, W_TRANS, QUANT_OUT, MASKED>(x, sx, w, sw, masked_m, out,
+                                                sout, E, C, K, N, st);
+}
+
+template <bool MASKED>
+int launch_form(const void* x, const void* sx, const void* w, const void* sw,
+                const void* masked_m, void* out, void* sout, int w_trans,
+                int quant_out, int E, int C, int K, int N, cudaStream_t st) {
+  if (w_trans) {
+    if (quant_out)
+      return launch_bm<true, true, MASKED>(x, sx, w, sw, masked_m, out, sout,
+                                           E, C, K, N, st);
+    return launch_bm<true, false, MASKED>(x, sx, w, sw, masked_m, out, sout,
+                                          E, C, K, N, st);
+  }
+  if (quant_out)
+    return launch_bm<false, true, MASKED>(x, sx, w, sw, masked_m, out, sout,
+                                          E, C, K, N, st);
+  return launch_bm<false, false, MASKED>(x, sx, w, sw, masked_m, out, sout, E,
+                                         C, K, N, st);
 }
 
 }  // namespace
 
 // w_trans: w is stored (E, N, K) with sw (E, N/128, K/128).  sout is used
 // only with quant_out (out is then the e4m3 payload, else bf16).
+// masked_m: (E,) int32 live-row counts on the device (masked layout), or
+// null (padded layout).
 REPRO_EXPORT int repro_grouped_gemm_fp8(const void* x, const void* sx,
                                         const void* w, const void* sw,
-                                        void* out, void* sout, int w_trans,
+                                        const void* masked_m, void* out,
+                                        void* sout, int w_trans,
                                         int quant_out, int E, int C, int K,
                                         int N, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (w_trans) {
-    if (quant_out)
-      return launch_bm<true, true>(x, sx, w, sw, out, sout, E, C, K, N, st);
-    return launch_bm<true, false>(x, sx, w, sw, out, sout, E, C, K, N, st);
-  }
-  if (quant_out)
-    return launch_bm<false, true>(x, sx, w, sw, out, sout, E, C, K, N, st);
-  return launch_bm<false, false>(x, sx, w, sw, out, sout, E, C, K, N, st);
+  if (masked_m)
+    return launch_form<true>(x, sx, w, sw, masked_m, out, sout, w_trans,
+                             quant_out, E, C, K, N, st);
+  return launch_form<false>(x, sx, w, sw, masked_m, out, sout, w_trans,
+                            quant_out, E, C, K, N, st);
 }

@@ -1,14 +1,22 @@
-// FP8 grouped GEMM, NT layout (the Wgrad form).
+// FP8 grouped GEMM, NT layout (the Wgrad form), padded or masked.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 // repro/kernels/grouped_gemm_nt_fp8.py::grouped_gemm_nt_fp8_pallas
-// (pallas_call at grouped_gemm_nt_fp8.py:67; body _gg_nt_kernel :39).  For
-// every expert e, with the contraction over the LAST axis of both operands:
+// (pallas_call at grouped_gemm_nt_fp8.py:67; body _gg_nt_kernel :39) and
+// masked_grouped_gemm_nt_fp8_pallas (pallas_call at :131; body
+// _gg_nt_masked_kernel :86).  For every expert e, with the contraction
+// over the LAST axis of both operands:
 //   out[e] = sum over 128-wide C steps k of
 //            (a[e, :, k] @ b[e, :, k]^T) * (sa[e, :, k] (x) sb[e, :, k])
 //   a  (E, M, C) e4m3, sa (E, M, C/128) f32 row scales
 //   b  (E, N, C) e4m3, sb (E, N, C/128) f32 row scales
 //   out (E, M, N) f32 or bf16 (a launch argument)
+//   MASKED: masked_m (E,) int32 on the device, the live tokens of each
+//      expert.  The token axis is the contraction here, so a block runs
+//      only the C steps k with k * 128 < masked_m[e] (it reads masked_m[e]
+//      from device memory; the host never does).  A skipped step's tokens
+//      are zero on the dispatch layout, so its promoted partial is +0 and
+//      adding it changes no bit: masked == padded bit for bit.
 // These are the layouts the scaling-aware transpose produces: Wgrad takes
 // T(activation) and T(gradient), both row-tiled over the token axis.  The
 // partial of each C step is promoted with the outer product of the two
@@ -45,12 +53,13 @@ constexpr int AS = BK + 4;         // a tile row stride (floats), 16-byte aligne
 constexpr int BS = repro::TILE_T_STRIDE;  // b tile row stride
 constexpr size_t SMEM = (size_t)(BM * AS + BN * BS) * sizeof(float);
 
-template <bool BF16_OUT>
+template <bool BF16_OUT, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 grouped_gemm_nt_fp8_kernel(const uint8_t* __restrict__ a,
                            const float* __restrict__ sa,
                            const uint8_t* __restrict__ b,
                            const float* __restrict__ sb,
+                           const int* __restrict__ masked_m,
                            void* __restrict__ out, int M, int N, int C) {
   constexpr int TM = BM / 16, TN = BN / 16;
   extern __shared__ float smem[];
@@ -59,6 +68,9 @@ grouped_gemm_nt_fp8_kernel(const uint8_t* __restrict__ a,
   const int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int nk = C / BK;
+  // the C steps to run: all, or (MASKED) those with kb * BK < masked_m[e]
+  const int nk_run =
+      MASKED ? min(nk, (max(__ldg(masked_m + e), 0) + BK - 1) / BK) : nk;
   const uint8_t* ae = a + (size_t)e * M * C;
   const float* sae = sa + (size_t)e * M * nk;
   const uint8_t* be = b + (size_t)e * N * C;
@@ -70,7 +82,7 @@ grouped_gemm_nt_fp8_kernel(const uint8_t* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int kb = 0; kb < nk; ++kb) {
+  for (int kb = 0; kb < nk_run; ++kb) {
     __syncthreads();  // the previous step's reads are done
     // a tile: BM rows x 32 words; a warp covers one 128-byte row
     for (int c = tid; c < BM * 32; c += THREADS) {
@@ -108,7 +120,8 @@ grouped_gemm_nt_fp8_kernel(const uint8_t* __restrict__ a,
     for (int i = 0; i < TM; ++i) {
       const float sav = sae[(size_t)(m0 + ty + 16 * i) * nk + kb];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j] * (sav * sbv[j]);
+      for (int j = 0; j < TN; ++j)
+        acc[i][j] = __fmaf_rn(part[i][j], __fmul_rn(sav, sbv[j]), acc[i][j]);
     }
   }
 
@@ -126,28 +139,43 @@ grouped_gemm_nt_fp8_kernel(const uint8_t* __restrict__ a,
   }
 }
 
-template <bool BF16_OUT>
+template <bool BF16_OUT, bool MASKED>
 int launch(const void* a, const void* sa, const void* b, const void* sb,
-           void* out, int E, int M, int N, int C, cudaStream_t st) {
+           const void* masked_m, void* out, int E, int M, int N, int C,
+           cudaStream_t st) {
+  auto kern = grouped_gemm_nt_fp8_kernel<BF16_OUT, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_gemm_nt_fp8_kernel<BF16_OUT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(N / BN, M / BM, E);
-  grouped_gemm_nt_fp8_kernel<BF16_OUT><<<grid, THREADS, SMEM, st>>>(
-      (const uint8_t*)a, (const float*)sa, (const uint8_t*)b,
-      (const float*)sb, out, M, N, C);
+  kern<<<grid, THREADS, SMEM, st>>>((const uint8_t*)a, (const float*)sa,
+                                    (const uint8_t*)b, (const float*)sb,
+                                    (const int*)masked_m, out, M, N, C);
   return (int)cudaGetLastError();
+}
+
+template <bool MASKED>
+int launch_out(const void* a, const void* sa, const void* b, const void* sb,
+               const void* masked_m, void* out, int out_bf16, int E, int M,
+               int N, int C, cudaStream_t st) {
+  if (out_bf16)
+    return launch<true, MASKED>(a, sa, b, sb, masked_m, out, E, M, N, C, st);
+  return launch<false, MASKED>(a, sa, b, sb, masked_m, out, E, M, N, C, st);
 }
 
 }  // namespace
 
+// masked_m: (E,) int32 live-token counts on the device (masked layout), or
+// null (padded layout).
 REPRO_EXPORT int repro_grouped_gemm_nt_fp8(const void* a, const void* sa,
                                            const void* b, const void* sb,
-                                           void* out, int out_bf16, int E,
-                                           int M, int N, int C,
-                                           void* stream) {
+                                           const void* masked_m, void* out,
+                                           int out_bf16, int E, int M, int N,
+                                           int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (out_bf16) return launch<true>(a, sa, b, sb, out, E, M, N, C, st);
-  return launch<false>(a, sa, b, sb, out, E, M, N, C, st);
+  if (masked_m)
+    return launch_out<true>(a, sa, b, sb, masked_m, out, out_bf16, E, M, N, C,
+                            st);
+  return launch_out<false>(a, sa, b, sb, masked_m, out, out_bf16, E, M, N, C,
+                           st);
 }

@@ -13,6 +13,8 @@
 // up values (two 8-byte loads), computes y in registers, and the tile is
 // quantized with a shuffle amax as in quantize.cu.  The activation never
 // reaches device memory in bf16, which is the fusion the paper measures.
+// The SwiGLU is common.cuh's repro::swiglu, which the fused GEMM-1
+// epilogue (grouped_gemm_swiglu_quant.cu) shares.
 #include "common.cuh"
 
 namespace {
@@ -32,10 +34,7 @@ swiglu_quant_kernel(const __nv_bfloat16* __restrict__ h,
   repro::load4(hr + col, g);
   repro::load4(hr + F + col, u);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float sg = __fdiv_rn(1.f, 1.f + expf(-g[i]));
-    y[i] = (g[i] * sg) * u[i];
-  }
+  for (int i = 0; i < 4; ++i) y[i] = repro::swiglu(g[i], u[i]);
   repro::quantize_tile_store(y, q + row * F + col, s + row * tiles + t, lane);
 }
 

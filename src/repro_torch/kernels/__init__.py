@@ -1,4 +1,5 @@
-"""The port's hand-written Hopper kernels (serving and training paths).
+"""The port's hand-written Hopper kernels (serving and training paths,
+padded and masked expert layouts).
 
 Each kernel module holds the plain PyTorch twin (``*_plain``), the CUDA
 launch (``*_cuda``, source under ``repro_torch/csrc``) and a note naming
@@ -13,7 +14,9 @@ from __future__ import annotations
 
 KERNELS = ("quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8",
            "fused_swiglu_quant", "fp8_transpose", "grouped_gemm_nt_fp8",
-           "grouped_gemm_fp8_quant_out")
+           "grouped_gemm_fp8_quant_out", "masked_grouped_gemm_fp8",
+           "masked_grouped_gemm_fp8_quant_out",
+           "masked_grouped_gemm_swiglu_quant", "masked_grouped_gemm_nt_fp8")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 

@@ -34,11 +34,15 @@ SIGNATURES = {
     "permute_pad": ("repro_permute_pad",
                     (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "grouped_gemm_fp8": ("repro_grouped_gemm_fp8",
-                         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P)),
+                         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P)),
     "fp8_transpose": ("repro_fp8_transpose", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "grouped_gemm_nt_fp8": ("repro_grouped_gemm_nt_fp8",
-                            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+                            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P)),
+    "grouped_gemm_swiglu_quant": ("repro_grouped_gemm_swiglu_quant",
+                                  (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _P)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

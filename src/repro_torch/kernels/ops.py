@@ -4,7 +4,10 @@ Counterpart of ``repro.kernels.ops``.  The device decides: a tensor on the
 CPU takes the kernel's plain PyTorch twin, a CUDA tensor launches the
 hand-written kernel, and a failure to build or launch raises -- there is
 no fallback.  Row and capacity axes are taken as they come (no padding to
-128 as the TPU wrappers do).
+128 as the TPU wrappers do).  The masked-layout wrappers take
+``masked_m`` (E,), each expert's live rows, as a tensor on the operands'
+device; it is never read on the host (the reference's static
+``expected_m`` hint, which only its benchmark passes, is not taken).
 """
 from __future__ import annotations
 
@@ -17,10 +20,15 @@ from repro_torch.kernels.fused_permute_pad import (fused_permute_pad_cuda,
                                                    fused_permute_pad_plain)
 from repro_torch.kernels.fused_swiglu_quant import (fused_swiglu_quant_cuda,
                                                     fused_swiglu_quant_plain)
-from repro_torch.kernels.grouped_gemm_fp8 import (grouped_gemm_fp8_cuda,
-                                                  grouped_gemm_fp8_plain)
+from repro_torch.kernels.grouped_gemm_fp8 import (
+    grouped_gemm_fp8_cuda, grouped_gemm_fp8_plain,
+    masked_grouped_gemm_fp8_cuda, masked_grouped_gemm_fp8_plain)
 from repro_torch.kernels.grouped_gemm_nt_fp8 import (
-    grouped_gemm_nt_fp8_cuda, grouped_gemm_nt_fp8_plain)
+    grouped_gemm_nt_fp8_cuda, grouped_gemm_nt_fp8_plain,
+    masked_grouped_gemm_nt_fp8_cuda, masked_grouped_gemm_nt_fp8_plain)
+from repro_torch.kernels.grouped_gemm_swiglu_quant import (
+    masked_grouped_gemm_swiglu_quant_cuda,
+    masked_grouped_gemm_swiglu_quant_plain)
 from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
                                           quantize_rowwise_plain)
 
@@ -99,4 +107,54 @@ def fp8_transpose(q: QTensor) -> QTensor:
     row-tiled (E, K, M), scales block-aligned."""
     fn = fp8_transpose_cuda if _on_card(q.data) else fp8_transpose_plain
     data, scale = fn(q.data, q.scale)
+    return QTensor(data, scale, row_tile(3))
+
+
+# ---------------------------------------------------------------------------
+# Masked layout: 128-row groups at or beyond masked_m[e] are not computed.
+# ---------------------------------------------------------------------------
+def grouped_gemm_fp8_masked(qx: QTensor, qw: QTensor,
+                            masked_m: torch.Tensor) -> torch.Tensor:
+    """grouped_gemm_fp8 with dead capacity groups skipped (written 0)."""
+    fn = masked_grouped_gemm_fp8_cuda if _on_card(qx.data) else \
+        masked_grouped_gemm_fp8_plain
+    w, sw, w_trans = _weight_fields(qw)
+    return fn(qx.data, qx.scale, w, sw, masked_m.to(torch.int32),
+              w_trans=w_trans)
+
+
+def grouped_gemm_fp8_masked_quant_out(qx: QTensor, qw: QTensor,
+                                      masked_m: torch.Tensor) -> QTensor:
+    """grouped_gemm_fp8_quant_out with dead capacity groups skipped
+    (payload 0, scale 1.0)."""
+    fn = masked_grouped_gemm_fp8_cuda if _on_card(qx.data) else \
+        masked_grouped_gemm_fp8_plain
+    w, sw, w_trans = _weight_fields(qw)
+    data, scale = fn(qx.data, qx.scale, w, sw, masked_m.to(torch.int32),
+                     w_trans=w_trans, quant_out=True)
+    return QTensor(data, scale, row_tile(3))
+
+
+def grouped_gemm_nt_fp8_masked(qa: QTensor, qb: QTensor,
+                               masked_m: torch.Tensor,
+                               out_dtype=torch.float32) -> torch.Tensor:
+    """grouped_gemm_nt_fp8 over the live token steps only: the contraction
+    steps k with k*128 >= masked_m[e] are skipped."""
+    fn = masked_grouped_gemm_nt_fp8_cuda if _on_card(qa.data) else \
+        masked_grouped_gemm_nt_fp8_plain
+    return fn(qa.data, qa.scale, qb.data, qb.scale,
+              masked_m.to(torch.int32), out_dtype)
+
+
+def grouped_gemm_swiglu_quant_masked(qx: QTensor, qw13: QTensor,
+                                     masked_m: torch.Tensor) -> QTensor:
+    """Masked GEMM-1 with the fused SwiGLU + quantize epilogue: qx (E, C,
+    K) x qw13 (E, K, 2F) [gate | up] -> row-tiled QTensor (E, C, F)."""
+    fn = masked_grouped_gemm_swiglu_quant_cuda if _on_card(qx.data) else \
+        masked_grouped_gemm_swiglu_quant_plain
+    w, sw, w_trans = _weight_fields(qw13)
+    if w_trans:
+        raise ValueError("grouped_gemm_swiglu_quant_masked: w13 must be "
+                         "stored (E, K, 2F)")
+    data, scale = fn(qx.data, qx.scale, w, sw, masked_m.to(torch.int32))
     return QTensor(data, scale, row_tile(3))

@@ -89,11 +89,11 @@ def _ref_teacher_forced(cfg, recipe, plan, params, ctx, toks):
     return out, led.by_tag()
 
 
-def _port_teacher_forced(cfg, params, toks):
+def _port_teacher_forced(cfg, params, toks, recipe=None):
     """Per-step last-position logits, prefill ledger, and per step the
     smallest router gap (top_k-th minus next probability) over the live
     tokens of every layer."""
-    recipe = get_recipe("fp8_flow")
+    recipe = recipe or get_recipe("fp8_flow")
     port_router_topk, gaps = moe.router_topk, []
 
     def router_topk(x, w_router, top_k):

@@ -216,9 +216,8 @@ def test_unported_training_options_raise():
     for kw in ({"dist": object()}, {"guard": object()}, {"grad_accum": 2}):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             make_train_step(cfg, recipe, opt, **kw)
-    for kw in ({"save_h": True}, {"masked_experts": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            Recipe(**kw)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        Recipe(save_h=True)
     with pytest.raises(NotImplementedError, match="Queue 1"):
         adamw.AdamWConfig(state_policy=object())
 
