@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero):
      card at the serving path's full-width shapes (qwen3_moe_235b: bucket
      64 prefill, 8-slot decode), to the tolerances of the CPU tests, with
      device times (CUDA graph replays), the wrapper's call time, the bound
-     of the H100 SXM and a library yardstick;
+     of the H100 SXM and its share reached (bound_share = bound / kernel
+     time), and a library yardstick (vs_library = kernel / library time);
   3. the serve path: a ServeEngine over qwen3_moe_235b at full width, depth
      cut to 4 layers, random W8 weights from a seed, FP8 paged KV, serving
      16 greedy requests; every kernel of the path launched, no other;
@@ -197,6 +198,10 @@ def timing_row(peaks, name, shape, kfn, pfn, lfn, nbytes, ops, peak_ops, err,
                plain_ms=time_ms(pfn, target_ms=plain_target_ms),
                library_ms=time_ms(lfn) if lfn else None, bound_ms=b,
                bound_by=by, max_abs_err=err, **extra)
+    # the share of the bound reached, and the kernel against its yardstick
+    row["bound_share"] = b / row["kernel_ms"]
+    row["vs_library"] = (row["kernel_ms"] / row["library_ms"]
+                         if row["library_ms"] else None)
     print(json.dumps(row))
     return row
 
@@ -1266,7 +1271,8 @@ def main() -> int:
             library_ms=main_row["library_ms"], shape=main_row["shape"],
             by_shape=[{k: r.get(k) for k in (
                 "shape", "kernel_ms", "call_ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "max_abs_err", "padded_ms",
+                "bound_ms", "bound_by", "bound_share", "vs_library",
+                "max_abs_err", "mismatch_frac", "padded_ms",
                 "live_tile_share")} for r in timings[kname]]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -29,39 +29,44 @@
 //      grouped_gemm_fp8.py:24-31), so on the dispatch layout, whose rows
 //      beyond masked_m are zero, masked == padded bit for bit.  The host
 //      never reads masked_m: the full grid launches and dead blocks exit.
-// The partial of each K step is summed in f32 and promoted into the f32
+// The partial of each K step is summed on the tensor cores (eight f16
+// wgmmas started from zero, exact products, f32 sums) and promoted into the f32
 // accumulator with its scales, as the reference does at
 // grouped_gemm_fp8.py:71 (acc += partial * (sx * sw)).  Keep this per-step
-// promotion in later designs: Hopper's FP8 MMA accumulator loses precision
-// over a long K.
+// promotion in later designs: an MMA accumulator with fewer bits than f32
+// would lose precision over a long K.
 //
 // Bound on H100: at the serving shapes, bytes.  Decode reads every live
 // expert's weights (K*N bytes each, 1.6 GB for GEMM-1 at full width when
 // all are live) for a handful of rows; prefill at 128 rows per expert and
-// the training GEMMs at 256 are also at or below the fp8 ridge point.
-// This first design is simple and exact rather than fast: CUDA-core FFMA
-// on operands converted to f32 in shared memory (no mma, wgmma or TMA
-// yet), the tile loop of gemm_tile.cuh.  Rows >= C are masked, so ragged
-// row counts (decode's C = 8) need no padding: BM = 16 serves C <= 16 and
-// BM = 64 the rest.  A 128-row group spans one block at BM = 16 or 64 when
-// C <= 128, two blocks at BM = 64 otherwise.
+// the training GEMMs at 256 sit near the fp8 ridge point (bytes and FP8
+// tensor-core operations bound them within 1.5x of each other).
 //
-// W_TRANS reads the stored weight rows (n, contiguous in k) with whole
-// 32-byte sectors and transposes the tile on its way into shared memory,
-// keeping it n-major with an odd row stride (129 floats) so the staging
-// stores and the inner loop's reads are free of bank conflicts.  The
-// alternative, a physical transpose of the weight each step, would move
-// 2.4 GB of payload and hold 1.6 GB of transient memory at full width.
+// Design: the tensor-core tile loop of gemm_tile.cuh.  A block is one or
+// two warpgroups (BM = 64 rows for C <= 64, else 128 rows: one masking
+// group), a 128-column tile and one expert; its K loop streams the x and
+// w tiles as e4m3 through a cp.async ring (3-4 stages), widens them
+// exactly to f16 in the block (the (K, N) weight transposed on the way,
+// never in device memory: a physical transpose would move 2.4 GB a train
+// step) and multiplies each 128-deep step with eight f16 wgmma
+// instructions into f32, then promotes the step's partial into the
+// accumulator with its scales.  Rows >= C are zero-filled by the copies
+// and never stored, so ragged C (decode's 8, any C in the tests) needs no
+// padding.  The f16 path runs at half the FP8 tensor-core rate; FP8 wgmma
+// itself was ruled out by the quantizing epilogue's gates (gemm_tile.cuh).
 //
 // QUANT_OUT: BN = 128 = TILE, so one output row of a block tile is one
-// quantization group, and its 128 values sit in the 16 lanes of a
-// half-warp (tid % 16 holds columns tx + 16j, tid / 16 holds rows): the
-// row amax is four __shfl_xor_sync steps, the scale is the bit-built po2
-// recipe of the quantize kernel (common.cuh), then acc / s, clip +-448 and
-// a saturating RNE cast.
+// quantization group; under the wgmma accumulator layout its 128 values
+// sit in one quad of lanes (32 each): the row amax is the thread's own
+// and two __shfl_xor_sync steps, the scale the bit-built po2 recipe of
+// the quantize kernel (common.cuh), then acc / s, clip +-448 and a
+// saturating RNE cast.
 //
-// What it leaves: tensor cores (the FFMA loop is shared-memory bound) and
-// double buffering of the tile loads.
+// What it leaves: one role for every thread (no producer warp, TMA or
+// register reallocation), so the widening, the promotion and the epilogue
+// do not overlap the tensor cores within a block; no persistent blocks or
+// clusters (a weight tile is fetched once per 128-row block); the epilogue
+// stores straight from the fragment (16 bytes a row segment).
 #include "gemm_tile.cuh"
 
 namespace {
@@ -69,7 +74,7 @@ namespace {
 using namespace repro::gemm;
 
 template <int BM, bool W_TRANS, bool QUANT_OUT, bool MASKED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(2 * BM, 1)
 grouped_gemm_fp8_kernel(const uint8_t* __restrict__ x,
                         const float* __restrict__ sx,
                         const uint8_t* __restrict__ w,
@@ -77,73 +82,47 @@ grouped_gemm_fp8_kernel(const uint8_t* __restrict__ x,
                         const int* __restrict__ masked_m,
                         void* __restrict__ out, float* __restrict__ sout,
                         int C, int K, int N) {
-  constexpr int TM = BM / 16;
-  extern __shared__ float smem[];
-  float* xs = smem;                // BM x XS
-  float* ws = smem + BM * XS;      // BK x BN, or (W_TRANS) BN x WTS
+  extern __shared__ __align__(128) uint8_t smem[];
   const int e = blockIdx.z, m0 = blockIdx.y * BM, nblk = blockIdx.x;
-  const int n0 = nblk * BN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x;
   if (MASKED && group_dead(masked_m, e, m0)) {  // block-uniform exit
     write_dead_tile<BM>(out, QUANT_OUT ? 1 : 2, QUANT_OUT ? sout : nullptr,
-                        e, m0, C, N, n0, nblk, tid);
+                        e, m0, C, N, nblk * BN, nblk, tid);
     return;
   }
-  const int nk = K / BK, nb = N / BN;
-  const uint8_t* xe = x + (size_t)e * C * K;
-  const float* sxe = sx + (size_t)e * C * nk;
-  const uint8_t* we = w + (size_t)e * K * N;
-  const float* swe = sw + (size_t)e * nk * nb;
-
-  float acc[TM][TN], part[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int kb = 0; kb < nk; ++kb) {
-    __syncthreads();  // the previous step's reads are done
-    stage_x<BM>(xe, m0, C, K, kb, xs, tid);
-    stage_w<W_TRANS>(we, K, N, n0, kb, ws, tid);
-    __syncthreads();
-    tile_product<BM, W_TRANS>(xs, ws, tx, ty, part);
-    const float swv = W_TRANS ? swe[(size_t)nblk * nk + kb]
-                              : swe[(size_t)kb * nb + nblk];
-    promote<BM>(acc, part, sxe, m0, C, nk, kb, swv, ty);
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (QUANT_OUT) {
-      quantize_row_store(
-          acc[i], row < C,
-          reinterpret_cast<uint8_t*>(out) + ((size_t)e * C + row) * N + n0,
-          sout + ((size_t)e * C + row) * nb + nblk, tx);
-    } else {
-      if (row >= C) continue;
-      __nv_bfloat16* o =
-          reinterpret_cast<__nv_bfloat16*>(out) + ((size_t)e * C + row) * N + n0;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) o[tx + 16 * j] = __float2bfloat16_rn(acc[i][j]);
-    }
-  }
+  const int nk = K / BK;
+  const int cols[1] = {nblk};
+  float acc[1][64];
+  mainloop<BM, W_TRANS, 1>(x + (size_t)e * C * K, sx + (size_t)e * C * nk,
+                           w + (size_t)e * K * N,
+                           sw + (size_t)e * nk * (N / BN), m0, C, K, N, cols,
+                           smem, acc);
+  const int row_a = m0 + frag_row(tid), lane = tid & 31;
+  if (QUANT_OUT)
+    quantize_rows_store(acc[0], reinterpret_cast<uint8_t*>(out) +
+                                    (size_t)e * C * N,
+                        sout + (size_t)e * C * (N / BN), row_a, C, N, nblk,
+                        lane);
+  else
+    store_bf16(acc[0], reinterpret_cast<__nv_bfloat16*>(out) +
+                           (size_t)e * C * N,
+               row_a, C, N, nblk * BN, lane);
 }
 
 template <int BM, bool W_TRANS, bool QUANT_OUT, bool MASKED>
 int launch(const void* x, const void* sx, const void* w, const void* sw,
            const void* masked_m, void* out, void* sout, int E, int C, int K,
            int N, cudaStream_t st) {
-  const size_t smem = smem_bytes<BM, W_TRANS>();
+  const size_t smem = smem_bytes<BM, W_TRANS, 1>();
   auto kern = grouped_gemm_fp8_kernel<BM, W_TRANS, QUANT_OUT, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(N / BN, (C + BM - 1) / BM, E);
-  kern<<<grid, THREADS, smem, st>>>((const uint8_t*)x, (const float*)sx,
-                                    (const uint8_t*)w, (const float*)sw,
-                                    (const int*)masked_m, out, (float*)sout,
-                                    C, K, N);
+  kern<<<grid, 2 * BM, smem, st>>>((const uint8_t*)x, (const float*)sx,
+                                   (const uint8_t*)w, (const float*)sw,
+                                   (const int*)masked_m, out, (float*)sout,
+                                   C, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -151,11 +130,11 @@ template <bool W_TRANS, bool QUANT_OUT, bool MASKED>
 int launch_bm(const void* x, const void* sx, const void* w, const void* sw,
               const void* masked_m, void* out, void* sout, int E, int C,
               int K, int N, cudaStream_t st) {
-  if (C <= 16)
-    return launch<16, W_TRANS, QUANT_OUT, MASKED>(x, sx, w, sw, masked_m, out,
+  if (block_rows(C) == 64)
+    return launch<64, W_TRANS, QUANT_OUT, MASKED>(x, sx, w, sw, masked_m, out,
                                                   sout, E, C, K, N, st);
-  return launch<64, W_TRANS, QUANT_OUT, MASKED>(x, sx, w, sw, masked_m, out,
-                                                sout, E, C, K, N, st);
+  return launch<128, W_TRANS, QUANT_OUT, MASKED>(x, sx, w, sw, masked_m, out,
+                                                 sout, E, C, K, N, st);
 }
 
 template <bool MASKED>
@@ -189,6 +168,7 @@ REPRO_EXPORT int repro_grouped_gemm_fp8(const void* x, const void* sx,
                                         int quant_out, int E, int C, int K,
                                         int N, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (!aligned16(x, w)) return (int)cudaErrorMisalignedAddress;
   if (masked_m)
     return launch_form<true>(x, sx, w, sw, masked_m, out, sout, w_trans,
                              quant_out, E, C, K, N, st);

@@ -21,13 +21,17 @@ Replaces ``repro/kernels/grouped_gemm_fp8.py::grouped_gemm_fp8_pallas``
 in its bf16-out form (``pallas_call`` at grouped_gemm_fp8.py:135) and its
 ``quant_out=True`` form (``pallas_call`` at :147), and
 ``masked_grouped_gemm_fp8_pallas`` in both forms (:297, :313).  CUDA
-source: ``csrc/grouped_gemm_fp8.cu`` (bound at the serving and training
-shapes: bytes; its header says what the simple first design leaves).  Row
-counts are ragged: C need not be a multiple of 128 (the TPU wrapper's
-pad-to-128 is not copied; padded rows are zero, so the result is the
-same).  The plain twin keeps the per-step scale promotion of the
-reference (grouped_gemm_fp8.py:71) and converts one K step of operands at
-a time.
+source: ``csrc/grouped_gemm_fp8.cu`` on the tile loop of
+``csrc/gemm_tile.cuh``: operands arrive as e4m3 through a cp.async ring
+and are widened exactly to f16 in the block, each 128-deep K step is
+eight f16 ``wgmma`` instructions on the tensor cores summing exact
+products in f32, and its partial is promoted into an f32 accumulator
+with the step's scales (bound at the serving and training shapes: bytes;
+the header says what the design still leaves).  Row counts are ragged: C
+need not be a multiple of 128 (the TPU wrapper's pad-to-128 is not
+copied; padded rows are zero, so the result is the same).  The plain
+twin keeps the per-step scale promotion of the reference
+(grouped_gemm_fp8.py:71) and converts one K step of operands at a time.
 """
 from __future__ import annotations
 

@@ -8,7 +8,9 @@ groups at or beyond masked_m[e] come out as payload 0 with scale 1.0.
 
 It equals ``grouped_gemm_fp8`` (bf16 out) followed by
 ``fused_swiglu_quant`` bit for bit, on the card (both kernels share the
-GEMM tile loop and the SwiGLU device function) and in the twin below,
+tensor-core tile loop of ``csrc/gemm_tile.cuh``, the same ``wgmma``
+chain and promotion for every gate and up column, and the SwiGLU device
+function) and in the twin below,
 which is that pair's twins with dead groups zeroed in between.
 
 Replaces ``repro/kernels/grouped_gemm_fp8.py::

@@ -508,3 +508,157 @@ def test_masked_engine_on_card_generates_padded_tokens(card):
     assert kernels.LAUNCHES["masked_grouped_gemm_swiglu_quant"] > 0
     assert kernels.LAUNCHES["grouped_gemm_fp8"] == 0
     assert kernels.LAUNCHES["fused_swiglu_quant"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The NN tile loop's edges (#3-#7): ragged C, one and many K steps, N = 128,
+# both weight layouts, every kind of 128-row group under masking, the
+# quantizing epilogue's saturation and tiny rows, a NaN byte in x.
+# ---------------------------------------------------------------------------
+EDGE_MASKED_M = (0, 1, 127, 128, 129)   # one expert each, then masked_m = C
+
+
+def _edge_masked_m(card, c):
+    return torch.tensor(EDGE_MASKED_M + (c,), dtype=torch.int32, device=card)
+
+
+def _dead_rows(mm, c):
+    """(E, C) bool: the rows of 128-row groups at or beyond masked_m."""
+    starts = torch.arange(c, device=mm.device) // TILE * TILE
+    return starts[None, :] >= mm[:, None]
+
+
+def _codes_within_one(a, b, max_frac):
+    ua, ub = _u8(a), _u8(b)
+    assert (ua != ub).to(torch.float32).mean().item() <= max_frac
+    assert (_ordinal(ua) - _ordinal(ub)).abs().max().item() <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_trans", [False, True])
+@pytest.mark.parametrize("k", [128, 4096])
+@pytest.mark.parametrize("c", [1, 8, 17, 65, 129, 257])
+def test_nn_tile_loop_edges_on_card(card, c, k, w_trans):
+    """#3 and #4 against their twins (rtol=atol=2e-2; equal scales, codes
+    within one on <= 0.1% of lanes) at N = 128; #5 and #6 bit for bit the
+    padded kernels on the dispatch layout, dead groups written as bf16 +0
+    or payload 0 with scale 1.0."""
+    from repro_torch.kernels.grouped_gemm_fp8 import (
+        masked_grouped_gemm_fp8_plain)
+    n = 128
+    mm = _edge_masked_m(card, c)
+    e = mm.numel()
+    qx = _dispatch_rowq(card, 30 + c, e, c, k, mm)
+    shape = (e, n, k) if w_trans else (e, k, n)
+    qw = quantize_blockwise(torch.from_numpy(
+        _x(31, *shape, spread=0.3) * 0.05).to(card))
+    qwv = _t_view(qw) if w_trans else qw
+    args = (qx.data, qx.scale, qw.data, qw.scale)
+    out = ops.grouped_gemm_fp8(qx, qwv)
+    ref = grouped_gemm_fp8_plain(*args, w_trans=w_trans)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    qp = ops.grouped_gemm_fp8_quant_out(qx, qwv)
+    dp, sp = grouped_gemm_fp8_plain(*args, w_trans=w_trans, quant_out=True)
+    assert torch.equal(qp.scale, sp)
+    _codes_within_one(qp.data, dp, 1e-3)
+    dead = _dead_rows(mm, c)
+    om = ops.grouped_gemm_fp8_masked(qx, qwv, mm)
+    torch.testing.assert_close(
+        om.float(), masked_grouped_gemm_fp8_plain(
+            *args, mm, w_trans=w_trans).float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(om.view(torch.int16), out.view(torch.int16))
+    assert not om.view(torch.int16)[dead].any()
+    qm = ops.grouped_gemm_fp8_masked_quant_out(qx, qwv, mm)
+    assert torch.equal(_u8(qm.data), _u8(qp.data))
+    assert torch.equal(qm.scale, qp.scale)
+    assert not _u8(qm.data)[dead].any()
+    assert bool((qm.scale[dead] == 1.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [128, 4096])
+@pytest.mark.parametrize("c", [1, 8, 17, 65, 129, 257])
+def test_swiglu_epilogue_edges_on_card(card, c, k):
+    """#7 at F = 128 against its twin (equal scales, < 1% of payload bytes
+    off) and bit for bit #3 then #8, dead groups payload 0 with scale
+    1.0."""
+    from repro_torch.kernels.grouped_gemm_swiglu_quant import (
+        masked_grouped_gemm_swiglu_quant_plain)
+    f = 128
+    mm = _edge_masked_m(card, c)
+    e = mm.numel()
+    qx = _dispatch_rowq(card, 32 + c, e, c, k, mm)
+    qw = quantize_blockwise(torch.from_numpy(
+        _x(33, e, k, 2 * f, spread=0.3) * 0.05).to(card))
+    q = ops.grouped_gemm_swiglu_quant_masked(qx, qw, mm)
+    dp, sp = masked_grouped_gemm_swiglu_quant_plain(qx.data, qx.scale,
+                                                    qw.data, qw.scale, mm)
+    assert torch.equal(q.scale, sp)
+    assert (_u8(q.data) != _u8(dp)).to(torch.float32).mean().item() < 0.01
+    pair = ops.fused_swiglu_quant(ops.grouped_gemm_fp8(qx, qw)
+                                  .reshape(e * c, 2 * f))
+    assert torch.equal(_u8(q.data), _u8(pair.data).reshape(e, c, f))
+    assert torch.equal(q.scale, pair.scale.reshape(e, c, f // TILE))
+    dead = _dead_rows(mm, c)
+    assert not _u8(q.data)[dead].any()
+    assert bool((q.scale[dead] == 1.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_trans", [False, True])
+def test_quant_out_saturation_and_tiny_rows_on_card(card, w_trans):
+    """Rows whose accumulator is +-448 * 4 (codes 0x7E / 0xFE under scale
+    4), a zero row and a row whose amax is an f32 subnormal (scale 1.0,
+    payload 0): the quantizing epilogue equals its twin bit for bit."""
+    from repro_torch.core.fp8 import E4M3
+    c, k, n = 4, 128, 128
+    x = torch.zeros((1, c, k), device=card)
+    x[0, 0, 0], x[0, 1, 0], x[0, 3, 1] = 1.0, -1.0, 2.0 ** -9
+    sx = torch.ones((1, c, 1), device=card)
+    sx[0, 3, 0] = 2.0 ** -126
+    wt = torch.zeros((1, k, n), device=card)             # (K, N) values
+    wt[0, 0] = torch.where(torch.arange(n, device=card) % 2 == 0, 448.0, 1.0)
+    wt[0, 1] = 2.0 ** -9
+    w = wt.transpose(1, 2).contiguous() if w_trans else wt
+    sw = torch.full((1, 1, 1), 4.0, device=card)
+    qx = QTensor(x.to(E4M3), sx, (1, 1, TILE))
+    qw = QTensor(w.to(E4M3), sw, (1, TILE, TILE))
+    q = ops.grouped_gemm_fp8_quant_out(qx, _t_view(qw) if w_trans else qw)
+    dp, sp = grouped_gemm_fp8_plain(qx.data, sx, qw.data, sw,
+                                    w_trans=w_trans, quant_out=True)
+    assert torch.equal(_u8(q.data), _u8(dp)) and torch.equal(q.scale, sp)
+    assert q.scale.flatten().tolist() == [4.0, 4.0, 1.0, 1.0]
+    assert bool((_u8(q.data)[0, 0, ::2] == 0x7E).all())
+    assert bool((_u8(q.data)[0, 1, ::2] == 0xFE).all())
+    assert not _u8(q.data)[0, 2:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_trans", [False, True])
+def test_nan_byte_in_x_propagates_on_card(card, w_trans):
+    """An e4m3 NaN byte in x makes that row's outputs NaN, and no other
+    row's, as in the twin: bf16 out NaN, quant-out scale 1.0 and NaN
+    payload."""
+    from repro_torch.core.fp8 import E4M3
+    e, c, k, n = 2, 17, 256, 128
+    qx = _rowq(card, 40, e, c, k)
+    data = _u8(qx.data).clone()
+    data[1, 5, 200] = 0x7F
+    qx = QTensor(data.view(E4M3), qx.scale, qx.tile)
+    shape = (e, n, k) if w_trans else (e, k, n)
+    qw = quantize_blockwise(torch.from_numpy(
+        _x(41, *shape, spread=0.3) * 0.05).to(card))
+    qwv = _t_view(qw) if w_trans else qw
+    args = (qx.data, qx.scale, qw.data, qw.scale)
+    out = ops.grouped_gemm_fp8(qx, qwv).float()
+    ref = grouped_gemm_fp8_plain(*args, w_trans=w_trans).float()
+    nan = ref.isnan()
+    assert nan[1, 5].all() and int(nan.sum()) == n
+    assert torch.equal(out.isnan(), nan)
+    torch.testing.assert_close(out[~nan], ref[~nan], rtol=2e-2, atol=2e-2)
+    q = ops.grouped_gemm_fp8_quant_out(qx, qwv)
+    dp, sp = grouped_gemm_fp8_plain(*args, w_trans=w_trans, quant_out=True)
+    assert torch.equal(q.scale, sp) and float(q.scale[1, 5, 0]) == 1.0
+    qnan = q.data.float().isnan()
+    assert torch.equal(qnan, dp.float().isnan()) and qnan[1, 5].all()
+    _codes_within_one(q.data[~qnan], dp[~qnan], 1e-3)
