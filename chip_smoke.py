@@ -6,7 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
   1. card + build: the card's name and power limit (nvidia-smi), then the
      CUDA kernels built from src/repro_torch/csrc for sm_90a (one nvcc a
-     source, all started together);
+     source, all started together), with ptxas's entry, register and
+     spill lines for each;
   2. kernels vs plain: each kernel against its plain PyTorch twin on the
      card at the serving path's full-width shapes (qwen3_moe_235b: bucket
      64 prefill, 8-slot decode), to the tolerances of the CPU tests, with
@@ -33,9 +34,11 @@ Phases (any failure raises and the script exits non-zero):
      backward gather by the inverse map) bitwise, SwiGLU+quantize (equal
      scales, codes within one on < 1% of lanes), the scaling-aware
      transpose (bitwise), GEMM-1/GEMM-2, the NT Wgrad GEMMs and the
-     transposed-weight Dgrad-2 GEMM (rtol=atol=2e-2), the quant-out
-     Dgrad-1 GEMM (equal scales, payload codes within one on < 0.1% of
-     lanes), with the same timings as phase 2;
+     transposed-weight Dgrad-2 GEMM (rtol=atol=2e-2; the NT rows add the
+     share of bf16 lanes off the twin and an f32 run's max |kernel -
+     twin| / max |twin|), the quant-out Dgrad-1 GEMM (equal scales,
+     payload codes within one on < 0.1% of lanes), with the same timings
+     as phase 2;
   6. the train path: qwen3_moe_235b at full width, depth cut to 1 layer,
      random bf16 params from a seed, AdamW (lr 1e-3 after the reference
      make_train_step's default 100-step warmup), one fixed batch of
@@ -515,6 +518,10 @@ def check_masked_nt(record, shape, a, sa, b, sb, mm):
     check(torch.equal(out.view(torch.int16), pad.view(torch.int16)),
           f"masked gemm_nt {shape}: not bitwise the padded kernel")
     err = (out.float() - ref.float()).abs().max().item()
+    prec = nt_precision(
+        f"masked gemm_nt {shape}", out, ref,
+        lambda dt: nt.masked_grouped_gemm_nt_fp8_cuda(*args, mm, dt),
+        lambda dt: nt.masked_grouped_gemm_nt_fp8_plain(*args, mm, dt))
     del out, ref, pad
     st = live_stats(mm, C)
     mmc = mm.clamp(0, C).long()
@@ -530,12 +537,62 @@ def check_masked_nt(record, shape, a, sa, b, sb, mm):
            lambda: torch.bmm(ab, bb),
            (M + N) * (st["live_rows"] + steps * 4) + E * M * N * 2,
            2 * M * N * st["live_rows"], record.peaks["fp8"], err,
-           {"tolerance": "rtol=atol=2e-2; bitwise the padded kernel",
-            **st, "live_token_steps": steps, "library": MASKED_LIBRARY,
+           {"tolerance": "rtol=atol=2e-2; bf16 lanes off <= "
+                         f"{NT_BF16_MISMATCH_LIMIT:g}; bitwise the padded "
+                         "kernel",
+            **st, **prec, "live_token_steps": steps,
+            "library": MASKED_LIBRARY,
             "padded_ms": time_ms(lambda: nt.grouped_gemm_nt_fp8_cuda(
                 *args, bf16))}, plain_target_ms=50)
     del ab, bb
     torch.cuda.empty_cache()
+
+
+# The share of an NT Wgrad kernel's bf16 lanes that may differ from its
+# twin.  The f16-wgmma loop leaves 3.1e-6 off at Wgrad-1, an FP8-wgmma
+# build of it 5.26e-2 (H100; PERF.md): the limit lies between, so
+# FP8-level sums fail on any seed, not only where a lane leaves 2e-2.
+NT_BF16_MISMATCH_LIMIT = 1e-3
+
+
+def nt_precision(name, out, ref, kfn, pfn):
+    """How far an NT Wgrad kernel's sums are from its twin's: the share of
+    bf16 lanes of `out` (the kernel) that differ from `ref` (the twin),
+    which must not pass NT_BF16_MISMATCH_LIMIT, and max |kernel - twin| /
+    max |twin| of an f32-out run of kfn / pfn (called with the output
+    dtype) on the same inputs."""
+    frac = (out.view(torch.int16) != ref.view(torch.int16)).sum().item() \
+        / out.numel()
+    check(frac <= NT_BF16_MISMATCH_LIMIT,
+          f"{name}: {frac:.3g} of bf16 lanes differ from the twin (limit "
+          f"{NT_BF16_MISMATCH_LIMIT:g})")
+    k32, t32 = kfn(torch.float32), pfn(torch.float32)
+    rel = (k32.sub_(t32).abs_().max() / t32.abs().max()).item()
+    del k32, t32
+    torch.cuda.empty_cache()
+    return {"bf16_mismatch_frac": frac, "f32_max_rel_diff": rel}
+
+
+def nt_phases(a, sa, b, sb):
+    """Where #10's time goes, read from the kernel itself on variants of
+    its bf16 launch: with masked_m 0 for every expert (#11 then runs no
+    product and stores +0 tiles: the tile walk and the output store alone),
+    on the first 128 tokens (one C step: half the loads and products, the
+    same store), and with an f32 output (twice the store bytes)."""
+    from repro_torch.kernels import grouped_gemm_nt_fp8 as nt
+    bf16 = torch.bfloat16
+    zero = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+    a1, b1 = a[:, :, :128].contiguous(), b[:, :, :128].contiguous()
+    sa1, sb1 = sa[:, :, :1].contiguous(), sb[:, :, :1].contiguous()
+    ms = {"store_only_ms": time_ms(lambda: nt.masked_grouped_gemm_nt_fp8_cuda(
+              a, sa, b, sb, zero, bf16)),
+          "one_step_ms": time_ms(lambda: nt.grouped_gemm_nt_fp8_cuda(
+              a1, sa1, b1, sb1, bf16)),
+          "f32_out_ms": time_ms(lambda: nt.grouped_gemm_nt_fp8_cuda(
+              a, sa, b, sb, torch.float32))}
+    del a1, b1, sa1, sb1
+    torch.cuda.empty_cache()
+    return ms
 
 
 def add_rows(timings, rows):
@@ -924,6 +981,12 @@ def train_kernel_checks(cfg, peaks, dev):
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                    atol=2e-2, msg=f"grouped_gemm_nt {shape}")
         err = (out.float() - ref.float()).abs().max().item()
+        prec = nt_precision(
+            f"grouped_gemm_nt {shape}", out, ref,
+            lambda dt: grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_cuda(
+                a, sa, b, sb, dt),
+            lambda dt: grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_plain(
+                a, sa, b, sb, dt))
         del out, ref
         ab, bb = bf(a, sa), bf(b, sb).transpose(1, 2)
         record("grouped_gemm_nt_fp8",
@@ -935,7 +998,9 @@ def train_kernel_checks(cfg, peaks, dev):
                lambda: torch.bmm(ab, bb),
                E * (M + N) * C * (1 + 4 / 128) + E * M * N * 2,
                2 * E * M * N * C, peaks["fp8"], err,
-               {"tolerance": "rtol=atol=2e-2", "library": GEMM_LIBRARY},
+               {"tolerance": "rtol=atol=2e-2; bf16 lanes off <= "
+                             f"{NT_BF16_MISMATCH_LIMIT:g}",
+                "library": GEMM_LIBRARY, **prec, **nt_phases(a, sa, b, sb)},
                plain_target_ms=50)
         del ab, bb
         torch.cuda.empty_cache()
@@ -1212,7 +1277,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     for lib, log in build.build_report.get("logs", {}).items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"[ptxas {lib}] {line.strip()}")
 
     cfg = serve_config()
@@ -1272,8 +1338,10 @@ def main() -> int:
             by_shape=[{k: r.get(k) for k in (
                 "shape", "kernel_ms", "call_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "bound_share", "vs_library",
-                "max_abs_err", "mismatch_frac", "padded_ms",
-                "live_tile_share")} for r in timings[kname]]))
+                "max_abs_err", "mismatch_frac", "bf16_mismatch_frac",
+                "f32_max_rel_diff", "store_only_ms", "one_step_ms",
+                "f32_out_ms", "padded_ms", "live_tile_share")}
+                for r in timings[kname]]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

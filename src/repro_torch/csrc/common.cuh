@@ -43,12 +43,6 @@ __device__ __forceinline__ uint32_t to_e4m3(float v) {
   return (uint32_t)__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
 }
 
-__device__ __forceinline__ float e4m3_to_float(uint32_t byte) {
-  const __half_raw hr =
-      __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)(byte & 0xff), __NV_E4M3);
-  return __half2float(__half(hr));
-}
-
 // NaN-propagating max (torch.amax and jnp.max propagate NaN; fmaxf drops it).
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (b > a || b != b) ? b : a;
@@ -81,44 +75,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
 __device__ __forceinline__ float swiglu(float g, float u) {
   const float sg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
   return __fmul_rn(__fmul_rn(g, sg), u);
-}
-
-// Four e4m3 bytes of one 32-bit word -> four floats at dst (16-byte store).
-__device__ __forceinline__ void unpack4(uint32_t w, float* dst) {
-  float4 f;
-  f.x = e4m3_to_float(w);
-  f.y = e4m3_to_float(w >> 8);
-  f.z = e4m3_to_float(w >> 16);
-  f.w = e4m3_to_float(w >> 24);
-  *reinterpret_cast<float4*>(dst) = f;
-}
-
-// Row stride (floats) of a 128 x 128 tile staged transposed: odd, so the
-// staging stores and the GEMM inner loop's reads are free of bank conflicts.
-constexpr int TILE_T_STRIDE = TILE + 1;
-
-// Stage the 128 x 128 e4m3 tile at src (128 rows n, each 128 bytes
-// contiguous in k, rows ld bytes apart) into dst as f32, n-major with row
-// stride TILE_T_STRIDE: dst[n * TILE_T_STRIDE + k].  For a block of 256
-// threads: a warp loads 4 rows x 8 words (whole 32-byte sectors) and
-// stores them to banks (n + 4 * kw + q) mod 32, all distinct.
-__device__ __forceinline__ void stage_tile_n_major(const uint8_t* src,
-                                                   size_t ld, float* dst,
-                                                   int tid) {
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll 4
-  for (int it = 0; it < TILE * 32 / 256; ++it) {
-    const int g = warp + 8 * it;
-    const int r = (g % 32) * 4 + (lane & 3);
-    const int kw = (g / 32) * 8 + (lane >> 2);
-    const uint32_t v =
-        *reinterpret_cast<const uint32_t*>(src + (size_t)r * ld + kw * 4);
-    float* d = dst + r * TILE_T_STRIDE + kw * 4;
-    d[0] = e4m3_to_float(v);
-    d[1] = e4m3_to_float(v >> 8);
-    d[2] = e4m3_to_float(v >> 16);
-    d[3] = e4m3_to_float(v >> 24);
-  }
 }
 
 // Quantize the 128-wide tile a warp holds (4 values a lane, lane-major):

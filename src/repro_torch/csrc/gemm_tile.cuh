@@ -2,7 +2,9 @@
 // grouped_gemm_fp8.cu (bf16 out, quantizing epilogue, masked or padded)
 // and grouped_gemm_swiglu_quant.cu (the fused SwiGLU GEMM-1), so that the
 // fused kernel's gate and up accumulators are, bit for bit, the columns the
-// unfused GEMM computes.
+// unfused GEMM computes.  The NT Wgrad kernel (grouped_gemm_nt_fp8.cu)
+// runs its own loop on the widening and wgmma helpers here (convert_w,
+// load_a, wgmma_k16, wait_chunks, frag_row).
 //
 // A block of BM/64 warpgroups (128 threads each) computes a BM x 128
 // output tile of one expert, a 64-row slice per warpgroup, for each of NW

@@ -15,8 +15,18 @@ token columns zero) masked == padded bit for bit.
 Replaces ``repro/kernels/grouped_gemm_nt_fp8.py::grouped_gemm_nt_fp8_pallas``
 (``pallas_call`` at grouped_gemm_nt_fp8.py:67) and
 ``masked_grouped_gemm_nt_fp8_pallas`` (:131).  CUDA source:
-``csrc/grouped_gemm_nt_fp8.cu`` (bound at the Wgrad shapes: bytes, the
-output's).
+``csrc/grouped_gemm_nt_fp8.cu``.  At the Wgrad shapes the bound is bytes,
+94% of them the bf16 output; measured, the SM's own work (widening,
+promotion, output conversion) decides the time.  A persistent block a SM
+walks panels (an expert's 128 b rows) and their 128-row tiles; operands
+arrive by TMA as e4m3 and are widened exactly to f16 for the tensor cores
+(f16 ``wgmma``, exact products, f32 sums), a panel's b once for all its
+tiles; the two warpgroups take turns at the tensor cores and store their
+rows straight from registers in whole sectors.  FP8 ``wgmma`` would take
+both operands as they are, but its ~14-bit sums failed the rtol=atol=2e-2
+gate against this twin on near-zero outputs at both Wgrad shapes and left
+5% of bf16 lanes off it (this loop: 3e-6).
+
 The plain twin keeps the per-step outer-product promotion of the reference
 (grouped_gemm_nt_fp8.py:50) and converts one C step at a time.
 """

@@ -662,3 +662,94 @@ def test_nan_byte_in_x_propagates_on_card(card, w_trans):
     qnan = q.data.float().isnan()
     assert torch.equal(qnan, dp.float().isnan()) and qnan[1, 5].all()
     _codes_within_one(q.data[~qnan], dp[~qnan], 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Edges of the NT Wgrad loop (#10, #11): one C step to many, M or N = 128,
+# one expert, both output dtypes, every masked_m kind, saturated codes,
+# row scales spread over 2**-24 .. 2**4 in both operands, a NaN byte.
+# ---------------------------------------------------------------------------
+def _nt_operand(card, seed, e, rows, c, mm):
+    """(E, rows, C) e4m3 + (E, rows, C/128) scales on the dispatch layout of
+    masked_m (token columns at or beyond masked_m[e] zero, an all-zero
+    step's scale 1.0): integer codes in -4..4, rows 0 and 5 saturated at
+    +-448, and a scale 2**-24 .. 2**4 drawn for every (row, step), so a
+    kernel that mixes up row and column scales, or steps, fails.  Every
+    product is exact and every step's sum fits 13 bits of its operands'
+    grid, so the tensor cores sum it exactly (FP8 or f16 alike) and the
+    comparison holds at any magnitude."""
+    from repro_torch.core.fp8 import E4M3
+    r = np.random.default_rng(seed)
+    mmn = mm.cpu().numpy()
+    v = r.integers(-4, 5, (e, rows, c)).astype(np.float32)
+    v[:, [0, 5]] = 448.0 * r.choice([-1.0, 1.0], (e, 2, c))
+    v = np.where(np.arange(c)[None, None, :] < mmn[:, None, None], v, 0.0)
+    s = np.exp2(r.integers(-24, 5, (e, rows, c // TILE)))
+    dead = np.arange(0, c, TILE)[None, None, :] >= mmn[:, None, None]
+    s = np.where(dead, 1.0, s)
+    return QTensor(torch.from_numpy(v.astype(np.float32)).to(card).to(E4M3),
+                   torch.from_numpy(s.astype(np.float32)).to(card),
+                   (1, 1, TILE))
+
+
+def _check_nt(qa, qb, mm, out_dtype):
+    """#10 and #11 equal to their twins (rtol=atol=0, NaN where the twin
+    has NaN: _nt_operand's sums are exact, so any difference is a fault,
+    a dropped or misapplied small scale included), #11 bit for bit #10;
+    returns #10's output."""
+    from repro_torch.kernels.grouped_gemm_nt_fp8 import (
+        masked_grouped_gemm_nt_fp8_plain)
+    args = (qa.data, qa.scale, qb.data, qb.scale)
+    out = ops.grouped_gemm_nt_fp8(qa, qb, out_dtype)
+    ref = grouped_gemm_nt_fp8_plain(*args, out_dtype)
+    assert out.dtype == out_dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=0,
+                               equal_nan=True)
+    om = ops.grouped_gemm_nt_fp8_masked(qa, qb, mm, out_dtype)
+    torch.testing.assert_close(
+        om.float(), masked_grouped_gemm_nt_fp8_plain(*args, mm, out_dtype)
+        .float(), rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(_u8(om), _u8(out))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(128, 384), (256, 128), (640, 128)])
+@pytest.mark.parametrize("c", [128, 256, 384, 1024])
+def test_nt_loop_edges_on_card(card, c, m, n, out_dtype):
+    """Six experts with masked_m 0, 1, 127, 128, 129 and C: the expert with
+    none is +0 everywhere.  M = 640 at C <= 256 runs the loads four steps
+    ahead (the kernel's deep ring), the others one step."""
+    mm = _edge_masked_m(card, c)
+    e = mm.numel()
+    out = _check_nt(_nt_operand(card, 50 + c, e, m, c, mm),
+                    _nt_operand(card, 51 + c, e, n, c, mm), mm, out_dtype)
+    assert not _u8(out[0]).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,live", [(128, 128), (1024, 385)])
+def test_nt_loop_one_expert_on_card(card, c, live, out_dtype):
+    """E = 1, M = N = 128: a single tile, so a single block walks it."""
+    mm = torch.tensor([live], dtype=torch.int32, device=card)
+    _check_nt(_nt_operand(card, 52, 1, 128, c, mm),
+              _nt_operand(card, 53, 1, 128, c, mm), mm, out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_nt_nan_byte_in_a_propagates_on_card(card, out_dtype):
+    """An e4m3 NaN byte in a (a live token of expert 1) makes that row of
+    the output NaN, and no other, as in the twin; masked == padded."""
+    from repro_torch.core.fp8 import E4M3
+    e, m, n, c = 2, 128, 256, 256
+    mm = torch.tensor([0, 200], dtype=torch.int32, device=card)
+    qa = _nt_operand(card, 54, e, m, c, mm)
+    qb = _nt_operand(card, 55, e, n, c, mm)
+    data = _u8(qa.data).clone()
+    data[1, 9, 150] = 0x7F
+    qa = QTensor(data.view(E4M3), qa.scale, qa.tile)
+    nan = _check_nt(qa, qb, mm, out_dtype).isnan()
+    assert nan[1, 9].all() and int(nan.sum()) == n
