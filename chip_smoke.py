@@ -33,12 +33,14 @@ Phases (any failure raises and the script exits non-zero):
      backward island, dact_quant) and permute+pad (send, grouping, the
      backward gather by the inverse map) bitwise, SwiGLU+quantize (equal
      scales, codes within one on < 1% of lanes), the scaling-aware
-     transpose (bitwise), GEMM-1/GEMM-2, the NT Wgrad GEMMs and the
-     transposed-weight Dgrad-2 GEMM (rtol=atol=2e-2; the NT rows add the
-     share of bf16 lanes off the twin and an f32 run's max |kernel -
-     twin| / max |twin|), the quant-out Dgrad-1 GEMM (equal scales,
-     payload codes within one on < 0.1% of lanes), with the same timings
-     as phase 2;
+     transpose (bitwise at its four launches T(qx), T(qa), T(qg), T(qgh);
+     the T(qx) row adds `t_phases`: its time and bitwise check with
+     uniform, spread and flush-tile row scales), GEMM-1/GEMM-2, the NT
+     Wgrad GEMMs and the transposed-weight Dgrad-2 GEMM (rtol=atol=2e-2;
+     the NT rows add the share of bf16 lanes off the twin and an f32
+     run's max |kernel - twin| / max |twin|), the quant-out Dgrad-1 GEMM
+     (equal scales, payload codes within one on < 0.1% of lanes), with
+     the same timings as phase 2;
   6. the train path: qwen3_moe_235b at full width, depth cut to 1 layer,
      random bf16 params from a seed, AdamW (lr 1e-3 after the reference
      make_train_step's default 100-step warmup), one fixed batch of
@@ -68,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -230,6 +233,27 @@ def check_quantize(record, shape, x):
            M * K * x.element_size() + M * K + M * K // 128 * 4, 4 * M * K,
            record.peaks["f32"], (dq(d, s) - dq(dp, sp)).abs().max().item(),
            {"tolerance": "bitwise"})
+
+
+def check_transpose(record, shape, d, s, phases=False):
+    """fp8_transpose of (E, M, K) e4m3 d with row scales s: bitwise its
+    twin; with `phases`, the row adds t_phases."""
+    from repro_torch.kernels import fp8_transpose
+    E, M, K = d.shape
+    out, so = fp8_transpose.fp8_transpose_cuda(d, s)
+    pd, ps = fp8_transpose.fp8_transpose_plain(d, s)
+    check(torch.equal(out.view(torch.uint8), pd.view(torch.uint8))
+          and torch.equal(so, ps), f"fp8_transpose {shape}: not bitwise")
+    del out, so, pd, ps
+    record("fp8_transpose", f"{shape} ({E},{M},{K})->({E},{K},{M})",
+           lambda: fp8_transpose.fp8_transpose_cuda(d, s),
+           lambda: fp8_transpose.fp8_transpose_plain(d, s),
+           lambda: d.view(torch.uint8).transpose(-1, -2).contiguous(),
+           2 * (E * M * K + E * M * K // 128 * 4), 0, record.peaks["fp8"],
+           0.0, {"tolerance": "bitwise",
+                 "library": "uint8 .transpose(-1,-2).contiguous(): a "
+                            "relayout copy, not the same function",
+                 **(t_phases(d, s) if phases else {})})
 
 
 def check_permute(record, shape, x, s, row_map):
@@ -595,6 +619,37 @@ def nt_phases(a, sa, b, sb):
     return ms
 
 
+def t_phases(d, s):
+    """#9 on three sets of row scales for one payload `d`: uniform (k = 0
+    everywhere: every word is copied), `s` itself (rows over 2**+-6), and
+    flush tiles (one row of scale 1.0 in every 128-row tile beside rows at
+    2**-21..2**-17, as the train path's gradients beside a padding row:
+    k = 17..21, the table and the sign-bits path).  Each bitwise against
+    the twin, and timed; beside them, copy_ms: a device copy of the
+    payload (`copy_`, the same bytes read and written), the rate the card
+    reaches on this traffic."""
+    from repro_torch.kernels import fp8_transpose as ft
+    gen = torch.Generator(device=s.device).manual_seed(3)
+    ex = torch.randint(-21, -16, s.shape, generator=gen, device=s.device)
+    ex[:, ::128] = 0
+    phases = {}
+    for name, sc in (("uniform", torch.ones_like(s)), ("spread", s),
+                     ("flush", torch.exp2(ex.to(torch.float32)))):
+        out, so = ft.fp8_transpose_cuda(d, sc)
+        pd, ps = ft.fp8_transpose_plain(d, sc)
+        bitwise = (torch.equal(out.view(torch.uint8), pd.view(torch.uint8))
+                   and torch.equal(so, ps))
+        check(bitwise, f"fp8_transpose t_phases {name}: not bitwise")
+        del out, so, pd, ps
+        phases[f"{name}_ms"] = time_ms(lambda: ft.fp8_transpose_cuda(d, sc))
+        phases[f"{name}_bitwise"] = bitwise
+    copy = torch.empty_like(d)
+    phases["copy_ms"] = time_ms(lambda: copy.copy_(d))
+    del copy
+    torch.cuda.empty_cache()
+    return {"t_phases": phases}
+
+
 def add_rows(timings, rows):
     for kname, rs in rows.items():
         timings.setdefault(kname, []).extend(rs)
@@ -784,6 +839,7 @@ def serve_path(cfg, dev, masked=False, padded_tokens=None):
     s = results.stats
     print(json.dumps({label: dict(
         requests=len(results), tokens=n_tok, seconds=dt,
+        tokens_sha256=hashlib.sha256(json.dumps(tokens).encode()).hexdigest(),
         tokens_per_s=n_tok / dt, ticks=s["ticks"],
         prefill_chunks=s["prefill_chunks"], evicted=s["evicted"],
         max_concurrent=s["max_concurrent"],
@@ -915,7 +971,7 @@ def train_kernel_checks(cfg, peaks, dev):
     full-width train step gives it (T = 2048 tokens, C = 256 rows an
     expert)."""
     from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
-    from repro_torch.kernels import fp8_transpose, grouped_gemm_nt_fp8
+    from repro_torch.kernels import grouped_gemm_nt_fp8
 
     gen = torch.Generator(device=dev).manual_seed(2)
     D, F, E, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.top_k
@@ -953,23 +1009,15 @@ def train_kernel_checks(cfg, peaks, dev):
     check_swiglu(record, "train", torch.randn(
         (E * C, 2 * F), generator=gen, device=dev, dtype=torch.bfloat16))
 
-    # -- #9 the scaling-aware transpose: T(qx) and T(qa) of Wgrad-1 / -2
-    for shape, K in (("T(qx)", D), ("T(qa)", F)):
+    # -- #9 the scaling-aware transpose at its four train launches
+    # (core/linear.py): Wgrad-2 takes T(qa) and T(qg), Wgrad-1 T(qx) and
+    # T(qgh)
+    for shape, K in (("T(qx)", D), ("T(qa)", F), ("T(qg)", D),
+                     ("T(qgh)", 2 * F)):
         d, s = erowq(C, K, spread=1.0)
-        out, so = fp8_transpose.fp8_transpose_cuda(d, s)
-        pd, ps = fp8_transpose.fp8_transpose_plain(d, s)
-        check(torch.equal(out.view(torch.uint8), pd.view(torch.uint8))
-              and torch.equal(so, ps), f"fp8_transpose {shape}: not bitwise")
-        nbytes = 2 * (E * C * K + E * C * K // 128 * 4)
-        record("fp8_transpose", f"{shape} ({E},{C},{K})->({E},{K},{C})",
-               lambda: fp8_transpose.fp8_transpose_cuda(d, s),
-               lambda: fp8_transpose.fp8_transpose_plain(d, s),
-               lambda: d.view(torch.uint8).transpose(-1, -2).contiguous(),
-               nbytes, 0, peaks["fp8"], 0.0,
-               {"tolerance": "bitwise",
-                "library": "uint8 .transpose(-1,-2).contiguous(): a relayout "
-                           "copy, not the same function"})
-        del out, so, pd, ps
+        check_transpose(record, shape, d, s, phases=shape == "T(qx)")
+        del d, s
+        torch.cuda.empty_cache()
 
     # -- #10 the NT grouped GEMM: Wgrad-1 and Wgrad-2, bf16 out
     for shape, M, N in (("wgrad1", D, 2 * F), ("wgrad2", F, D)):
@@ -1340,7 +1388,7 @@ def main() -> int:
                 "bound_ms", "bound_by", "bound_share", "vs_library",
                 "max_abs_err", "mismatch_frac", "bf16_mismatch_frac",
                 "f32_max_rel_diff", "store_only_ms", "one_step_ms",
-                "f32_out_ms", "padded_ms", "live_tile_share")}
+                "f32_out_ms", "t_phases", "padded_ms", "live_tile_share")}
                 for r in timings[kname]]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -55,11 +55,6 @@ __device__ __forceinline__ float warp_amax(float v) {
   return v;
 }
 
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   const uint2 t = *reinterpret_cast<const uint2*>(p);
   const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);

@@ -11,8 +11,9 @@
 // division per element, far below the memory time.  Design: one warp per
 // (row, 128-column output tile); a lane loads 4 gate and the 4 matching
 // up values (two 8-byte loads), computes y in registers, and the tile is
-// quantized with a shuffle amax as in quantize.cu.  The activation never
-// reaches device memory in bf16, which is the fusion the paper measures.
+// quantized with a warp-shuffle amax (common.cuh's quantize_tile_store).
+// The activation never reaches device memory in bf16, which is the fusion
+// the paper measures.
 // The SwiGLU is common.cuh's repro::swiglu, which the fused GEMM-1
 // epilogue (grouped_gemm_swiglu_quant.cu) shares.
 #include "common.cuh"

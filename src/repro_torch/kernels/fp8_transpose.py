@@ -12,7 +12,9 @@ below, the CUDA kernel and the Pallas kernel agree bit for bit.
 Replaces ``repro/kernels/fp8_transpose.py::fp8_transpose_pallas``
 (``pallas_call`` at fp8_transpose.py:102; the reference applies it with a
 ``vmap`` over experts, the CUDA kernel takes the (E, M, K) batch in one
-launch).  CUDA source: ``csrc/fp8_transpose.cu`` (bound: bytes).
+launch).  CUDA source: ``csrc/fp8_transpose.cu`` (bound: bytes), which
+rebases a 32-bit word of one row at a time and looks up the reference's
+rebase in a table only where a byte leaves the normal range.
 """
 from __future__ import annotations
 

@@ -2,10 +2,11 @@
 
 Replaces ``repro/kernels/quantize.py::quantize_rowwise_pallas``
 (``pallas_call`` at quantize.py:54).  CUDA source: ``csrc/quantize.cu``,
-whose header says what bounds it on H100 (bytes) and how the design moves
-each byte once.  The plain twin below repeats the kernel's arithmetic: f32
-tile amax, the bit-built po2 scale, f32 division (exact for a power of
-two), clip to +-448 and an RNE e4m3 cast.
+whose header says what bounds it on H100 (bytes) and how the design keeps
+enough bytes in flight.  The plain twin below computes the kernel's
+function: f32 tile amax, the bit-built po2 scale, x / scale (the kernel
+multiplies by the scale's exact reciprocal: the same correctly rounded
+value), clip to +-448 and an RNE e4m3 cast.
 """
 from __future__ import annotations
 

@@ -32,6 +32,7 @@ from repro_torch.kernels.fused_swiglu_quant import (fused_swiglu_quant_plain,
 from repro_torch.kernels.grouped_gemm_fp8 import grouped_gemm_fp8_plain
 from repro_torch.kernels.grouped_gemm_nt_fp8 import grouped_gemm_nt_fp8_plain
 from repro_torch.kernels.quantize import quantize_rowwise_plain
+from torch_quant_inputs import KINDS, quant_inputs
 
 
 def _x(seed, *shape, spread=1.5):
@@ -753,3 +754,114 @@ def test_nt_nan_byte_in_a_propagates_on_card(card, out_dtype):
     qa = QTensor(data.view(E4M3), qa.scale, qa.tile)
     nan = _check_nt(qa, qb, mm, out_dtype).isnan()
     assert nan[1, 9].all() and int(nan.sum()) == n
+
+
+# ---------------------------------------------------------------------------
+# The scaling-aware transpose (#9) and the row-wise quantize (#1), bitwise
+# against their twins: every rebase path of the transpose's word-wise
+# rebase (k = 0, the subtraction, the table, the sign bits from k = 19),
+# its persistent tile walk, and the quantize's flat passes of 8 tiles a
+# warp.
+# ---------------------------------------------------------------------------
+def _transpose_bitwise(d, s):
+    qt = ops.fp8_transpose(QTensor(d, s, (1, 1, TILE)))
+    dp, sp = fp8_transpose_plain(d, s)
+    assert torch.equal(qt.data.view(torch.uint8), dp.view(torch.uint8))
+    assert torch.equal(qt.scale, sp)
+
+
+def _e4m3(card, a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint8)).view(
+        torch.float8_e4m3fn).to(card)
+
+
+@pytest.mark.gpu
+def test_fp8_transpose_every_encoding_and_k_on_card(card):
+    """Every e4m3 encoding (NaN 0x7f / 0xff included) rebased by every k in
+    0..40 and by 252, from explicit po2 row scales (s_max = 2**126): each
+    tile holds two rows a k (encodings 0..127 and 128..255, columns
+    shuffled) and random rows at k = 0, in a new row order each tile."""
+    r = np.random.default_rng(21)
+    e, m, k = 2, 256, 384
+    ks = list(range(41)) + [252]
+    roles = [(kk, np.arange(h * 128, h * 128 + 128)) for kk in ks
+             for h in (0, 1)]
+    d = np.empty((e, m, k), np.uint8)
+    s = np.empty((e, m, k // TILE), np.float32)
+    for ei in range(e):
+        for mb in range(m // TILE):
+            for kb in range(k // TILE):
+                rows = roles + [(0, r.integers(0, 256, TILE))
+                                for _ in range(TILE - len(roles))]
+                for i, j in enumerate(r.permutation(TILE)):
+                    kk, enc = rows[j]
+                    d[ei, mb * TILE + i, kb * TILE:(kb + 1) * TILE] = \
+                        r.permutation(enc)
+                    s[ei, mb * TILE + i, kb] = 2.0 ** (126 - kk)
+    _transpose_bitwise(_e4m3(card, d), torch.from_numpy(s).to(card))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,m,k", [(1, 128, 128), (1009, 128, 128),
+                                   (3, 640, 1152), (5, 2048, 1280)])
+def test_fp8_transpose_tile_walk_on_card(card, e, m, k):
+    """One tile; 1009 tiles (a prime: no multiple of the persistent grid);
+    odd tile grids; more tiles than the grid has blocks.  Random bytes and
+    row scales over 2**+-24, so every rebase path runs in every tile."""
+    r = np.random.default_rng(e * 7 + m + k)
+    d = _e4m3(card, r.integers(0, 256, (e, m, k)))
+    s = torch.from_numpy(np.exp2(r.integers(-24, 25, (e, m, k // TILE))
+                                 ).astype(np.float32)).to(card)
+    _transpose_bitwise(d, s)
+
+
+def _quantize_bitwise(x):
+    q = ops.quantize_rowwise(x)
+    dp, sp = quantize_rowwise_plain(x)
+    assert torch.equal(q.data.view(torch.uint8), dp.view(torch.uint8))
+    assert torch.equal(q.scale, sp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(1, 128), (1, 4096), (3, 128), (9, 384),
+                                 (77, 1152), (20001, 384), (8191, 4096),
+                                 (65537, 640)])
+def test_quantize_kernel_edges_on_card(card, dtype, m, k):
+    """K = 128; M = 1; tile counts that end inside a warp's pass (2 tiles
+    below 2**14 tiles, 8 from there on: 60,003 at 20001 x 384) and inside
+    a block's; more tiles than one persistent pass covers (262,112 at
+    8191 x 4096; 327,685 at 65537 x 640, ending mid-pass)."""
+    _quantize_bitwise(torch.from_numpy(_x(m + k, m, k)).to(card).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kernel_special_values_on_card(card, dtype):
+    """NaN, +-inf, subnormal, zero and -0 values, alone in a tile and beside
+    numbers; huge and tiny normal tiles."""
+    x = _x(31, 64, 512)
+    x[0, 5] = np.nan
+    x[1, :128] = np.nan
+    x[2, 130] = np.inf
+    x[3, 300] = -np.inf
+    x[4, 128:256] = np.inf
+    x[5, :128] = 3e-40 * np.sign(x[5, :128])        # f32 / bf16 subnormal
+    x[6, :128] = 3e-40
+    x[6, 64] = 1.0
+    x[7] = 0.0
+    x[8, :128] = -0.0
+    x[9] *= 1e-37
+    x[10] = np.clip(x[10], -1, 1) * 3e38
+    _quantize_bitwise(torch.from_numpy(x).to(card).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kernel_boundary_inputs_on_card(card, kind, dtype):
+    """test_torch_quant.py's inputs (amax exactly 448 * 2**e, |exp| >= 13,
+    zero tiles) on the kernel."""
+    rng = np.random.default_rng([KINDS.index(kind), 7])
+    x = quant_inputs(kind, rng, (48, 384))
+    _quantize_bitwise(torch.from_numpy(x).to(card).to(dtype))

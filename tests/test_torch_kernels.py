@@ -24,6 +24,7 @@ from repro.core.quant import QTensor as JQ
 from repro.core.quant import _dequantize_nocount, quantize
 from repro.core.transpose import transpose_direct as jtranspose_direct
 from repro.kernels import ops as jops
+from repro.kernels.fp8_transpose import _rebase_exponent as jrebase
 from repro.kernels.fp8_transpose import fp8_transpose_pallas
 from repro.kernels.grouped_gemm_fp8 import grouped_gemm_fp8_pallas
 from repro.kernels.grouped_gemm_nt_fp8 import grouped_gemm_nt_fp8_pallas
@@ -31,7 +32,8 @@ from repro_torch import kernels
 from repro_torch.core.quant import QTensor
 from repro_torch.core.transpose import transpose_direct
 from repro_torch.kernels import ops
-from repro_torch.kernels.fp8_transpose import fp8_transpose_plain
+from repro_torch.kernels.fp8_transpose import (_rebase_exponent,
+                                                fp8_transpose_plain)
 from repro_torch.kernels.fused_permute_pad import fused_permute_pad_plain
 from repro_torch.kernels.fused_swiglu_quant import fused_swiglu_quant_plain
 from repro_torch.kernels.grouped_gemm_fp8 import grouped_gemm_fp8_plain
@@ -157,6 +159,34 @@ def test_fp8_transpose_subnormal_edge_bitwise():
     assert np.array_equal(d.view(torch.uint8).numpy(), _u8(dj))
     assert np.array_equal(s.numpy(), np.asarray(sj))
     assert (d.view(torch.uint8).numpy() & 0x78 == 0).any()   # subnormals
+
+
+# every e4m3 encoding against every k a po2 scale pair can give (scales
+# span 2**+-126): the integer rebase the CUDA kernel's word-wise fast paths
+# and its table (csrc/fp8_transpose.cu) stand in for
+_ENC = np.arange(256, dtype=np.int32)[None, :]
+_K = np.arange(253, dtype=np.int32)[:, None]
+
+
+def test_rebase_exponent_twin_matches_reference_bitwise():
+    ref = np.asarray(jrebase(jnp.asarray(np.broadcast_to(_ENC, (253, 256))
+                                         .astype(np.uint8)), jnp.asarray(_K)))
+    twin = _rebase_exponent(torch.from_numpy(_ENC), torch.from_numpy(_K))
+    assert np.array_equal(twin.numpy().astype(np.uint8), ref)
+
+
+def test_rebase_exponent_saturates_to_sign_from_k19():
+    """From k = 19 every encoding, NaN included, rebases to its sign bit;
+    at k = 18 some do not (the kernel's k >= 19 path)."""
+    twin = _rebase_exponent(torch.from_numpy(_ENC),
+                            torch.from_numpy(_K)).numpy()
+    assert np.array_equal(twin[19:], np.broadcast_to(_ENC & 0x80, (234, 256)))
+    assert (twin[18] != (_ENC[0] & 0x80)).any()
+    # exponent fields above k: one subtraction of k << 3 (the kernel's
+    # word-wise path)
+    for k in range(19):
+        above = ((_ENC[0] >> 3) & 0xF) > k
+        assert np.array_equal(twin[k][above], _ENC[0][above] - (k << 3))
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (256, 128), (128, 256),

@@ -14,6 +14,7 @@ from repro.core import quant as jquant
 from repro_torch.core import fp8 as tfp8
 from repro_torch.core import quant as tquant
 from repro_torch.kernels.quantize import quantize_rowwise_plain
+from torch_quant_inputs import KINDS, quant_inputs
 
 
 def _u8(a):
@@ -22,26 +23,6 @@ def _u8(a):
 
 def _port_bits(t):
     return t.view(torch.uint8).numpy()
-
-
-def _inputs(kind, rng, shape):
-    x = (rng.normal(size=shape) * np.exp(rng.normal(size=shape) * 1.5))
-    x = x.astype(np.float32)
-    rows = shape[0]
-    if kind == "po2_amax":
-        # every tile's amax is exactly 448 * 2**e
-        lim = 448.0 * np.exp2(rng.integers(-20, 20, size=rows))[:, None]
-        x = x / np.abs(x).max(axis=1, keepdims=True) * lim * 0.99
-        x[:, 0::128] = lim
-    elif kind == "big_exp":
-        x = x * np.exp2(rng.choice([-40, -24, -13, 13, 24, 40], size=(rows, 1)))
-    elif kind == "zero_tiles":
-        x[::2, :128] = 0.0
-        x[1::3] = 0.0
-    return x.astype(np.float32)
-
-
-KINDS = ["random", "po2_amax", "big_exp", "zero_tiles"]
 
 
 def _log2_misses(port_scale, ref_scale):
@@ -58,7 +39,7 @@ def _log2_misses(port_scale, ref_scale):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_rowwise_bitwise(kind, dtype):
     rng = np.random.default_rng([KINDS.index(kind), dtype == "bfloat16"])
-    x = _inputs(kind, rng, (48, 384))
+    x = quant_inputs(kind, rng, (48, 384))
     xj = jnp.asarray(x).astype(dtype)
     xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
         getattr(torch, dtype))
