@@ -14,6 +14,11 @@ Phases (any failure raises and the script exits non-zero):
      device times (CUDA graph replays), the wrapper's call time, the bound
      of the H100 SXM and its share reached (bound_share = bound / kernel
      time), and a library yardstick (vs_library = kernel / library time);
+     first a `launch_floor_ms` line (zero_() of one element, graph-
+     replayed: the card's launch floor); the permute+pad and SwiGLU rows
+     (here and in phase 5) add `copy_ms`, a device copy_ of their input's
+     bytes, and the floor; the SwiGLU rows add `issue`, the instruction
+     issue time of its path estimated from the built library's SASS;
   3. the serve path: a ServeEngine over qwen3_moe_235b at full width, depth
      cut to 4 layers, random W8 weights from a seed, FP8 paged KV, serving
      16 greedy requests; every kernel of the path launched, no other;
@@ -72,6 +77,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -277,7 +283,7 @@ def check_permute(record, shape, x, s, row_map):
            record.peaks["f32"],
            (dq(xo, so) - dq(xp, sp)).abs().max().item(),
            {"tolerance": "bitwise", "live_rows": live,
-            "distinct_source_rows": distinct})
+            "distinct_source_rows": distinct, **copy_and_floor(record, x)})
 
 
 def check_swiglu(record, shape, h):
@@ -297,7 +303,79 @@ def check_swiglu(record, shape, h):
            record.peaks["f32"],
            (dq(d, s) - dq(dp, sp)).abs().max().item(),
            {"tolerance": "scales equal, payload codes within 1 on < 1% of "
-                         "lanes (sigmoid bits)", "mismatch_frac": frac})
+                         "lanes (sigmoid bits)", "mismatch_frac": frac,
+            **copy_and_floor(record, h), "issue": swiglu_issue(M, F)})
+
+
+def copy_and_floor(record, x):
+    """copy_ms: a device copy of a buffer the size of a kernel's input
+    (`copy_`, the same bytes read and written), the rate the card reaches
+    on that traffic; beside it the launch floor of this run."""
+    src = x.view(torch.uint8)
+    buf = torch.empty_like(src)
+    ms = time_ms(lambda: buf.copy_(src))
+    del buf
+    return {"copy_ms": ms, "launch_floor_ms": record.floor_ms}
+
+
+def launch_floor_ms(dev):
+    """The graph-replayed launch floor: time_ms of zero_() on a
+    one-element tensor (a kernel that moves ~0 bytes)."""
+    one = torch.zeros(1, device=dev)
+    return time_ms(lambda: one.zero_())
+
+
+SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", re.M)
+
+
+def path_length(sass, kernel):
+    """Instructions a warp issues on the main path of the first function
+    in cuobjdump's SASS listing `sass` whose name holds `kernel`, for a
+    kernel without loops: every instruction ahead of the first subroutine
+    (the lowest CALL target: the IEEE divisions' slow paths), less the NOPs
+    and the closing branch to itself.  It counts the few instructions of
+    each slow-path call site too, which the fast path branches around."""
+    for fn in sass.split("Function : ")[1:]:
+        if kernel not in fn.split(None, 1)[0]:
+            continue
+        code = [(int(a, 16), text.strip())
+                for a, text in SASS_LINE.findall(fn)]
+        calls = [int(t, 16) for _, text in code
+                 for t in re.findall(r"\bCALL\S*\s+(0x[0-9a-f]+)", text)]
+        end = min(calls, default=code[-1][0] + 1)
+        return sum(1 for at, text in code if at < end
+                   and not text.startswith("NOP")
+                   and text != f"BRA {at:#x}")
+    return None
+
+
+def swiglu_issue(M, F):
+    """#8's issue-time estimate at (M, 2F): the SASS instructions of its
+    path times its warps (one for each two tiles), over the card's issue
+    rate (4 schedulers a SM, one warp instruction a clock each, at the
+    maximum SM clock nvidia-smi reports); the SASS is cuobjdump's listing
+    of the built library."""
+    from repro_torch.kernels import build
+    try:
+        sass = subprocess.run(
+            [str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
+             str(build.build()["swiglu_quant"])], capture_output=True,
+            text=True, timeout=120, check=True).stdout
+        n = path_length(sass, "swiglu_quant_kernel")
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError,
+            IndexError) as e:
+        return {"error": f"{type(e).__name__}: {e}"}
+    if not n:
+        return {"error": "swiglu_quant_kernel not found in the SASS"}
+    warps = -(-(M * F // 128) // 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"path_instructions": n, "instructions_per_value": n / 8,
+            "sm_clock_mhz": mhz,
+            "issue_ms": warps * n / (sms * 4 * mhz * 1e6) * 1e3}
 
 
 def codes_within_one(a, b, max_frac, what):
@@ -658,8 +736,8 @@ def add_rows(timings, rows):
 class KernelRows:
     """Collects the timed rows of phases 2 and 5 by kernel name."""
 
-    def __init__(self, peaks):
-        self.peaks, self.rows = peaks, {}
+    def __init__(self, peaks, floor_ms=None):
+        self.peaks, self.floor_ms, self.rows = peaks, floor_ms, {}
 
     def __call__(self, *args, **kw):
         row = timing_row(self.peaks, *args, **kw)
@@ -687,7 +765,7 @@ def blockq(gen, dev, *shape):
 # ---------------------------------------------------------------------------
 # Phase 2: each kernel against its twin at the serving shapes.
 # ---------------------------------------------------------------------------
-def kernel_checks(cfg, peaks, dev):
+def kernel_checks(cfg, peaks, dev, floor_ms):
     from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -696,7 +774,7 @@ def kernel_checks(cfg, peaks, dev):
     C_send = _round_up(max(int(T_pf * k * 1.25), 8), 8)          # 640
     C_exp = _round_up(max(C_send // E, 8), 128)                  # 128
     C_dec = _round_up(max(int(2.0 * B_dec * k / E), 8), 8)       # 8
-    record = KernelRows(peaks)
+    record = KernelRows(peaks, floor_ms)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -966,7 +1044,7 @@ def train_capacity(cfg) -> int:
     return _round_up(max(C_send // cfg.n_experts, 8), 128)
 
 
-def train_kernel_checks(cfg, peaks, dev):
+def train_kernel_checks(cfg, peaks, dev, floor_ms):
     """Every kernel of the train path against its twin at the shapes one
     full-width train step gives it (T = 2048 tokens, C = 256 rows an
     expert)."""
@@ -978,7 +1056,7 @@ def train_kernel_checks(cfg, peaks, dev):
     T = TRAIN_B * TRAIN_S                                       # 2048
     C_send = _round_up(max(int(T * k * cfg.capacity_factor), 8), 8)
     C = train_capacity(cfg)                                     # 256
-    record = KernelRows(peaks)
+    record = KernelRows(peaks, floor_ms)
 
     def erowq(M, K, spread=0.0):
         d, s = rowq(gen, dev, E * M, K, spread)
@@ -1329,8 +1407,12 @@ def main() -> int:
                                        "spill")):
                 print(f"[ptxas {lib}] {line.strip()}")
 
+    floor_ms = launch_floor_ms(dev)
+    print(json.dumps({"launch_floor_ms": floor_ms, "what": "time_ms of "
+                      "zero_() on a one-element tensor: a graph-replayed "
+                      "launch that moves ~0 bytes"}))
     cfg = serve_config()
-    timings = kernel_checks(cfg, PEAKS, dev)
+    timings = kernel_checks(cfg, PEAKS, dev, floor_ms)
     launches = {}
     launches["serve"], tokens, _ = serve_path(cfg, dev)
     launches["masked_serve"], _, plans = serve_path(cfg, dev, masked=True,
@@ -1339,7 +1421,7 @@ def main() -> int:
     for masked in (False, True):
         gpu_vs_cpu(dev, masked)
     tcfg = train_config()
-    add_rows(timings, train_kernel_checks(tcfg, PEAKS, dev))
+    add_rows(timings, train_kernel_checks(tcfg, PEAKS, dev, floor_ms))
     launches["train"], losses, _ = train_path(tcfg, dev)
     launches["masked_train"], _, plan = train_path(
         tcfg, dev, masked=True, padded_losses=losses)
@@ -1388,7 +1470,8 @@ def main() -> int:
                 "bound_ms", "bound_by", "bound_share", "vs_library",
                 "max_abs_err", "mismatch_frac", "bf16_mismatch_frac",
                 "f32_max_rel_diff", "store_only_ms", "one_step_ms",
-                "f32_out_ms", "t_phases", "padded_ms", "live_tile_share")}
+                "f32_out_ms", "t_phases", "padded_ms", "live_tile_share",
+                "copy_ms", "launch_floor_ms", "issue")}
                 for r in timings[kname]]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -48,19 +48,20 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (b > a || b != b) ? b : a;
 }
 
-__device__ __forceinline__ float warp_amax(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// The exact reciprocal of a po2 scale from po2_scale: a normal power of
+// two in 2**+-126, so v * (1 / s) rounds the same real number as v / s,
+// subnormal results included (no --use_fast_math, no FTZ).
+__device__ __forceinline__ float po2_inverse(float sc) {
+  return __uint_as_float((254u - (__float_as_uint(sc) >> 23)) << 23);
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
+// Clip to +-448 (NaN stays NaN, as to_e4m3), then two RNE conversions in
+// one instruction: a in the low byte, b in the high one.
+__device__ __forceinline__ uint32_t to_e4m3x2(float a, float b) {
+  a = a > E4M3_MAX ? E4M3_MAX : (a < -E4M3_MAX ? -E4M3_MAX : a);
+  b = b > E4M3_MAX ? E4M3_MAX : (b < -E4M3_MAX ? -E4M3_MAX : b);
+  return (uint32_t)__nv_cvt_float2_to_fp8x2(make_float2(a, b), __NV_SATFINITE,
+                                            __NV_E4M3);
 }
 
 // silu(g) * u in f32: the fused SwiGLU of swiglu_quant.cu and of the
@@ -70,23 +71,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
 __device__ __forceinline__ float swiglu(float g, float u) {
   const float sg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
   return __fmul_rn(__fmul_rn(g, sg), u);
-}
-
-// Quantize the 128-wide tile a warp holds (4 values a lane, lane-major):
-// warp amax -> po2 scale -> e4m3 payload.  Writes the lane's 4 bytes and,
-// from lane 0, the tile's scale.
-__device__ __forceinline__ void quantize_tile_store(const float v[4],
-                                                    uint8_t* q, float* s,
-                                                    int lane) {
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) amax = nan_max(amax, fabsf(v[i]));
-  const float sc = po2_scale(warp_amax(amax));
-  uint32_t packed = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) packed |= to_e4m3(__fdiv_rn(v[i], sc)) << (8 * i);
-  *reinterpret_cast<uint32_t*>(q) = packed;
-  if (lane == 0) *s = sc;
 }
 
 }  // namespace repro

@@ -81,16 +81,6 @@ struct Vals<float> {
   }
 };
 
-// Clip to +-448 (NaN stays NaN, as repro::to_e4m3), then two RNE
-// conversions in one instruction: a in the low byte, b in the high one.
-__device__ __forceinline__ uint32_t to_e4m3x2(float a, float b) {
-  const float lim = repro::E4M3_MAX;
-  a = a > lim ? lim : (a < -lim ? -lim : a);
-  b = b > lim ? lim : (b < -lim ? -lim : b);
-  return (uint32_t)__nv_cvt_float2_to_fp8x2(make_float2(a, b), __NV_SATFINITE,
-                                            __NV_E4M3);
-}
-
 // UNITS: loads in flight a lane, for 2 * UNITS tiles a warp pass.
 template <typename T, int UNITS>
 __global__ void __launch_bounds__(THREADS)
@@ -117,13 +107,12 @@ quantize_rowwise_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
       for (int o = 8; o > 0; o >>= 1)
         m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
       const float sc = repro::po2_scale(__uint_as_float(m));
-      const float inv =
-          __uint_as_float((254u - (__float_as_uint(sc) >> 23)) << 23);
+      const float inv = repro::po2_inverse(sc);
       uint32_t pk[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        pk[i] = to_e4m3x2(__fmul_rn(v[u].get(2 * i), inv),
-                          __fmul_rn(v[u].get(2 * i + 1), inv));
+        pk[i] = repro::to_e4m3x2(__fmul_rn(v[u].get(2 * i), inv),
+                                 __fmul_rn(v[u].get(2 * i + 1), inv));
       if (tile < ntiles) {
         *reinterpret_cast<uint2*>(q + tile * repro::TILE + sub * 8) =
             make_uint2(pk[0] | pk[1] << 16, pk[2] | pk[3] << 16);

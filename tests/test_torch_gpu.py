@@ -865,3 +865,114 @@ def test_quantize_kernel_boundary_inputs_on_card(card, kind, dtype):
     rng = np.random.default_rng([KINDS.index(kind), 7])
     x = quant_inputs(kind, rng, (48, 384))
     _quantize_bitwise(torch.from_numpy(x).to(card).to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# The fused SwiGLU + quantize (#8) and the permute + pad (#2) redesigns:
+# #8 against its twin at the decode shape, at tile counts that end inside
+# a warp (two tiles) and inside a block (16), and on special values; #2
+# bitwise its twin on every kind of row map, one output row, the smallest
+# and a ragged row width, on both sides of its 2 / 4 rows-a-block
+# threshold (4,096 output rows), and many rows.
+# ---------------------------------------------------------------------------
+def _swiglu_against_twin(h):
+    """Equal scales, NaN where the twin has NaN, and payload codes within
+    one on < 1% of the other lanes (the sigmoid's last bits)."""
+    qk = ops.fused_swiglu_quant(h)
+    dp, sp = fused_swiglu_quant_plain(h)
+    assert torch.equal(qk.scale, sp)
+    nan = dp.float().isnan()
+    assert torch.equal(qk.data.float().isnan(), nan)
+    _codes_within_one(qk.data[~nan], dp[~nan], 0.01)
+    return qk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,f", [(1024, 1536), (1, 128), (3, 128),
+                                 (1000, 128), (20001, 128), (1, 1536),
+                                 (3, 1536), (1000, 1536), (1367, 1536)])
+def test_swiglu_quant_kernel_edges_on_card(card, m, f):
+    """(1024, 3072) is the serve decode shape (12,288 tiles); 1, 3, 1000
+    and 20,001 tiles end inside a warp's tile pair or a block's 16 tiles
+    (F = 128: every tile is a row of its own), 12 to 16,404 tiles at
+    F = 1536 cross rows inside a warp and a block."""
+    h = torch.from_numpy(_x(m + f, m, 2 * f, spread=0.5)).to(card).to(
+        torch.bfloat16)
+    _swiglu_against_twin(h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [40, 20000])
+def test_swiglu_quant_kernel_special_values_on_card(card, m):
+    """NaN and +-inf in gate and in up, all-zero tiles, bf16 subnormals
+    (alone and beside numbers), and huge and tiny normal tiles (F = 256:
+    80 and 40,000 tiles)."""
+    f = 256
+    g = _x(41, m, f, spread=0.5)
+    u = _x(42, m, f, spread=0.5)
+    g[0, 5] = np.nan
+    u[1, 130] = np.nan
+    g[2, :128] = np.inf
+    g[3, 200] = -np.inf
+    u[4, 7] = np.inf
+    u[5, 128:] = -np.inf
+    g[6], u[6] = 0.0, 0.0
+    g[7, :128] = -0.0
+    g[8, :128] = 3e-40 * np.sign(g[8, :128])            # bf16 subnormal
+    u[9, 128:] = 3e-40
+    g[10, 128:] = 3e-40
+    g[10, 200] = 1.0
+    g[11] *= 1e-30
+    u[12] = np.clip(u[12], -1, 1) * 3e38
+    g[13] = np.clip(g[13], -1, 1) * 1e30
+    h = torch.from_numpy(np.concatenate([g, u], axis=1)).to(card).to(
+        torch.bfloat16)
+    qk = _swiglu_against_twin(h)
+    assert qk.data[0].float().isnan().any() and float(qk.scale[0, 0]) == 1.0
+    assert float(qk.scale[6, 0]) == float(qk.scale[6, 1]) == 1.0
+
+
+PERMUTE_CASES = [
+    # T, D, n_out, row-map kind
+    (64, 4096, 640, "random"),           # the serve prefill send layout
+    (8, 4096, 1024, "all_padding"),      # a decode gather with no live row
+    (64, 4096, 640, "out_of_range"),     # -7, -1, T, T + 5, int32 extremes
+    (8, 4096, 1024, "repeated"),         # two sources for every row
+    (64, 4096, 1, "random"),             # one output row
+    (5, 16, 77, "random"),               # one 16-byte chunk a row
+    (33, 4112, 300, "random"),           # 257 chunks and 33 scales a row
+    (8, 4096, 16384, "all_padding"),     # the serve prefill grouping's size
+    (64, 4096, 8191, "out_of_range"),
+    (33, 4112, 5001, "random"),
+    (640, 512, 50001, "random"),         # more rows than a wave holds
+]
+
+
+def _row_map(r, kind, t, n_out):
+    if kind == "random":
+        m = r.integers(-1, t, n_out)
+    elif kind == "all_padding":
+        m = np.full(n_out, -1)
+    elif kind == "out_of_range":
+        m = r.choice([-7, -1, t, t + 5, 2**31 - 1, -2**31] + list(range(t)),
+                     n_out)
+    else:
+        m = r.integers(0, 2, n_out)
+    return m.astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d,n_out,kind", PERMUTE_CASES)
+def test_permute_pad_kernel_edges_on_card(card, t, d, n_out, kind):
+    """Bitwise the twin: random payload bytes (NaN encodings 0x7f / 0xff
+    included) and random scales, gathered by each kind of row map."""
+    from repro_torch.kernels.fused_permute_pad import fused_permute_pad_cuda
+    r = np.random.default_rng(t + d + n_out)
+    ds = -(-d // TILE)
+    x = _e4m3(card, r.integers(0, 256, (t, d)))
+    s = torch.from_numpy(_x(t + 1, t, ds)).to(card)
+    row_map = torch.from_numpy(_row_map(r, kind, t, n_out)).to(card)
+    xo, so = fused_permute_pad_cuda(x, s, row_map)
+    xp, sp = fused_permute_pad_plain(x, s, row_map)
+    assert torch.equal(xo.view(torch.uint8), xp.view(torch.uint8))
+    assert torch.equal(so, sp)
