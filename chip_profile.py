@@ -6,7 +6,8 @@ over chip_smoke.py's serve trace and train step on one NVIDIA GPU.
 
 Each pass runs with the padded recipe, then with the masked one
 (masked_experts + the fused SwiGLU GEMM-1 epilogue; chip_smoke.py phases
-3b and 6b).  Serve pass: builds the same engine as chip_smoke.py's phase 3
+3b and 6b), then with the baselines: bf16 for serving, bf16, blockwise
+and naive_fp8 for training (phases 3c and 6c).  Serve pass: builds the same engine as chip_smoke.py's phase 3
 (qwen3_moe_235b at full width, 4 layers, W8 experts, FP8 KV), runs the
 16-request trace once to warm up, once more with no profiler to time it,
 then again under torch.profiler (CPU + CUDA activity).  Train pass: the
@@ -31,11 +32,13 @@ import torch
 
 import chip_smoke
 
-# the grouped GEMMs' template flags name their group:
+# the kernels' template flags name their group:
 # grouped_gemm_fp8_kernel<BM, W_TRANS, QUANT_OUT, MASKED>,
 # grouped_gemm_nt_fp8_kernel<BF16_OUT, MASKED>
 GG = re.compile(r"grouped_gemm_fp8_kernel<\d+, \w+, (\w+), (\w+)>")
 NT = re.compile(r"grouped_gemm_nt_fp8_kernel<\w+, (\w+)>")
+# quantize_rowwise_kernel<T, UNITS, LINEAR>
+QL = re.compile(r"quantize_rowwise_kernel<[^>]*, true>")
 # other kernel-name substrings -> group (first match wins)
 GROUPS = (("masked_grouped_gemm_swiglu_quant",
            ("grouped_gemm_swiglu_quant_kernel",)),
@@ -56,6 +59,8 @@ def group_of(name: str) -> str:
     if m:
         return ("masked_" if m.group(1) == "true" else "") + \
             "grouped_gemm_nt_fp8"
+    if QL.search(name):
+        return "quantize_rowwise_linear"
     for group, pats in GROUPS:
         if any(p in name for p in pats):
             return group
@@ -118,9 +123,9 @@ def main() -> int:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0))
 
-    for masked in (False, True):
+    for label in ("serve", "masked_serve", "bf16_serve"):
         eng, reqs = chip_smoke.make_serve(chip_smoke.serve_config(), dev,
-                                          masked)
+                                          label)
         eng.run(reqs, realtime=False)                  # warm-up pass
 
         def serve():
@@ -130,13 +135,14 @@ def main() -> int:
                              "a serve run incomplete")
             return results.stats["ticks"] - t0
 
-        profile_pass("masked_serve" if masked else "serve", serve, "ticks")
+        profile_pass(label, serve, "ticks")
         del eng
         torch.cuda.empty_cache()
 
     cfg = chip_smoke.train_config()
-    for masked in (False, True):
-        state, step, batch = chip_smoke.make_train(cfg, dev, masked)
+    for label in ("train", "masked_train", "bf16_train", "blockwise_train",
+                  "naive_train"):
+        state, step, batch = chip_smoke.make_train(cfg, dev, label)
         box = {"state": state}
         del state
 
@@ -148,7 +154,7 @@ def main() -> int:
             return n
 
         train(1)                                       # warm-up step
-        profile_pass("masked_train" if masked else "train", train, "steps")
+        profile_pass(label, train, "steps")
         box.clear()
         torch.cuda.empty_cache()
     return 0

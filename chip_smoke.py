@@ -26,13 +26,16 @@ Phases (any failure raises and the script exits non-zero):
      (masked_experts + the fused SwiGLU GEMM-1 epilogue): exactly the
      padded pass's tokens, through #5 and #7 and never #3 or #8; its plans
      (masked_m of a bucket-64 prefill and of a decode step) are kept;
+     3c. the same engine, trace and seed with the bf16 recipe (bf16
+     expert weights, FP8 KV): every request finished, no kernel of the
+     port launched (its products are bf16 matmuls);
      2b. #7 and #5 on the dispatch layouts of those plans: against their
      twins (GEMM rtol=atol=2e-2; #7 equal scales, codes within one on
      < 1% of lanes) and bit for bit against #3 then #8 / #3, each timed
      beside its padded counterpart, with the live-tile share;
   4. GPU path vs CPU path: at reduced() size, one prefill + decode step on
      the card (kernels) and on the CPU (plain twins), logits cosine >=
-     0.999, for the padded and the masked recipe;
+     0.999, for the padded, the masked and the bf16 recipe;
   5. all seven padded kernels vs plain at the train path's full-width
      shapes (2048 tokens, 128 experts x 256 rows): quantize (entry,
      backward island, dact_quant) and permute+pad (send, grouping, the
@@ -61,14 +64,24 @@ Phases (any failure raises and the script exits non-zero):
      Dgrad-2; #6 Dgrad-1; #11 Wgrad-1 and -2), to the tolerances of
      phase 5 against their twins and bit for bit against their padded
      kernels, timed beside them;
+     8. #1's linear mode bitwise its twin at every shape of the blockwise
+     and naive_fp8 train steps (timed beside its bound and the po2 mode,
+     `po2_ms`), #3 and #10 on linear-scale operands under their gates;
+     6c. the baselines from the same seed and batch, each state freed
+     before the next: bf16 (no kernel), blockwise (#1 linear, #3, #10)
+     and naive_fp8 (#1 linear, #2, #3, #10), each with finite, falling
+     losses, 0 / 8 / 12 activation casts per layer per step, exactly its
+     kernels, ms a step, tokens/s, peak memory and the expert gradients'
+     zero share;
   7. GPU path vs CPU path for reduced() training from the same params and
-     batch (8 x 64 tokens), padded and masked: every leaf's gradient
+     batch (8 x 64 tokens), for the padded, masked, bf16, blockwise and
+     naive_fp8 recipes: every leaf's gradient
      cosine >= 0.999 (the expert weights' and the router's, nonzero,
      included), the first step's loss within 1e-3 relative and global
      grad norm within 1%, the second step's loss (after the first update)
      within 1e-3 relative;
-  8. the {"kernels": [...]} summary line (all eleven), then the result
-     line.
+  9. the {"kernels": [...]} summary line (the eleven kernels and #1's
+     linear mode), then the result line.
 It imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -112,17 +125,38 @@ PATH_KERNELS = {
                      "masked_grouped_gemm_fp8_quant_out",
                      "masked_grouped_gemm_swiglu_quant",
                      "masked_grouped_gemm_nt_fp8"),
+    # the baselines: bf16 runs no kernel of the port (bf16 matmuls)
+    "bf16_serve": (),
+    "bf16_train": (),
+    "blockwise_train": ("quantize_rowwise_linear", "grouped_gemm_fp8",
+                        "grouped_gemm_nt_fp8"),
+    "naive_train": ("quantize_rowwise_linear", "fused_permute_pad",
+                    "grouped_gemm_fp8", "grouped_gemm_nt_fp8"),
 }
 
+# activation casts per MoE layer per train step (paper Fig. 2)
+CASTS_PER_LAYER = {"bf16": 0, "blockwise": 8, "naive_fp8": 12,
+                   "fp8_flow": 2}
 
-def recipe_for(masked: bool):
-    """The padded fp8_flow recipe, or the masked one with the fused SwiGLU
-    GEMM-1 epilogue."""
+
+MASKED = dict(masked_experts=True, swiglu_epilogue=True)
+# each path's recipe: fp8_flow padded, masked with the fused SwiGLU GEMM-1
+# epilogue, or a baseline
+PATH_RECIPES = {"serve": ("fp8_flow", {}),
+                "masked_serve": ("fp8_flow", MASKED),
+                "bf16_serve": ("bf16", {}),
+                "train": ("fp8_flow", {}),
+                "masked_train": ("fp8_flow", MASKED),
+                "bf16_train": ("bf16", {}),
+                "blockwise_train": ("blockwise", {}),
+                "naive_train": ("naive_fp8", {})}
+
+
+def recipe_for(label: str):
+    """The recipe of the path `label`."""
     from repro_torch.core.recipes import get_recipe
-    if masked:
-        return get_recipe("fp8_flow", masked_experts=True,
-                          swiglu_epilogue=True)
-    return get_recipe("fp8_flow")
+    name, kw = PATH_RECIPES[label]
+    return get_recipe(name, **kw)
 
 
 def check_launches(path, launches):
@@ -225,20 +259,29 @@ GEMM_LIBRARY = ("torch.bmm on bf16-dequantized operands (nearest yardstick; "
                 "not the same function)")
 
 
-def check_quantize(record, shape, x):
-    """quantize_rowwise on (M, K) x: bitwise its twin."""
+def check_quantize(record, shape, x, scale_mode="po2"):
+    """quantize_rowwise on (M, K) x, po2 or linear scales: bitwise its
+    twin.  A linear row adds po2_ms, the po2 mode on the same input."""
     from repro_torch.kernels import quantize
     M, K = x.shape
-    d, s = quantize.quantize_rowwise_cuda(x)
-    dp, sp = quantize.quantize_rowwise_plain(x)
+    linear = scale_mode == "linear"
+    plain = quantize.quantize_rowwise_linear_plain if linear else \
+        quantize.quantize_rowwise_plain
+    d, s = quantize.quantize_rowwise_cuda(x, scale_mode)
+    dp, sp = plain(x)
     check(torch.equal(d.view(torch.uint8), dp.view(torch.uint8))
-          and torch.equal(s, sp), f"quantize {shape}: not bitwise")
-    record("quantize_rowwise", f"{shape} ({M},{K}) {str(x.dtype)[6:]}",
-           lambda: quantize.quantize_rowwise_cuda(x),
-           lambda: quantize.quantize_rowwise_plain(x), None,
+          and torch.equal(s, sp), f"quantize {scale_mode} {shape}: not "
+          "bitwise")
+    extra = {"tolerance": "bitwise"}
+    if linear:
+        extra["po2_ms"] = time_ms(lambda: quantize.quantize_rowwise_cuda(x))
+    record("quantize_rowwise_linear" if linear else "quantize_rowwise",
+           f"{shape} ({M},{K}) {str(x.dtype)[6:]}",
+           lambda: quantize.quantize_rowwise_cuda(x, scale_mode),
+           lambda: plain(x), None,
            M * K * x.element_size() + M * K + M * K // 128 * 4, 4 * M * K,
            record.peaks["f32"], (dq(d, s) - dq(dp, sp)).abs().max().item(),
-           {"tolerance": "bitwise"})
+           extra)
 
 
 def check_transpose(record, shape, d, s, phases=False):
@@ -728,6 +771,47 @@ def t_phases(d, s):
     return {"t_phases": phases}
 
 
+def check_nt(record, shape, a, sa, b, sb, phases=True):
+    """grouped_gemm_nt_fp8 (bf16 out) of a (E, M, C) and b (E, N, C), both
+    row-tiled over C: rtol=atol=2e-2 against its twin and at most
+    NT_BF16_MISMATCH_LIMIT of bf16 lanes off it; with `phases`, the row
+    adds nt_phases."""
+    from repro_torch.core.quant import QTensor, _dequantize_nocount
+    from repro_torch.kernels import grouped_gemm_nt_fp8 as nt
+    E, M, C = a.shape
+    N = b.shape[1]
+    bf16 = torch.bfloat16
+    out = nt.grouped_gemm_nt_fp8_cuda(a, sa, b, sb, bf16)
+    ref = nt.grouped_gemm_nt_fp8_plain(a, sa, b, sb, bf16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2, msg=f"grouped_gemm_nt {shape}")
+    err = (out.float() - ref.float()).abs().max().item()
+    prec = nt_precision(
+        f"grouped_gemm_nt {shape}", out, ref,
+        lambda dt: nt.grouped_gemm_nt_fp8_cuda(a, sa, b, sb, dt),
+        lambda dt: nt.grouped_gemm_nt_fp8_plain(a, sa, b, sb, dt))
+    del out, ref
+
+    def bf(d, s):
+        return _dequantize_nocount(QTensor(d, s, (1, 1, 128)), bf16)
+
+    ab, bb = bf(a, sa), bf(b, sb).transpose(1, 2)
+    record("grouped_gemm_nt_fp8",
+           f"{shape} ({E},{M},{C})x({E},{N},{C})^T bf16 out",
+           lambda: nt.grouped_gemm_nt_fp8_cuda(a, sa, b, sb, bf16),
+           lambda: nt.grouped_gemm_nt_fp8_plain(a, sa, b, sb, bf16),
+           lambda: torch.bmm(ab, bb),
+           E * (M + N) * C * (1 + 4 / 128) + E * M * N * 2,
+           2 * E * M * N * C, record.peaks["fp8"], err,
+           {"tolerance": "rtol=atol=2e-2; bf16 lanes off <= "
+                         f"{NT_BF16_MISMATCH_LIMIT:g}",
+            "library": GEMM_LIBRARY, **prec,
+            **(nt_phases(a, sa, b, sb) if phases else {})},
+           plain_target_ms=50)
+    del ab, bb
+    torch.cuda.empty_cache()
+
+
 def add_rows(timings, rows):
     for kname, rs in rows.items():
         timings.setdefault(kname, []).extend(rs)
@@ -744,7 +828,7 @@ class KernelRows:
         self.rows.setdefault(row["kernel"], []).append(row)
 
 
-def rowq(gen, dev, M, K, spread=0.0):
+def rowq(gen, dev, M, K, spread=0.0, scale_mode="po2"):
     """(M, K) e4m3 + (M, K/128) scales quantized from a random bf16 tensor
     (with `spread`, row magnitudes vary over 2**+-6, so the transpose's
     rebasing reaches the subnormal range)."""
@@ -753,13 +837,14 @@ def rowq(gen, dev, M, K, spread=0.0):
     if spread:
         x = x * torch.exp2(torch.randint(
             -6, 7, (M, 1), generator=gen, device=dev)).to(x.dtype)
-    return quantize.quantize_rowwise_cuda(x)
+    return quantize.quantize_rowwise_cuda(x, scale_mode)
 
 
-def blockq(gen, dev, *shape):
+def blockq(gen, dev, *shape, scale_mode="po2"):
     from repro_torch.core.quant import quantize_blockwise
     return quantize_blockwise(torch.randn(
-        shape, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02)
+        shape, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02,
+        scale_mode)
 
 
 # ---------------------------------------------------------------------------
@@ -827,9 +912,10 @@ def serve_config():
     return dataclasses.replace(get_arch("qwen3_moe_235b"), n_layers=4)
 
 
-def make_serve(cfg, dev, masked=False):
-    """The serve path's engine (random W8 weights from seed 0, FP8 KV) and
-    its trace: 16 greedy requests, prompts of 3-48 tokens, 16 new each."""
+def make_serve(cfg, dev, label="serve"):
+    """The serve path's engine (random weights from seed 0: W8 for
+    fp8_flow, bf16 for the bf16 recipe; FP8 KV) and its trace: 16 greedy
+    requests, prompts of 3-48 tokens, 16 new each."""
     from repro_torch.models.lm import init_params
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.scheduler import Request
@@ -839,12 +925,12 @@ def make_serve(cfg, dev, masked=False):
                        prefill_buckets=(16, 32, 64), fp8_kv=True,
                        w8_weights=True, seed=0)
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, recipe_for(masked),
+    eng = ServeEngine(cfg, recipe_for(label),
                       init_params(cfg, seed=0, device=dev), ecfg, device=dev)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name} n_layers={cfg.n_layers} d_model="
           f"{cfg.d_model} experts={cfg.n_experts} top{cfg.top_k} "
-          f"vocab={cfg.vocab} masked={masked}: random W8 params + FP8 pool "
+          f"vocab={cfg.vocab} {label}: random params + FP8 pool "
           f"in {time.perf_counter() - t0:.1f}s, kv pool "
           f"{eng.kv_bytes() / 2**20:.1f} MiB")
     r = np.random.default_rng(0)
@@ -883,15 +969,16 @@ def pick_plan(plans):
     return full[len(full) // 2]
 
 
-def serve_path(cfg, dev, masked=False, padded_tokens=None):
-    """The trace through the engine; with `masked`, the masked recipe,
-    whose tokens must be padded_tokens exactly.  Returns (launches, tokens
-    by request, the plans of a prefill and a decode step or None)."""
+def serve_path(cfg, dev, label="serve", padded_tokens=None):
+    """The trace through the engine with the recipe of `label`; the masked
+    recipe's tokens must be padded_tokens exactly.  Returns (launches,
+    tokens by request, the plans of a prefill and a decode step or
+    None)."""
     from repro_torch import kernels
 
-    label = "masked_serve" if masked else "serve"
+    masked = label == "masked_serve"
     torch.cuda.reset_peak_memory_stats()
-    eng, reqs = make_serve(cfg, dev, masked)
+    eng, reqs = make_serve(cfg, dev, label)
     ecfg = eng.ecfg
     with recorded_plans() as plans:
         kernels.reset_launches()
@@ -982,7 +1069,7 @@ def masked_serve_kernel_checks(cfg, peaks, dev, plans):
 # ---------------------------------------------------------------------------
 # Phase 4: the GPU path against the CPU path at reduced() size.
 # ---------------------------------------------------------------------------
-def gpu_vs_cpu(dev, masked=False):
+def gpu_vs_cpu(dev, label="serve"):
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import (init_params, paged_decode_step,
                                        paged_prefill)
@@ -991,9 +1078,10 @@ def gpu_vs_cpu(dev, masked=False):
     from repro_torch.weights import params_to
 
     cfg = get_arch("qwen3_moe_235b").reduced()
-    recipe = recipe_for(masked)
-    params_cpu = quantize_params_for_serving(
-        init_params(cfg, seed=0, device="cpu"))
+    recipe = recipe_for(label)
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    if recipe.name == "fp8_flow":                    # the engine's W8 weights
+        params_cpu = quantize_params_for_serving(params_cpu)
     prompt = torch.from_numpy(
         np.random.default_rng(2).integers(1, cfg.vocab, 10))
     out = {}
@@ -1016,7 +1104,7 @@ def gpu_vs_cpu(dev, masked=False):
     same = [int(a.argmax()) == int(b.argmax())
             for a, b in zip(out["cuda"], out["cpu"])]
     print(json.dumps({"gpu_vs_cpu": dict(config="qwen3_moe_235b.reduced()",
-                                         masked=masked, cosine=cos,
+                                         path=label, cosine=cos,
                                          same_argmax=same)}))
     check(min(cos) >= 0.999, f"GPU path vs CPU path cosine {cos} < 0.999")
 
@@ -1049,7 +1137,6 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms):
     full-width train step gives it (T = 2048 tokens, C = 256 rows an
     expert)."""
     from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
-    from repro_torch.kernels import grouped_gemm_nt_fp8
 
     gen = torch.Generator(device=dev).manual_seed(2)
     D, F, E, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.top_k
@@ -1061,10 +1148,6 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms):
     def erowq(M, K, spread=0.0):
         d, s = rowq(gen, dev, E * M, K, spread)
         return d.reshape(E, M, K), s.reshape(E, M, K // 128)
-
-    def bf(d, s):
-        from repro_torch.core.quant import QTensor, _dequantize_nocount
-        return _dequantize_nocount(QTensor(d, s, (1, 1, 128)), torch.bfloat16)
 
     # -- #1: the entry quantize, the backward island and dact_quant
     for shape, M, K in (("q_entry", T, D), ("q_bwd_island", E * C, D),
@@ -1099,37 +1182,7 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms):
 
     # -- #10 the NT grouped GEMM: Wgrad-1 and Wgrad-2, bf16 out
     for shape, M, N in (("wgrad1", D, 2 * F), ("wgrad2", F, D)):
-        a, sa = erowq(M, C)
-        b, sb = erowq(N, C)
-        bf16 = torch.bfloat16
-        out = grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_cuda(a, sa, b, sb, bf16)
-        ref = grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_plain(a, sa, b, sb, bf16)
-        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
-                                   atol=2e-2, msg=f"grouped_gemm_nt {shape}")
-        err = (out.float() - ref.float()).abs().max().item()
-        prec = nt_precision(
-            f"grouped_gemm_nt {shape}", out, ref,
-            lambda dt: grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_cuda(
-                a, sa, b, sb, dt),
-            lambda dt: grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_plain(
-                a, sa, b, sb, dt))
-        del out, ref
-        ab, bb = bf(a, sa), bf(b, sb).transpose(1, 2)
-        record("grouped_gemm_nt_fp8",
-               f"{shape} ({E},{M},{C})x({E},{N},{C})^T bf16 out",
-               lambda: grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_cuda(
-                   a, sa, b, sb, bf16),
-               lambda: grouped_gemm_nt_fp8.grouped_gemm_nt_fp8_plain(
-                   a, sa, b, sb, bf16),
-               lambda: torch.bmm(ab, bb),
-               E * (M + N) * C * (1 + 4 / 128) + E * M * N * 2,
-               2 * E * M * N * C, peaks["fp8"], err,
-               {"tolerance": "rtol=atol=2e-2; bf16 lanes off <= "
-                             f"{NT_BF16_MISMATCH_LIMIT:g}",
-                "library": GEMM_LIBRARY, **prec, **nt_phases(a, sa, b, sb)},
-               plain_target_ms=50)
-        del ab, bb
-        torch.cuda.empty_cache()
+        check_nt(record, shape, *erowq(M, C), *erowq(N, C))
 
     # -- #3 GEMM-1 (and the h recompute, same shape) and GEMM-2 at C = 256;
     # -- #4 Dgrad-1 with the quantizing epilogue, w13 read transposed;
@@ -1150,7 +1203,7 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms):
 # ---------------------------------------------------------------------------
 # Phase 6: the train path at full width.
 # ---------------------------------------------------------------------------
-def make_train(cfg, dev, masked=False):
+def make_train(cfg, dev, label="train"):
     """The train path's state (random bf16 params from seed 0, AdamW at the
     reference's defaults with lr=1e-3), step function (the reference
     make_train_step's default schedule: 100 warmup steps of a cosine over
@@ -1164,19 +1217,21 @@ def make_train(cfg, dev, masked=False):
 
     opt = AdamWConfig(lr=1e-3)
     state = init_train_state(cfg, opt, seed=0, device=dev)
-    step = make_train_step(cfg, recipe_for(masked), opt)
+    step = make_train_step(cfg, recipe_for(label), opt)
     batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
                                   global_batch=TRAIN_B), 0, device=dev)
     return state, step, batch
 
 
-def expert_grad_zero_fraction(cfg, params, batch):
+def expert_grad_zero_fraction(cfg, recipe, params, batch):
     """Fraction of exactly-zero entries in the expert weights' gradients
-    of one more forward+backward (the scaling-aware transpose flushes a
-    128-row block that holds a padding row; ROADMAP.md, Queue 3)."""
+    of one more forward+backward with `recipe` (fp8_flow's scaling-aware
+    transpose flushes a 128-row block that holds a padding row; ROADMAP.md,
+    Queue 3; experts no token reaches have zero gradients in every
+    recipe)."""
     from repro_torch.models.lm import forward
     from repro_torch.optim.adamw import tree_leaves
-    loss, _ = forward(cfg, recipe_for(False), params, batch)
+    loss, _ = forward(cfg, recipe, params, batch)
     loss.backward()
     out = {}
     for name in ("we13", "we2"):
@@ -1189,19 +1244,20 @@ def expert_grad_zero_fraction(cfg, params, batch):
     return out
 
 
-def train_path(cfg, dev, masked=False, padded_losses=None):
-    """TRAIN_STEPS steps on the fixed batch; with `masked`, the masked
-    recipe from the same seed, whose every loss must be padded_losses'
-    bit for bit.  Returns (launches, losses, the first step's plan or
-    None)."""
+def train_path(cfg, dev, label="train", padded_losses=None):
+    """TRAIN_STEPS steps on the fixed batch with the recipe of `label`,
+    from the same seed; the masked recipe's every loss must be
+    padded_losses' bit for bit.  Returns (launches, losses, the first
+    step's plan or None)."""
     from repro_torch import kernels
     from repro_torch.core import casts
     from repro_torch.optim.adamw import tree_leaves
 
-    label = "masked_train" if masked else "train"
+    masked = label == "masked_train"
+    recipe = recipe_for(label)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, step, batch = make_train(cfg, dev, masked)
+    state, step, batch = make_train(cfg, dev, label)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     state_gib = torch.cuda.memory_allocated() / 2**30
@@ -1221,12 +1277,13 @@ def train_path(cfg, dev, masked=False, padded_losses=None):
         launches = dict(kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     zero_frac = None if masked else expert_grad_zero_fraction(
-        cfg, state["params"], batch)
+        cfg, recipe, state["params"], batch)
+    want = CASTS_PER_LAYER[recipe.name] * cfg.n_layers
     check(all(np.isfinite(losses)), f"a non-finite train loss: {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    check(all(n == 2 * cfg.n_layers for n in n_casts),
-          f"activation casts per step {n_casts}, expected "
-          f"{2 * cfg.n_layers} (2 per MoE layer)")
+    check(all(n == want for n in n_casts),
+          f"activation casts per step {n_casts}, expected {want} "
+          f"({CASTS_PER_LAYER[recipe.name]} per MoE layer, {recipe.name})")
     check_launches(label, launches)
     if masked:
         check(losses == padded_losses, f"masked train losses {losses} are "
@@ -1235,6 +1292,7 @@ def train_path(cfg, dev, masked=False, padded_losses=None):
     warm = step_s[1:]
     print(json.dumps({label: dict(
         config=f"{cfg.name} n_layers={cfg.n_layers} full width",
+        recipe=recipe.name,
         params=sum(p.numel() for p in tree_leaves(state["params"])),
         batch=[TRAIN_B, TRAIN_S], steps=TRAIN_STEPS, losses=losses,
         grad_norms=gnorms, step_s=step_s, init_s=init_s,
@@ -1287,6 +1345,51 @@ def masked_train_kernel_checks(cfg, peaks, dev, mm):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the baselines' kernels on linear scales at the train shapes.
+# ---------------------------------------------------------------------------
+def linear_kernel_checks(cfg, peaks, dev, floor_ms):
+    """#1's linear mode bitwise its twin at every shape the blockwise and
+    naive_fp8 train steps give it (the FFN's row-wise quantizes of x, a
+    and gh, the transposed Wgrad-layout copies, bf16 or, after the naive
+    transpose's f32 dequantize, f32; the naive dispatch entry), timed
+    beside its bound and the po2 mode; #3 (GEMM-1, and Dgrad-1 with bf16
+    out as the baselines keep it) and #10 (Wgrad-1, Wgrad-2) on
+    linear-scale operands under their gates."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    T = TRAIN_B * TRAIN_S                                       # 2048
+    C = train_capacity(cfg)                                     # 256
+    record = KernelRows(peaks, floor_ms)
+    for shape, M, K, dt in (
+            ("q_gemm1_in", E * C, D, torch.bfloat16),
+            ("q_gemm2_in", E * C, F, torch.bfloat16),
+            ("q_bwd_dgrad1", E * C, 2 * F, torch.bfloat16),
+            ("wgrad1_x^T", E * D, C, torch.bfloat16),
+            ("q_transpose(qx)", E * D, C, torch.float32),
+            ("wgrad1_g^T", E * 2 * F, C, torch.bfloat16),
+            ("wgrad2_a^T", E * F, C, torch.bfloat16),
+            ("q_transpose(qa)", E * F, C, torch.float32),
+            ("naive_dispatch", T, D, torch.bfloat16)):
+        check_quantize(record, shape, torch.randn(
+            (M, K), generator=gen, device=dev, dtype=dt), "linear")
+        torch.cuda.empty_cache()
+
+    def erowq(M, K):
+        d, s = rowq(gen, dev, E * M, K, scale_mode="linear")
+        return d.reshape(E, M, K), s.reshape(E, M, K // 128)
+
+    for shape, K, N, w_trans in (("linear_gemm1", D, 2 * F, False),
+                                 ("linear_dgrad1_bf16", 2 * F, D, True)):
+        qw = blockq(gen, dev, *((E, N, K) if w_trans else (E, K, N)),
+                    scale_mode="linear")
+        check_gemm(record, shape, *erowq(C, K), qw, w_trans=w_trans)
+        del qw
+    for shape, M, N in (("linear_wgrad1", D, 2 * F), ("linear_wgrad2", F, D)):
+        check_nt(record, shape, *erowq(M, C), *erowq(N, C), phases=False)
+    return record.rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: one train step on the GPU path against the CPU path (reduced).
 # ---------------------------------------------------------------------------
 def named_leaves(tree, prefix=""):
@@ -1310,7 +1413,7 @@ GRAD_COSINE_MIN = 0.999
 MOE_LEAVES = ("layers/we13", "layers/we2", "layers/w_router")
 
 
-def gpu_vs_cpu_train(dev, masked=False):
+def gpu_vs_cpu_train(dev, label="train"):
     """From the same params and batch on the card and on the CPU: every
     leaf's gradient (the expert weights' through the hand-written FP8
     backward), then two train steps, the second's loss depending on the
@@ -1328,7 +1431,7 @@ def gpu_vs_cpu_train(dev, masked=False):
     from repro_torch.weights import params_to
 
     cfg = get_arch("qwen3_moe_235b").reduced()
-    recipe = recipe_for(masked)
+    recipe = recipe_for(label)
     opt = AdamWConfig(lr=1e-3)
     batch_np = make_batch_np(DataConfig(vocab=cfg.vocab, seq_len=64,
                                         global_batch=8), 0)
@@ -1357,7 +1460,7 @@ def gpu_vs_cpu_train(dev, masked=False):
     cos = {path: cosine(grads["cuda"][path], grads["cpu"][path])
            for path in grads["cpu"]}
     print(json.dumps({"gpu_vs_cpu_train": dict(
-        config="qwen3_moe_235b.reduced()", masked=masked, loss=[lg, lc],
+        config="qwen3_moe_235b.reduced()", path=label, loss=[lg, lc],
         grad_norm=[gg, gc], rel_loss=rel_loss, rel_grad_norm=rel_gn,
         step2_loss=[lg2, lc2], rel_step2_loss=rel_loss2,
         grad_cosine=cos)}))
@@ -1415,19 +1518,24 @@ def main() -> int:
     timings = kernel_checks(cfg, PEAKS, dev, floor_ms)
     launches = {}
     launches["serve"], tokens, _ = serve_path(cfg, dev)
-    launches["masked_serve"], _, plans = serve_path(cfg, dev, masked=True,
-                                                    padded_tokens=tokens)
+    launches["masked_serve"], _, plans = serve_path(
+        cfg, dev, "masked_serve", padded_tokens=tokens)
+    launches["bf16_serve"], _, _ = serve_path(cfg, dev, "bf16_serve")
     add_rows(timings, masked_serve_kernel_checks(cfg, PEAKS, dev, plans))
-    for masked in (False, True):
-        gpu_vs_cpu(dev, masked)
+    for label in ("serve", "masked_serve", "bf16_serve"):
+        gpu_vs_cpu(dev, label)
     tcfg = train_config()
     add_rows(timings, train_kernel_checks(tcfg, PEAKS, dev, floor_ms))
     launches["train"], losses, _ = train_path(tcfg, dev)
     launches["masked_train"], _, plan = train_path(
-        tcfg, dev, masked=True, padded_losses=losses)
+        tcfg, dev, "masked_train", padded_losses=losses)
     add_rows(timings, masked_train_kernel_checks(tcfg, PEAKS, dev, plan))
-    for masked in (False, True):
-        gpu_vs_cpu_train(dev, masked)
+    add_rows(timings, linear_kernel_checks(tcfg, PEAKS, dev, floor_ms))
+    for label in ("bf16_train", "blockwise_train", "naive_train"):
+        launches[label], _, _ = train_path(tcfg, dev, label)
+    for label in ("train", "masked_train", "bf16_train", "blockwise_train",
+                  "naive_train"):
+        gpu_vs_cpu_train(dev, label)
 
     from repro_torch.kernels import (fp8_transpose, fused_permute_pad,
                                      fused_swiglu_quant, grouped_gemm_fp8,
@@ -1443,7 +1551,8 @@ def main() -> int:
                "masked_grouped_gemm_fp8": grouped_gemm_fp8,
                "masked_grouped_gemm_fp8_quant_out": grouped_gemm_fp8,
                "masked_grouped_gemm_swiglu_quant": grouped_gemm_swiglu_quant,
-               "masked_grouped_gemm_nt_fp8": grouped_gemm_nt_fp8}
+               "masked_grouped_gemm_nt_fp8": grouped_gemm_nt_fp8,
+               "quantize_rowwise_linear": quantize}
     replaces = {
         "grouped_gemm_fp8_quant_out": grouped_gemm_fp8.REPLACES_QUANT_OUT,
         "masked_grouped_gemm_fp8": grouped_gemm_fp8.REPLACES_MASKED,
@@ -1471,7 +1580,7 @@ def main() -> int:
                 "max_abs_err", "mismatch_frac", "bf16_mismatch_frac",
                 "f32_max_rel_diff", "store_only_ms", "one_step_ms",
                 "f32_out_ms", "t_phases", "padded_ms", "live_tile_share",
-                "copy_ms", "launch_floor_ms", "issue")}
+                "copy_ms", "launch_floor_ms", "issue", "po2_ms")}
                 for r in timings[kname]]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

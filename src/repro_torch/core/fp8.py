@@ -1,11 +1,12 @@
-"""FP8 format constants and exact power-of-two scale arithmetic.
+"""FP8 format constants and the tile-scale arithmetic.
 
-Counterpart of ``repro.core.fp8``.  The scale exponent is read from the
-bits of ``r = amax / 448`` (the frexp recipe below) instead of
-``ceil(log2(r))``: f32 ``log2`` differs between libraries near powers of
-two, while the bit recipe gives the exact smallest power of two on every
-input, and the CUDA kernels use the same recipe, so kernel == plain on the
-card bit for bit.
+Counterpart of ``repro.core.fp8``, with the linear scale of
+``repro.core.quant.compute_scale`` beside the po2 one.  The po2 scale
+exponent is read from the bits of ``r = amax / 448`` (the frexp recipe
+below) instead of ``ceil(log2(r))``: f32 ``log2`` differs between
+libraries near powers of two, while the bit recipe gives the exact
+smallest power of two on every input, and the CUDA kernels use the same
+recipe, so kernel == plain on the card bit for bit.
 """
 from __future__ import annotations
 
@@ -42,6 +43,22 @@ def po2_scale(amax: torch.Tensor, fmt_max: float = E4M3_MAX) -> torch.Tensor:
     e = po2_exponent(amax, fmt_max)
     s = ((e + 127) << 23).to(torch.int32).view(torch.float32)
     return torch.where(amax >= F32_MIN_NORMAL, s, torch.ones_like(s))
+
+
+def linear_scale(amax: torch.Tensor,
+                 fmt_max: float = E4M3_MAX) -> torch.Tensor:
+    """The conventional recipe's scale (``scale_mode="linear"``): amax /
+    448 in f32, correctly rounded; 1.0 where amax is 0, subnormal or NaN,
+    as the reference's ``where(amax > 0, amax / 448, 1)`` gives under
+    XLA's flush of subnormals.  A normal amax below 448 * 2**-126 gives a
+    subnormal scale here, where XLA flushes it to 0 (ROADMAP.md, Queue
+    3)."""
+    amax = amax.to(torch.float32)
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its rounded reciprocal (a different value on ~half of
+    # all inputs); tensor / tensor is IEEE division on the CPU and the card
+    r = amax / torch.full_like(amax, fmt_max)
+    return torch.where(amax >= F32_MIN_NORMAL, r, torch.ones_like(amax))
 
 
 def is_po2(s: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""The fp8_flow grouped expert FFN with its hand-written backward (Fig. 2).
+"""The recipe-dispatched grouped expert FFN with its hand-written
+backwards (Fig. 2).
 
-Counterpart of the fp8_flow branch of ``repro.core.linear``:
+Counterpart of ``repro.core.linear``.  The fp8_flow branch:
 
     h = x[e] @ w13[e]          (E, C, 2F)   grouped GEMM-1  -> bf16 island
     a = swiglu(h) -> e4m3      (E, C, F)    fused SwiGLU + quantize
@@ -15,13 +16,32 @@ direct transposes.  Every GEMM, quantize and transpose goes through
 ``kernels.ops`` (the hand-written kernels on a CUDA tensor, their twins on
 the CPU).
 
-``expert_ffn`` and ``quantize_entry`` are ``torch.autograd.Function``s, as
-they are ``custom_vjp``s in the reference.  A QTensor crosses autograd as
-its (payload, scale) pair, and so does its cotangent: the FP8 input
-gradient of the FFN is an e4m3 payload "gradient" plus an f32 scale
-"gradient".  Autograd cannot add two e4m3 gradients, so every FP8
-intermediate has exactly one consumer, as in the reference.  The other
-recipes and ``save_h`` raise (ROADMAP.md, Queue 1, items 4 and 6).
+The baselines, each with the reference's hand-written backward and its
+cast-ledger records in the reference's order:
+
+  bf16       bf16 ``matmul``s and f32 ``einsum`` Wgrads (0 casts); the
+             reference computes these products outside any Pallas kernel.
+  blockwise  FP8 only inside the GEMMs: the bf16 input, SwiGLU output and
+             gradients quantized row-wise with linear scales right before
+             each GEMM, the Wgrad operands freshly quantized from
+             transposed bf16 copies (8 casts).
+  naive_fp8  FP8-saved input and activation whose Wgrad layouts are
+             rebuilt by ``transpose_naive`` (dequantize -> transpose ->
+             requantize: the double quantization error), the gradients
+             quantized fresh (10 casts here + 2 at the dispatch).
+
+Their quantizes are the quantize kernel in its linear mode, their GEMMs
+the NN (bf16 out, Dgrad-1 included) and NT kernels on linear scales,
+promoted in f32 as the reference's Pallas kernels do; the reference's
+XLA route rounds those scales to bf16 first (ROADMAP.md, Queue 3).
+
+``expert_ffn``, ``quantize_entry`` and ``dequantize_exit`` are
+``torch.autograd.Function``s, as they are ``custom_vjp``s in the
+reference.  A QTensor crosses autograd as its (payload, scale) pair, and
+so does its cotangent: the FP8 input gradient of the FFN is an e4m3
+payload "gradient" plus an f32 scale "gradient".  Autograd cannot add two
+e4m3 gradients, so every FP8 intermediate has exactly one consumer, as in
+the reference.  ``save_h`` raises (ROADMAP.md, Queue 1, item 6).
 
 ``masked_m`` (E,) int32, each expert's live rows (``core.moe``'s expert
 plan, on the device), routes all five grouped GEMMs of the forward and
@@ -39,7 +59,7 @@ from repro_torch.core.fp8 import TILE
 from repro_torch.core.quant import (QTensor, _dequantize_nocount,
                                     quantize_blockwise, row_tile)
 from repro_torch.core.recipes import Recipe
-from repro_torch.core.transpose import transpose_direct
+from repro_torch.core.transpose import transpose_direct, transpose_naive
 from repro_torch.kernels import ops
 from repro_torch.kernels.grouped_gemm_nt_fp8 import OUT_DTYPES
 
@@ -75,10 +95,11 @@ def _ggemm_quant_out(recipe: Recipe, qx: QTensor, qw: QTensor,
 
 def _q_row(recipe: Recipe, x: torch.Tensor, tag: str,
            kind: str = "quantize") -> QTensor:
-    """Row-wise quantize of (E, C, K) through the quantize kernel."""
+    """Row-wise quantize of (E, C, K) through the quantize kernel, with the
+    recipe's scales."""
     casts.record(kind, tag, x.numel())
     E, C, K = x.shape
-    q = ops.quantize_rowwise(x.reshape(E * C, K))
+    q = ops.quantize_rowwise(x.reshape(E * C, K), recipe.scale_mode)
     return QTensor(q.data.reshape(E, C, K), q.scale.reshape(E, C, K // TILE),
                    row_tile(3))
 
@@ -100,6 +121,13 @@ def _fused_swiglu_quant(recipe: Recipe, h: torch.Tensor) -> QTensor:
                    row_tile(3))
 
 
+def _swiglu(h: torch.Tensor) -> torch.Tensor:
+    """silu(g) * u in f32 -> bf16: the baselines' separate activation
+    pass (the BF16 island's forward)."""
+    g, u = h.to(torch.float32).chunk(2, dim=-1)
+    return (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+
+
 def _dswiglu(h: torch.Tensor, ga: torch.Tensor) -> torch.Tensor:
     """d[silu(g) * u] in f32 (the BF16 island's backward), -> bf16."""
     g, u = h.to(torch.float32).chunk(2, dim=-1)
@@ -115,8 +143,9 @@ def _quant_weights(recipe: Recipe, w13, w2):
     """W8-resident serving passes QTensors through; bf16 weights are
     quantized blockwise here (the reference's per-call path)."""
     qw13 = w13 if isinstance(w13, QTensor) else quantize_blockwise(
-        w13, tag="q_w13")
-    qw2 = w2 if isinstance(w2, QTensor) else quantize_blockwise(w2, tag="q_w2")
+        w13, recipe.scale_mode, tag="q_w13")
+    qw2 = w2 if isinstance(w2, QTensor) else quantize_blockwise(
+        w2, recipe.scale_mode, tag="q_w2")
     return qw13, qw2
 
 
@@ -222,13 +251,159 @@ class _ExpertFFN(torch.autograd.Function):
         return None, None, gx.data, gx.scale, wg13, wg2, None
 
 
-def expert_ffn(recipe: Recipe, act: str, x_in: QTensor, w13, w2,
-               masked_m=None):
-    """fp8_flow ``expert_ffn`` at EP = 1 (the reference's psum axes are
-    empty).  x_in is the row-tiled (E, C, D) QTensor; w13 (E, D, 2F) and
+def _t(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x with its last two axes swapped (the
+    reference's swapaxes ahead of a Wgrad-layout quantize)."""
+    return x.transpose(-1, -2).contiguous()
+
+
+def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 -> bf16 from f32 sums rounded once, as cuBLAS on the
+    card and the reference's XLA dot do.  PyTorch's bf16 GEMM on the CPU
+    rounds otherwise (0.017% of lanes off the once-rounded product at
+    (2, 128, 256) x (256, 256)), so the CPU multiplies in f32."""
+    if a.is_cuda:
+        return torch.matmul(a, b)
+    return torch.matmul(a.to(torch.float32),
+                        b.to(torch.float32)).to(torch.bfloat16)
+
+
+class _BF16FFN(torch.autograd.Function):
+    """The bf16 recipe: no quantization; bf16 products, f32 Wgrads."""
+
+    @staticmethod
+    def forward(ctx, recipe, x, w13, w2):
+        h = _bf16_matmul(x.to(torch.bfloat16), w13.to(torch.bfloat16))
+        y = _bf16_matmul(_swiglu(h), w2.to(torch.bfloat16))
+        ctx.save_for_backward(x, h, w13, w2)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, h, w13, w2 = ctx.saved_tensors
+        gy = gy.to(torch.bfloat16)
+        a = _swiglu(h)
+        ga = _bf16_matmul(gy, w2.to(torch.bfloat16).transpose(-1, -2))
+        wg2 = torch.einsum("ecf,ecd->efd", a.to(torch.float32),
+                           gy.to(torch.float32)).to(w2.dtype)
+        del a
+        gh = _dswiglu(h, ga)
+        del ga
+        gx = _bf16_matmul(gh, w13.to(torch.bfloat16).transpose(-1, -2))
+        wg13 = torch.einsum("eck,ecf->ekf", x.to(torch.float32),
+                            gh.to(torch.float32)).to(w13.dtype)
+        return None, gx.to(x.dtype), wg13, wg2
+
+
+class _BlockwiseFFN(torch.autograd.Function):
+    """TransformerEngine-style blockwise FP8 (Fig. 2b): the bf16 input and
+    h are saved; every GEMM operand is quantized fresh (8 casts)."""
+
+    @staticmethod
+    def forward(ctx, recipe, x, w13, w2):
+        ctx.ledger = casts.current()
+        qw13, qw2 = _quant_weights(recipe, w13, w2)
+        qx = _q_row(recipe, x, "q_gemm1_in")
+        h = _ggemm(recipe, qx, qw13)
+        del qx
+        qa = _q_row(recipe, _swiglu(h), "q_gemm2_in")
+        y = _ggemm(recipe, qa, qw2)
+        ctx.save_for_backward(x, h)
+        ctx.recipe, ctx.qw13, ctx.qw2 = recipe, qw13, qw2
+        ctx.w_dtypes = (w13.dtype, w2.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, h = ctx.saved_tensors
+        r, qw13, qw2 = ctx.recipe, ctx.qw13, ctx.qw2
+        wg13_dtype, wg2_dtype = ctx.w_dtypes
+        with casts.use(ctx.ledger):
+            gy = gy.to(torch.bfloat16).contiguous()
+            qg = _q_row(r, gy, "q_bwd_dgrad2")
+            ga = _ggemm(r, qg, _block_t(qw2))
+            del qg
+            # fresh Wgrad-layout quantizes of the bf16-saved tensors
+            qaT = _q_row(r, _t(_swiglu(h)), "q_bwd_wgrad2_a")
+            qgT = _q_row(r, _t(gy), "q_bwd_wgrad2_g")
+            wg2 = _ggemm_nt(r, qaT, qgT, wg2_dtype)
+            del qaT, qgT
+            gh = _dswiglu(h, ga)
+            del ga
+            qgh = _q_row(r, gh, "q_bwd_dgrad1")
+            gx = _ggemm(r, qgh, _block_t(qw13))
+            del qgh
+            qghT = _q_row(r, _t(gh), "q_bwd_wgrad1_g")
+            del gh
+            qxT = _q_row(r, _t(x), "q_bwd_wgrad1_x")
+            wg13 = _ggemm_nt(r, qxT, qghT, wg13_dtype)
+        ctx.qw13 = ctx.qw2 = None
+        return None, gx.to(x.dtype), wg13, wg2
+
+
+class _NaiveFFN(torch.autograd.Function):
+    """DeepSeek-style drop-in FP8 (Fig. 2c): the FP8 input and activation
+    are saved, and their Wgrad layouts rebuilt by dequantize -> transpose
+    -> requantize (the double quantization error; 10 casts)."""
+
+    @staticmethod
+    def forward(ctx, recipe, x, w13, w2):
+        ctx.ledger = casts.current()
+        qw13, qw2 = _quant_weights(recipe, w13, w2)
+        qx = _q_row(recipe, x, "q_gemm1_in")
+        h = _ggemm(recipe, qx, qw13)
+        qa = _q_row(recipe, _swiglu(h), "q_gemm2_in")
+        del h
+        y = _ggemm(recipe, qa, qw2)
+        ctx.recipe, ctx.qx, ctx.qa = recipe, qx, qa
+        ctx.qw13, ctx.qw2 = qw13, qw2
+        ctx.x_dtype, ctx.w_dtypes = x.dtype, (w13.dtype, w2.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        r, qx, qa, qw13, qw2 = ctx.recipe, ctx.qx, ctx.qa, ctx.qw13, ctx.qw2
+        wg13_dtype, wg2_dtype = ctx.w_dtypes
+        with casts.use(ctx.ledger):
+            gy = gy.to(torch.bfloat16).contiguous()
+            qg = _q_row(r, gy, "q_bwd_dgrad2")
+            ga = _ggemm(r, qg, _block_t(qw2))
+            del qg
+            qaT = transpose_naive(qa, r.scale_mode)
+            qgT = _q_row(r, _t(gy), "q_bwd_wgrad2_g")
+            wg2 = _ggemm_nt(r, qaT, qgT, wg2_dtype)
+            del qaT, qgT
+            h = _ggemm(r, qx, qw13)                 # recompute from FP8 x
+            gh = _dswiglu(h, ga)
+            del h, ga
+            qgh = _q_row(r, gh, "q_bwd_dgrad1")
+            gx = _ggemm(r, qgh, _block_t(qw13))     # bf16 to the combine
+            del qgh
+            qxT = transpose_naive(qx, r.scale_mode)
+            qghT = _q_row(r, _t(gh), "q_bwd_wgrad1_g")
+            del gh
+            wg13 = _ggemm_nt(r, qxT, qghT, wg13_dtype)
+        ctx.qx = ctx.qa = ctx.qw13 = ctx.qw2 = None
+        return None, gx.to(ctx.x_dtype), wg13, wg2
+
+
+_BASELINE_FFN = {"bf16": _BF16FFN, "blockwise": _BlockwiseFFN,
+                 "naive_fp8": _NaiveFFN}
+
+
+def expert_ffn(recipe: Recipe, act: str, x_in, w13, w2, masked_m=None):
+    """``expert_ffn`` at EP = 1 (the reference's psum axes are empty).
+    fp8_flow: x_in is the row-tiled (E, C, D) QTensor; w13 (E, D, 2F) and
     w2 (E, F, D) are bf16 (differentiable) or W8-resident QTensors
     (serving); masked_m (E,) int32 on x_in's device selects the masked
-    layout (None: padded)."""
+    layout (None: padded).  The other recipes take the bf16 (E, C, D)
+    input and bf16 weights and ignore masked_m, as the reference does."""
+    if recipe.name != "fp8_flow":
+        _check_act(act)
+        if isinstance(w13, QTensor) or isinstance(w2, QTensor):
+            raise ValueError(f"{recipe.name}: W8-resident weights are "
+                             "fp8_flow only")
+        return _BASELINE_FFN[recipe.name].apply(recipe, x_in, w13, w2)
     if isinstance(w13, QTensor) or isinstance(w2, QTensor):
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         y, _ = ffn_fwd_fp8_core(recipe, act, x_in, qw13, qw2, masked_m)
@@ -261,6 +436,36 @@ class _QuantizeEntry(torch.autograd.Function):
 
 def quantize_entry(recipe: Recipe, x: torch.Tensor) -> QTensor:
     """The paper's entry cast (explicit, counted): row-wise po2 quantize of
-    (..., K) through the quantize kernel."""
+    (..., K) through the quantize kernel (fp8_flow's)."""
     data, scale = _QuantizeEntry.apply(x)
     return QTensor(data, scale, row_tile(x.ndim))
+
+
+class _DequantizeExit(torch.autograd.Function):
+    """naive_fp8's post-dispatch dequantize (explicit) and its backward's
+    explicit quantize: the Q/DQ-around-comm pair of Table 1."""
+
+    @staticmethod
+    def forward(ctx, recipe, data, scale):
+        ctx.ledger, ctx.recipe = casts.current(), recipe
+        casts.record("dequantize", "dq_post_dispatch", data.numel())
+        return _dequantize_nocount(QTensor(data, scale, row_tile(data.ndim)),
+                                   torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, g):
+        with casts.use(ctx.ledger):
+            casts.record("quantize", "q_bwd_dispatch", g.numel())
+        K = g.shape[-1]
+        q = ops.quantize_rowwise(g.contiguous().reshape(-1, K),
+                                 ctx.recipe.scale_mode)
+        return (None, q.data.reshape(g.shape),
+                q.scale.reshape(*g.shape[:-1], K // TILE))
+
+
+def dequantize_exit(recipe: Recipe, q: QTensor) -> torch.Tensor:
+    """A row-tiled QTensor -> bf16, counted as ``dq_post_dispatch`` (the
+    reference's bf16 product of payload and scale: a linear scale is
+    rounded to bf16 first, as there).  Backward: the bf16 gradient
+    quantized row-wise with the recipe's scales (``q_bwd_dispatch``)."""
+    return _DequantizeExit.apply(recipe, q.data, q.scale)

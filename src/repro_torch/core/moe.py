@@ -1,6 +1,5 @@
-"""The MoE block, EP = 1: router -> FP8 dispatch (entry quantize + fused
-permute+pad) -> expert grouping -> grouped expert FFN -> combine, forward
-and backward.
+"""The MoE block, EP = 1: router -> dispatch -> expert grouping ->
+grouped expert FFN -> combine, forward and backward, for every recipe.
 
 Counterpart of the EP = 1 subset of ``repro.core.moe``.  With one
 expert-parallel rank every all-to-all and psum of the reference is an
@@ -11,12 +10,18 @@ of C_exp is part of that).  The plans use stable argsorts, and their
 scatters hit duplicate indices only on the scratch slot that is sliced
 off, as in the reference.
 
-The FP8 boundaries are ``torch.autograd.Function``s, as they are
-``custom_vjp``s in the reference: ``dispatch_quantize`` (backward: the FP8
-gradient rows dequantized inside the per-token segment sum) and
-``permute_q`` (backward: the same fused permute+pad kernel gathers the
-FP8 cotangent by the inverse map, with no dequantize).  The router, the
-probability weighting and the combine are plain differentiable ops.
+The dispatch follows the recipe, as in the reference: fp8_flow sends FP8
+both ways (``dispatch_quantize``, then ``permute_q`` into the expert
+layout), naive_fp8 quantizes, permutes and dequantizes around the send
+with a bf16 backward (``fp8_dispatch_naive``: 2 explicit casts), bf16 and
+blockwise gather bf16 rows.  The FP8 boundaries are
+``torch.autograd.Function``s, as they are ``custom_vjp``s in the
+reference: ``dispatch_quantize`` (backward: the FP8 gradient rows
+dequantized inside the per-token segment sum), ``permute_q`` (backward:
+the same fused permute+pad kernel gathers the FP8 cotangent by the inverse
+map, with no dequantize) and ``fp8_dispatch_naive``.  The router, the bf16
+gathers, the probability weighting and the combine are plain
+differentiable ops.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import torch
 
 from repro_torch.core import casts
 from repro_torch.core.fp8 import TILE
-from repro_torch.core.linear import expert_ffn, quantize_entry
+from repro_torch.core.linear import (dequantize_exit, expert_ffn,
+                                     quantize_entry)
 from repro_torch.core.quant import QTensor, _dequantize_nocount, row_tile
 from repro_torch.core.recipes import Recipe
 from repro_torch.kernels import ops
@@ -126,8 +132,9 @@ def _expert_loads(row_map_exp, E_loc: int, C_exp: int):
 
 
 def _masked_m_or_none(recipe: Recipe, row_map_exp, E_loc: int, C_exp: int):
-    """masked_m for the grouped FFN when the recipe opts in, else None."""
-    if recipe.masked_experts:
+    """masked_m for the grouped FFN when the recipe opts in (fp8_flow only:
+    the masked kernels live on the FP8 pathway), else None."""
+    if recipe.masked_experts and recipe.name == "fp8_flow":
         return _expert_loads(row_map_exp, E_loc, C_exp)
     return None
 
@@ -214,6 +221,33 @@ def dispatch_quantize(recipe: Recipe, x, row_map) -> QTensor:
     return QTensor(data, scale, row_tile(2))
 
 
+class _FP8DispatchNaive(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, recipe, x, row_map):
+        ctx.save_for_backward(row_map)
+        ctx.T, ctx.x_dtype = x.shape[0], x.dtype
+        casts.record("quantize", "q_entry", x.numel())
+        q = ops.fused_permute_pad(ops.quantize_rowwise(x, recipe.scale_mode),
+                                  row_map)
+        return dequantize_exit(recipe, q)
+
+    @staticmethod
+    def backward(ctx, g):
+        (row_map,) = ctx.saved_tensors
+        seg = torch.where(row_map >= 0, row_map, ctx.T)
+        return None, _segment_sum(g.to(torch.bfloat16), seg,
+                                  ctx.T).to(ctx.x_dtype), None
+
+
+def fp8_dispatch_naive(recipe: Recipe, x, row_map) -> torch.Tensor:
+    """naive_fp8 (Fig. 2c): quantize -> permute+pad -> (the FP8 send, an
+    identity at EP = 1) -> dequantize, two explicit casts (``q_entry``,
+    ``dq_post_dispatch``): the Q/DQ-around-comm pair of Table 1.  The
+    backward stays bf16 (DeepSeek keeps the backward comm in BF16): the
+    gradient rows summed per source token in f32."""
+    return _FP8DispatchNaive.apply(recipe, x, row_map)
+
+
 # ---------------------------------------------------------------------------
 # The prefill MoE block.
 # ---------------------------------------------------------------------------
@@ -226,22 +260,32 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
     k = cfg.top_k
     C_send = _round_up(max(int(T * k / EP * cfg.capacity_factor), 8), 8)
     R = EP * C_send
-    C_exp = _round_up(max(R // E_loc, 8), 128)
+    # the FP8 recipes need 128-row expert groups (transpose blocks and
+    # GEMM tiles); bf16 only the reference's sublane alignment
+    C_exp = _round_up(max(R // E_loc, 8), 128 if recipe.is_fp8 else 8)
 
     p, ids, aux = router_topk(x, w_router, k)
     row_map_send, slot_expert, slot_assign, drop_frac = _dispatch_plan(
         ids, k, EP, E_loc, C_send)
 
-    q_recv = dispatch_quantize(recipe, x, row_map_send)
+    if recipe.name == "fp8_flow":
+        recv_in = dispatch_quantize(recipe, x, row_map_send)
+    elif recipe.name == "naive_fp8":
+        recv_in = fp8_dispatch_naive(recipe, x, row_map_send)
+    else:                                   # bf16 / blockwise: bf16 rows
+        recv_in = _take_rows(x.to(torch.bfloat16), row_map_send)
     p_flat = torch.where(slot_assign >= 0,
                          p.reshape(-1)[torch.clamp(slot_assign, min=0).long()],
                          0.0)
 
     row_map_exp, ret_map = _expert_plan(slot_expert, E_loc, C_exp)
-    q_exp = permute_q(recipe, q_recv, row_map_exp, ret_map)
-    ffn_in = QTensor(q_exp.data.reshape(E_loc, C_exp, D),
-                     q_exp.scale.reshape(E_loc, C_exp, D // TILE),
-                     (1, 1, TILE))
+    if recipe.name == "fp8_flow":
+        q_exp = permute_q(recipe, recv_in, row_map_exp, ret_map)
+        ffn_in = QTensor(q_exp.data.reshape(E_loc, C_exp, D),
+                         q_exp.scale.reshape(E_loc, C_exp, D // TILE),
+                         (1, 1, TILE))
+    else:
+        ffn_in = _take_rows(recv_in, row_map_exp).reshape(E_loc, C_exp, D)
     masked_m = _masked_m_or_none(recipe, row_map_exp, E_loc, C_exp)
     y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m)
 
@@ -257,37 +301,63 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
 # The decode MoE block as its three stages (router -> dispatch -> expert;
 # the combine psum of the reference is an identity at EP = 1).
 # ---------------------------------------------------------------------------
+# The reference cannot decode blockwise or naive_fp8: its decode router
+# hands the FFN a QTensor for every FP8 recipe (repro/core/moe.py:433-438),
+# whose blockwise / naive_fp8 forward quantizes its input again
+# (repro/core/linear.py:258, :270) and fails on the QTensor.  The port has
+# no reference to hold such a path to, so it refuses it.
+DECODE_RECIPES = ("bf16", "fp8_flow")
+
+
+def check_decode_recipe(recipe: Recipe) -> None:
+    if recipe.name not in DECODE_RECIPES:
+        raise NotImplementedError(
+            f"serving {recipe.name!r} is not ported: the reference cannot "
+            "decode it either (its decode router hands the FFN a QTensor, "
+            "repro/core/moe.py:433-438, which the blockwise / naive_fp8 "
+            "forward quantizes again, repro/core/linear.py:258/270: "
+            "AttributeError; ROADMAP.md, Queue 3)")
+
+
 def decode_stage_router(recipe: Recipe, cfg: MoEConfig, x, w_router, r: int,
                         E_loc: int):
     """Top-k routing, the local-assignment map and the block's ONE entry
-    quantize."""
+    quantize (fp8_flow; bf16 keeps the bf16 rows)."""
+    check_decode_recipe(recipe)
     p, ids, aux = router_topk(x, w_router, cfg.top_k)
     local = (ids // E_loc) == r
     local_e = torch.where(local, ids % E_loc, -1).reshape(-1)
-    return p, aux, local_e, quantize_entry(recipe, x)
+    xq = quantize_entry(recipe, x) if recipe.is_fp8 else x.to(torch.bfloat16)
+    return p, aux, local_e, xq
 
 
-def decode_stage_dispatch(recipe: Recipe, cfg: MoEConfig, xq: QTensor,
+def decode_stage_dispatch(recipe: Recipe, cfg: MoEConfig, xq,
                           local_e_c, tok0: int, E_loc: int, C_dec: int):
     """Expert-slot plan + the gather into the (E_loc, C_dec, D) grouped
-    layout (the fused permute+pad kernel: payload 0 / scale 1.0 padding)."""
+    layout (FP8: the fused permute+pad kernel, payload 0 / scale 1.0
+    padding; bf16: zero rows)."""
     D = cfg.d_model
     row_map_exp, _ = _expert_plan(local_e_c, E_loc, C_dec)
     tok_loc = torch.where(row_map_exp >= 0, row_map_exp // cfg.top_k, -1)
     tok_glob = torch.where(tok_loc >= 0, tok_loc + tok0, -1)
-    q = ops.fused_permute_pad(xq, tok_glob)
-    ffn_in = QTensor(q.data.reshape(E_loc, C_dec, D),
-                     q.scale.reshape(E_loc, C_dec, D // TILE), (1, 1, TILE))
+    if isinstance(xq, QTensor):
+        q = ops.fused_permute_pad(xq, tok_glob)
+        ffn_in = QTensor(q.data.reshape(E_loc, C_dec, D),
+                         q.scale.reshape(E_loc, C_dec, D // TILE),
+                         (1, 1, TILE))
+    else:
+        ffn_in = _take_rows(xq, tok_glob).reshape(E_loc, C_dec, D)
     n_valid = (local_e_c >= 0).to(torch.float32).sum()
     n_kept = (row_map_exp >= 0).to(torch.float32).sum()
     return ffn_in, row_map_exp, tok_loc, n_valid, n_kept
 
 
-def decode_stage_expert(recipe: Recipe, cfg: MoEConfig, ffn_in: QTensor, w13,
+def decode_stage_expert(recipe: Recipe, cfg: MoEConfig, ffn_in, w13,
                         w2, p_c, row_map_exp, tok_loc, Tc: int):
     """Grouped FFN + prob weighting + the per-token segment sum (f32)."""
     D = cfg.d_model
-    E_loc, C_dec = ffn_in.data.shape[0], ffn_in.data.shape[1]
+    grouped = ffn_in.data if isinstance(ffn_in, QTensor) else ffn_in
+    E_loc, C_dec = grouped.shape[0], grouped.shape[1]
     masked_m = _masked_m_or_none(recipe, row_map_exp, E_loc, C_dec)
     y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m)
     p_of_slot = torch.where(

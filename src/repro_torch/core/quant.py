@@ -1,7 +1,9 @@
 """Tile-quantized FP8 tensors (QTensor) and the quantize/dequantize ops.
 
-Counterpart of the serving subset of ``repro.core.quant``: per-tile po2
-scales over 128 contiguous elements (paper Eq. 2), the same normative tile
+Counterpart of ``repro.core.quant``'s quantizers: per-tile scales over
+128 contiguous elements (paper Eq. 2), po2 by default or linear
+(``scale_mode="linear"``, s = amax / 448: the conventional recipe of the
+``blockwise`` and ``naive_fp8`` baselines), the same normative tile
 convention, and the cast-ledger records.  The training-only pieces (the
 quant-stats collector and the checkpoint tags) are not ported.
 
@@ -12,9 +14,10 @@ Tile-metadata convention (as in the reference):
   * Weight blocks are ``(1,) * (ndim - 2) + (TILE, TILE)``.
   * ``scale.shape[i] * tile[i] == data.shape[i]`` for every axis.
 
-These are the plain PyTorch quantizers, used for weights and KV pages.  The
-activation entry quantize on the MoE path runs through the hand-written
-kernel in ``repro_torch.kernels`` (same function, same bits).
+These are the plain PyTorch quantizers, used for weights, KV pages and
+``double_quant_error``.  The activation quantizes on the MoE path run
+through the hand-written kernel in ``repro_torch.kernels`` (same
+function, same bits).
 """
 from __future__ import annotations
 
@@ -24,14 +27,15 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import casts
-from repro_torch.core.fp8 import E4M3, TILE, cast_to, po2_scale
+from repro_torch.core.fp8 import (E4M3, TILE, cast_to, linear_scale,
+                                  po2_scale)
 from repro_torch.device import CHUNK_ELEMS
 
 
 @dataclasses.dataclass(frozen=True)
 class QTensor:
     data: torch.Tensor            # e4m3 payload
-    scale: torch.Tensor           # f32 po2 scales, one per tile
+    scale: torch.Tensor           # f32 po2 or linear scales, one per tile
     tile: Tuple[int, ...]
 
     @property
@@ -99,15 +103,22 @@ def _tile_amax(x: torch.Tensor, tile) -> torch.Tensor:
         y.to(torch.float32)
 
 
-def compute_scale(x: torch.Tensor, tile) -> torch.Tensor:
-    return po2_scale(_tile_amax(x, tile))
+def compute_scale(x: torch.Tensor, tile, scale_mode: str = "po2"
+                  ) -> torch.Tensor:
+    if scale_mode == "po2":
+        return po2_scale(_tile_amax(x, tile))
+    if scale_mode == "linear":
+        return linear_scale(_tile_amax(x, tile))
+    raise ValueError(f"scale_mode {scale_mode!r}: 'po2' or 'linear'")
 
 
-def quantize_fields(x: torch.Tensor, tile):
-    """(payload e4m3, po2 scales) of x under `tile`, without a ledger
-    record.  A bf16 input is divided in bf16: division by a power of two is
-    exact there, and bf16 -> e4m3 rounds as f32 -> e4m3 (same bits as the
-    f32 route at half the temporary bytes).  Tiles never span the leading
+def quantize_fields(x: torch.Tensor, tile, scale_mode: str = "po2"):
+    """(payload e4m3, scales) of x under `tile`, without a ledger record.
+    With po2 scales a bf16 input is divided in bf16: division by a power
+    of two is exact there, and bf16 -> e4m3 rounds as f32 -> e4m3 (same
+    bits as the f32 route at half the temporary bytes).  A linear scale
+    divides the f32-widened input, as the reference does (quant.py:342-349):
+    the bf16 shortcut is exact only for po2.  Tiles never span the leading
     axis when tile[0] == 1, so a tensor larger than CHUNK_ELEMS (the
     (E, K, N) expert weights) is quantized a slice of experts at a time,
     with the same bits and temporaries of a slice, not of the whole leaf."""
@@ -118,34 +129,46 @@ def quantize_fields(x: torch.Tensor, tile):
                             device=x.device)
         for i in range(0, x.shape[0], step):
             data[i:i + step], scale[i:i + step] = _quantize_fields(
-                x[i:i + step], tile)
+                x[i:i + step], tile, scale_mode)
         return data, scale
-    return _quantize_fields(x, tile)
+    return _quantize_fields(x, tile, scale_mode)
 
 
-def _quantize_fields(x: torch.Tensor, tile):
-    scale = compute_scale(x, tile)
-    if x.dtype == torch.bfloat16:
+def _quantize_fields(x: torch.Tensor, tile, scale_mode: str):
+    scale = compute_scale(x, tile, scale_mode)
+    if x.dtype == torch.bfloat16 and scale_mode == "po2":
         xf = _tiled_op(x, scale.to(torch.bfloat16), tile, torch.div)
     else:
         xf = _tiled_op(x.to(torch.float32), scale, tile, torch.div)
     return cast_to(xf), scale
 
 
-def quantize(x: torch.Tensor, tile, tag: str = "q",
+def quantize(x: torch.Tensor, tile, scale_mode: str = "po2", tag: str = "q",
              kind: str = "quantize") -> QTensor:
     """Quantize a dense tensor to per-tile fp8; counted on the CastLedger."""
     casts.record(kind, tag, x.numel())
-    data, scale = quantize_fields(x, tile)
+    data, scale = quantize_fields(x, tile, scale_mode)
     return QTensor(data=data, scale=scale, tile=tuple(tile))
 
 
-def quantize_rowwise(x: torch.Tensor, tag="q_row", kind="quantize") -> QTensor:
-    return quantize(x, row_tile(x.ndim), tag=tag, kind=kind)
+def quantize_rowwise(x: torch.Tensor, scale_mode="po2", tag="q_row",
+                     kind="quantize") -> QTensor:
+    """1 x TILE tiles along the last axis (Fprop/Dgrad activation layout)."""
+    return quantize(x, row_tile(x.ndim), scale_mode, tag=tag, kind=kind)
 
 
-def quantize_blockwise(w: torch.Tensor, tag="q_wblk") -> QTensor:
-    return quantize(w, (1,) * (w.ndim - 2) + (TILE, TILE), tag=tag)
+def quantize_colwise(x: torch.Tensor, scale_mode="po2",
+                     tag="q_col") -> QTensor:
+    """TILE x 1 tiles along the second-to-last axis (Wgrad layout,
+    untransposed)."""
+    return quantize(x, (1,) * (x.ndim - 2) + (TILE, 1), scale_mode, tag=tag)
+
+
+def quantize_blockwise(w: torch.Tensor, scale_mode="po2",
+                       tag="q_wblk") -> QTensor:
+    """TILE x TILE blocks over the last two axes (weight layout)."""
+    return quantize(w, (1,) * (w.ndim - 2) + (TILE, TILE), scale_mode,
+                    tag=tag)
 
 
 def dequantize(q: QTensor, dtype=torch.bfloat16, tag: str = "dq",

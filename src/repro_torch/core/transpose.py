@@ -11,14 +11,22 @@ scale would flush too).
 
 The work is the scaling-aware transpose kernel (``kernels.fp8_transpose``:
 the CUDA kernel on a card, its integer twin on the CPU), which equals the
-reference's float formulation bit for bit.  The naive baseline
-(dequantize -> transpose -> requantize) belongs to the ``naive_fp8``
-recipe, which is not ported yet (ROADMAP.md, Queue 1, item 4).
+reference's float formulation bit for bit.
+
+The naive baseline of ``naive_fp8``, ``transpose_naive`` (dequantize ->
+transpose -> requantize: two counted casts, the requantize through the
+quantize kernel), and ``double_quant_error`` (paper Eq. 1) are the
+counterparts of ``repro.core.transpose``'s, with the same ledger records.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core import casts
 from repro_torch.core.fp8 import TILE
-from repro_torch.core.quant import QTensor, row_tile
+from repro_torch.core.quant import (QTensor, _dequantize_nocount, dequantize,
+                                    quantize_colwise, quantize_rowwise,
+                                    row_tile)
 from repro_torch.kernels import ops
 
 
@@ -41,3 +49,28 @@ def transpose_direct(q: QTensor) -> QTensor:
     qt = ops.fp8_transpose(q3)
     return QTensor(qt.data.reshape(*lead, K, M),
                    qt.scale.reshape(*lead, K, M // TILE), row_tile(len(lead) + 2))
+
+
+def transpose_naive(q: QTensor, scale_mode: str = "po2") -> QTensor:
+    """Baseline: dequantize (f32) -> transpose -> requantize row-wise (2
+    counted casts).  The requantize of the contiguous transposed copy goes
+    through the quantize kernel (the twin on the CPU)."""
+    xt = dequantize(q, torch.float32, tag="dq_transpose").transpose(-1, -2)
+    casts.record("quantize", "q_transpose", xt.numel())
+    *lead, K, M = xt.shape
+    qt = ops.quantize_rowwise(xt.contiguous().reshape(-1, M), scale_mode)
+    return QTensor(qt.data.reshape(*lead, K, M),
+                   qt.scale.reshape(*lead, K, M // TILE),
+                   row_tile(len(lead) + 2))
+
+
+def double_quant_error(x: torch.Tensor, scale_mode: str = "linear"
+                       ) -> torch.Tensor:
+    """Paper Eq. (1): E = Q_col(D(Q_row(X))) - Q_col(X), dequantized to
+    f32.  Generically nonzero with linear scales; with po2 scales only
+    subnormal flushes are left."""
+    q_row = quantize_rowwise(x, scale_mode, tag="q_err_row")
+    x_rt = dequantize(q_row, torch.float32, tag="dq_err")
+    q_col_rt = quantize_colwise(x_rt, scale_mode, tag="q_err_col_rt")
+    q_col = quantize_colwise(x, scale_mode, tag="q_err_col")
+    return _dequantize_nocount(q_col_rt) - _dequantize_nocount(q_col)

@@ -36,6 +36,15 @@ __device__ __forceinline__ float po2_scale(float amax) {
   return __int_as_float((e + 127) << 23);
 }
 
+// The linear scale of repro_torch/core/fp8.py::linear_scale: amax / 448
+// correctly rounded (a subnormal result is kept: no FTZ); 1.0 where amax
+// is 0, subnormal or NaN, as the reference's where(amax > 0, ., 1) under
+// XLA's flush of subnormals.
+__device__ __forceinline__ float linear_scale(float amax) {
+  if (!(amax >= 1.17549435e-38f)) return 1.f;  // 2**-126
+  return __fdiv_rn(amax, E4M3_MAX);
+}
+
 // Clip to +-448, then round to nearest even into e4m3 (NaN stays NaN:
 // the comparisons are false for it, as torch.clamp keeps it).
 __device__ __forceinline__ uint32_t to_e4m3(float v) {

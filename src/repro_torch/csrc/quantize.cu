@@ -1,9 +1,12 @@
-// Row-wise po2 FP8 quantize.
+// Row-wise FP8 quantize, po2 or linear scales.
 //
 // Replaces the TPU kernel repro/kernels/quantize.py::quantize_rowwise_pallas
 // (pallas_call at quantize.py:54; body _quantize_kernel :37, scale
 // kernel_po2_scale :19).  (M, K) bf16 or f32 -> (M, K) e4m3 payload +
-// (M, K/128) f32 po2 scales, one per (row, 128-column tile).
+// (M, K/128) f32 scales, one per (row, 128-column tile).  LINEAR selects
+// the conventional recipe's scale s = amax / 448 (the blockwise and
+// naive_fp8 baselines), which the reference computes with XLA ops
+// (repro/core/quant.py:321-346): its Pallas kernel has po2 scales only.
 //
 // Bound on H100: bytes.  One read of x and one write of payload + scales;
 // the amax, the exponent and the cast are a few integer and float ops per
@@ -25,6 +28,10 @@
 // number as x / s, subnormal results included: no --use_fast_math, no
 // FTZ), clipped to +-448 and converted two values at a time; each lane
 // stores its 8 bytes, so a warp writes 256 contiguous bytes a store.
+// The linear mode walks the same tiles; its scale is not a power of two,
+// so a reciprocal would round twice: s = amax / 448 and every x / s are
+// IEEE divisions (__fdiv_rn: no --use_fast_math, no FTZ), as the plain
+// twin's f32 divisions.  Those divisions cost issue slots, not bytes.
 #include "common.cuh"
 
 namespace {
@@ -82,7 +89,7 @@ struct Vals<float> {
 };
 
 // UNITS: loads in flight a lane, for 2 * UNITS tiles a warp pass.
-template <typename T, int UNITS>
+template <typename T, int UNITS, bool LINEAR>
 __global__ void __launch_bounds__(THREADS)
 quantize_rowwise_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
                         float* __restrict__ s, long ntiles) {
@@ -106,13 +113,22 @@ quantize_rowwise_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1)
         m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float sc = repro::po2_scale(__uint_as_float(m));
-      const float inv = repro::po2_inverse(sc);
       uint32_t pk[4];
+      float sc;
+      if (LINEAR) {
+        sc = repro::linear_scale(__uint_as_float(m));
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pk[i] = repro::to_e4m3x2(__fmul_rn(v[u].get(2 * i), inv),
-                                 __fmul_rn(v[u].get(2 * i + 1), inv));
+        for (int i = 0; i < 4; ++i)
+          pk[i] = repro::to_e4m3x2(__fdiv_rn(v[u].get(2 * i), sc),
+                                   __fdiv_rn(v[u].get(2 * i + 1), sc));
+      } else {
+        sc = repro::po2_scale(__uint_as_float(m));
+        const float inv = repro::po2_inverse(sc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pk[i] = repro::to_e4m3x2(__fmul_rn(v[u].get(2 * i), inv),
+                                   __fmul_rn(v[u].get(2 * i + 1), inv));
+      }
       if (tile < ntiles) {
         *reinterpret_cast<uint2*>(q + tile * repro::TILE + sub * 8) =
             make_uint2(pk[0] | pk[1] << 16, pk[2] | pk[3] << 16);
@@ -122,9 +138,9 @@ quantize_rowwise_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
   }
 }
 
-template <typename T, int UNITS>
+template <typename T, int UNITS, bool LINEAR>
 int launch(const void* x, void* q, void* s, long ntiles, cudaStream_t st) {
-  auto kern = quantize_rowwise_kernel<T, UNITS>;
+  auto kern = quantize_rowwise_kernel<T, UNITS, LINEAR>;
   static int sms[64], per_sm[64];  // by device, filled at first use
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -150,20 +166,27 @@ int launch(const void* x, void* q, void* s, long ntiles, cudaStream_t st) {
 
 // One load a lane below 2**14 tiles; four from there on (the 2048-token
 // entry quantize is 65,536 tiles).
-template <typename T>
+template <typename T, bool LINEAR>
 int launch(const void* x, void* q, void* s, long ntiles, cudaStream_t st) {
-  if (ntiles < (1L << 14)) return launch<T, 1>(x, q, s, ntiles, st);
-  return launch<T, 4>(x, q, s, ntiles, st);
+  if (ntiles < (1L << 14)) return launch<T, 1, LINEAR>(x, q, s, ntiles, st);
+  return launch<T, 4, LINEAR>(x, q, s, ntiles, st);
+}
+
+template <bool LINEAR>
+int launch(const void* x, int x_is_bf16, void* q, void* s, long ntiles,
+           cudaStream_t st) {
+  if (x_is_bf16) return launch<__nv_bfloat16, LINEAR>(x, q, s, ntiles, st);
+  return launch<float, LINEAR>(x, q, s, ntiles, st);
 }
 
 }  // namespace
 
-REPRO_EXPORT int repro_quantize_rowwise(const void* x, int x_is_bf16, void* q,
-                                        void* s, int M, int K,
-                                        void* stream) {
+REPRO_EXPORT int repro_quantize_rowwise(const void* x, int x_is_bf16,
+                                        int linear, void* q, void* s, int M,
+                                        int K, void* stream) {
   const long ntiles = (long)M * (K / repro::TILE);
   if (ntiles == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (x_is_bf16) return launch<__nv_bfloat16>(x, q, s, ntiles, st);
-  return launch<float>(x, q, s, ntiles, st);
+  if (linear) return launch<true>(x, x_is_bf16, q, s, ntiles, st);
+  return launch<false>(x, x_is_bf16, q, s, ntiles, st);
 }

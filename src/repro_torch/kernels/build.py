@@ -29,7 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each library's one exported launcher: (name, argtypes)
 SIGNATURES = {
-    "quantize": ("repro_quantize_rowwise", (_P, _I, _P, _P, _I, _I, _P)),
+    "quantize": ("repro_quantize_rowwise", (_P, _I, _I, _P, _P, _I, _I, _P)),
     "swiglu_quant": ("repro_swiglu_quant", (_P, _P, _P, _I, _I, _P)),
     "permute_pad": ("repro_permute_pad",
                     (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),

@@ -30,6 +30,7 @@ from repro_torch.kernels.grouped_gemm_swiglu_quant import (
     masked_grouped_gemm_swiglu_quant_cuda,
     masked_grouped_gemm_swiglu_quant_plain)
 from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
+                                          quantize_rowwise_linear_plain,
                                           quantize_rowwise_plain)
 
 
@@ -41,10 +42,16 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel route for device {t.device}")
 
 
-def quantize_rowwise(x: torch.Tensor) -> QTensor:
-    """(M, K) bf16/f32 -> row-tiled QTensor."""
-    fn = quantize_rowwise_cuda if _on_card(x) else quantize_rowwise_plain
-    data, scale = fn(x)
+def quantize_rowwise(x: torch.Tensor, scale_mode: str = "po2") -> QTensor:
+    """(M, K) bf16/f32 -> row-tiled QTensor, po2 or linear scales."""
+    if _on_card(x):
+        data, scale = quantize_rowwise_cuda(x, scale_mode)
+    elif scale_mode == "po2":
+        data, scale = quantize_rowwise_plain(x)
+    elif scale_mode == "linear":
+        data, scale = quantize_rowwise_linear_plain(x)
+    else:
+        raise ValueError(f"quantize_rowwise: scale_mode {scale_mode!r}")
     return QTensor(data, scale, row_tile(2))
 
 

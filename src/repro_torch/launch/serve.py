@@ -2,7 +2,8 @@
 W8-resident expert weights, on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_235b \\
-      --reduced --device cuda [--requests 16] [--bf16-kv] [--no-w8]
+      --reduced --device cuda [--recipe {fp8_flow,bf16}] [--requests 16] \\
+      [--bf16-kv] [--no-w8]
 
 The flags are the reference launcher's (``repro.launch.serve``) plus
 ``--device``.  The prefix cache, disaggregation and telemetry flags are
@@ -15,7 +16,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_arch
-from repro_torch.core.recipes import get_recipe
+from repro_torch.core.recipes import RECIPES, get_recipe
 from repro_torch.models.lm import init_params
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.scheduler import Request
@@ -24,7 +25,9 @@ from repro_torch.serve.scheduler import Request
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_moe_235b")
-    ap.add_argument("--recipe", default="fp8_flow")
+    ap.add_argument("--recipe", default="fp8_flow", choices=RECIPES,
+                    help="bf16 or fp8_flow; blockwise and naive_fp8 "
+                    "raise (the reference cannot decode them)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)

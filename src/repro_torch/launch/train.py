@@ -1,7 +1,8 @@
-"""Training launcher: the fp8_flow train step on one device.
+"""Training launcher: the train step of any recipe on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_moe_235b \\
-      --reduced --device cuda [--steps 20] [--seq-len 256] [--global-batch 8]
+      --reduced --device cuda [--recipe {bf16,blockwise,naive_fp8,fp8_flow}] \\
+      [--steps 20] [--seq-len 256] [--global-batch 8]
 
 The flags are the reference launcher's (``repro.launch.train``) that the
 single-device port runs, plus ``--device`` (``cuda``: the hand-written
@@ -15,7 +16,7 @@ import argparse
 import time
 
 from repro_torch.configs import get_arch
-from repro_torch.core.recipes import get_recipe
+from repro_torch.core.recipes import RECIPES, get_recipe
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.train_step import init_train_state, make_train_step
@@ -24,7 +25,7 @@ from repro_torch.train.train_step import init_train_state, make_train_step
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_moe_235b")
-    ap.add_argument("--recipe", default="fp8_flow")
+    ap.add_argument("--recipe", default="fp8_flow", choices=RECIPES)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)

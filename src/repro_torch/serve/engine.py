@@ -1,8 +1,10 @@
 """Continuous-batching FP8 serving engine (the ``mixed`` role).
 
 Counterpart of ``repro.serve.engine``: a request queue feeding interleaved
-prefill and decode over W8-resident FP8 expert weights (serve/w8.py) and a
-paged FP8-e4m3 KV cache with po2 scales (serve/paged_kv.py).
+prefill and decode over W8-resident FP8 expert weights (serve/w8.py;
+fp8_flow only: the bf16 recipe serves bf16 weights) and a paged FP8-e4m3
+KV cache with po2 scales (serve/paged_kv.py).  blockwise and naive_fp8
+raise, as the reference cannot decode them (``core.moe``).
 
 One tick = [prefill one admitted request's prompt chunk, padded to a
 bucket] + [decode every resident request one token over the full
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.moe import check_decode_recipe
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import paged_decode_step, paged_prefill
@@ -104,6 +107,7 @@ class ServeEngine:
 
     def __init__(self, cfg: ArchConfig, recipe: Recipe, params,
                  ecfg: ServeConfig = ServeConfig(), device="cuda"):
+        check_decode_recipe(recipe)
         self.device = resolve_device(device)
         self.cfg, self.recipe, self.ecfg = cfg, recipe, ecfg
         if ecfg.prefill_chunk is not None and (

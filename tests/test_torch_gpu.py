@@ -31,7 +31,8 @@ from repro_torch.kernels.fused_swiglu_quant import (fused_swiglu_quant_plain,
                                                     swiglu_f32)
 from repro_torch.kernels.grouped_gemm_fp8 import grouped_gemm_fp8_plain
 from repro_torch.kernels.grouped_gemm_nt_fp8 import grouped_gemm_nt_fp8_plain
-from repro_torch.kernels.quantize import quantize_rowwise_plain
+from repro_torch.kernels.quantize import (quantize_rowwise_linear_plain,
+                                          quantize_rowwise_plain)
 from torch_quant_inputs import KINDS, quant_inputs
 
 
@@ -139,9 +140,9 @@ PADDED_TRAIN_KERNELS = ("quantize_rowwise", "fused_permute_pad",
                         "grouped_gemm_fp8_quant_out")
 
 
-def _rowq(card, seed, e, m, k, spread=0.5, scale=1.0):
+def _rowq(card, seed, e, m, k, spread=0.5, scale=1.0, scale_mode="po2"):
     q = ops.quantize_rowwise(torch.from_numpy(
-        _x(seed, e * m, k, spread=spread) * scale).to(card))
+        _x(seed, e * m, k, spread=spread) * scale).to(card), scale_mode)
     return QTensor(q.data.reshape(e, m, k), q.scale.reshape(e, m, k // TILE),
                    (1, 1, TILE))
 
@@ -815,9 +816,11 @@ def test_fp8_transpose_tile_walk_on_card(card, e, m, k):
     _transpose_bitwise(d, s)
 
 
-def _quantize_bitwise(x):
-    q = ops.quantize_rowwise(x)
-    dp, sp = quantize_rowwise_plain(x)
+def _quantize_bitwise(x, scale_mode="po2"):
+    plain = quantize_rowwise_plain if scale_mode == "po2" else \
+        quantize_rowwise_linear_plain
+    q = ops.quantize_rowwise(x, scale_mode)
+    dp, sp = plain(x)
     assert torch.equal(q.data.view(torch.uint8), dp.view(torch.uint8))
     assert torch.equal(q.scale, sp)
 
@@ -976,3 +979,152 @@ def test_permute_pad_kernel_edges_on_card(card, t, d, n_out, kind):
     xp, sp = fused_permute_pad_plain(x, s, row_map)
     assert torch.equal(xo.view(torch.uint8), xp.view(torch.uint8))
     assert torch.equal(so, sp)
+
+
+# ---------------------------------------------------------------------------
+# The linear mode of the quantize (#1; the blockwise and naive_fp8
+# recipes), bitwise against its twin on the same inputs as the po2 mode:
+# ragged tile counts on both sides of the one- / four-loads threshold,
+# special values (a subnormal linear scale at the 1e-37 tile), the
+# boundary inputs; and the NN (#3) and NT (#10) GEMMs on linear scales.
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(1, 128), (3, 128), (9, 384), (77, 1152),
+                                 (2048, 4096), (20001, 384), (8191, 4096),
+                                 (65537, 640)])
+def test_quantize_linear_kernel_edges_on_card(card, dtype, m, k):
+    _quantize_bitwise(torch.from_numpy(_x(m + k, m, k)).to(card).to(dtype),
+                      "linear")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_linear_kernel_special_values_on_card(card, dtype):
+    """NaN, +-inf, subnormal, zero and -0 values, alone in a tile and beside
+    numbers; huge tiles, and tiny normal ones whose linear scale is
+    subnormal."""
+    x = _x(31, 64, 512)
+    x[0, 5] = np.nan
+    x[1, :128] = np.nan
+    x[2, 130] = np.inf
+    x[3, 300] = -np.inf
+    x[4, 128:256] = np.inf
+    x[5, :128] = 3e-40 * np.sign(x[5, :128])
+    x[6, :128] = 3e-40
+    x[6, 64] = 1.0
+    x[7] = 0.0
+    x[8, :128] = -0.0
+    x[9] *= 1e-37
+    x[10] = np.clip(x[10], -1, 1) * 3e38
+    x[11, :128] = 448.0 * 2.0 ** -126 * np.sign(x[11, :128])
+    _quantize_bitwise(torch.from_numpy(x).to(card).to(dtype), "linear")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_linear_kernel_boundary_inputs_on_card(card, kind, dtype):
+    rng = np.random.default_rng([KINDS.index(kind), 8])
+    x = quant_inputs(kind, rng, (48, 384))
+    _quantize_bitwise(torch.from_numpy(x).to(card).to(dtype), "linear")
+
+
+@pytest.mark.gpu
+def test_quantize_modes_count_apart_on_card(card):
+    from repro_torch import kernels
+    x = torch.from_numpy(_x(5, 64, 256)).to(card)
+    kernels.reset_launches()
+    ops.quantize_rowwise(x, "linear")
+    ops.quantize_rowwise(x, "linear")
+    ops.quantize_rowwise(x)
+    assert kernels.LAUNCHES["quantize_rowwise_linear"] == 2
+    assert kernels.LAUNCHES["quantize_rowwise"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_trans", [False, True])
+@pytest.mark.parametrize("e,c,k,n", [(2, 256, 3072, 4096), (3, 40, 384, 256)])
+def test_grouped_gemm_on_linear_scales_on_card(card, w_trans, e, c, k, n):
+    qx = _rowq(card, 14, e, c, k, scale_mode="linear")
+    shape = (e, n, k) if w_trans else (e, k, n)
+    qw = quantize_blockwise(torch.from_numpy(
+        _x(15, *shape, spread=0.3) * 0.05).to(card), "linear")
+    out = ops.grouped_gemm_fp8(qx, _t_view(qw) if w_trans else qw)
+    ref = grouped_gemm_fp8_plain(qx.data, qx.scale, qw.data, qw.scale,
+                                 w_trans=w_trans)
+    torch.testing.assert_close(out.to(torch.float32), ref.to(torch.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,m,n,c", [(2, 4096, 384, 256), (3, 256, 128, 384)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_nt_on_linear_scales_on_card(card, e, m, n, c,
+                                                  out_dtype):
+    qa = _rowq(card, 16, e, m, c, scale_mode="linear")
+    qb = _rowq(card, 17, e, n, c, scale=0.05, scale_mode="linear")
+    out = ops.grouped_gemm_nt_fp8(qa, qb, out_dtype)
+    ref = grouped_gemm_nt_fp8_plain(qa.data, qa.scale, qb.data, qb.scale,
+                                    out_dtype)
+    torch.testing.assert_close(out.to(torch.float32), ref.to(torch.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+BASELINE_TRAIN_KERNELS = {
+    "bf16": (),
+    "blockwise": ("quantize_rowwise_linear", "grouped_gemm_fp8",
+                  "grouped_gemm_nt_fp8"),
+    "naive_fp8": ("quantize_rowwise_linear", "fused_permute_pad",
+                  "grouped_gemm_fp8", "grouped_gemm_nt_fp8")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BASELINE_TRAIN_KERNELS))
+def test_baseline_train_step_on_card(card, name):
+    """One reduced() train step of each baseline on the card: the paper's
+    activation casts per MoE layer (0 / 8 / 12), its kernels launched and
+    no other, and gradients within cosine 0.999 of the CPU path's."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core import casts
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.lm import forward, init_params
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    from repro_torch.weights import params_to
+
+    cfg = get_arch("qwen3_moe_235b").reduced()
+    recipe = get_recipe(name)
+    kernels.reset_launches()
+    state = init_train_state(cfg, AdamWConfig(lr=1e-3), device=card,
+                             params=params_to(init_params(
+                                 cfg, seed=0, device="cpu"), card))
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                  global_batch=8), 0, device=card)
+    with casts.ledger() as led:
+        state, metrics = make_train_step(cfg, recipe, AdamWConfig(lr=1e-3))(
+            state, batch)
+    torch.cuda.synchronize()
+    casts_per_layer = {"bf16": 0, "blockwise": 8, "naive_fp8": 12}[name]
+    assert led.activation_casts() == casts_per_layer * cfg.n_layers
+    assert np.isfinite(float(metrics["loss"]))
+    run = BASELINE_TRAIN_KERNELS[name]
+    assert all(kernels.LAUNCHES[k] > 0 for k in run), kernels.LAUNCHES
+    assert all(n == 0 for k, n in kernels.LAUNCHES.items() if k not in run)
+    grads = {}
+    for d in (card, torch.device("cpu")):
+        params = params_to(init_params(cfg, seed=0, device="cpu"), d)
+        for p in tree_leaves(params):
+            p.requires_grad_()
+        b = make_batch(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                  global_batch=8), 0, device=d)
+        loss, _ = forward(cfg, recipe, params, b)
+        loss.backward()
+        grads[d.type] = _named_grads(params)
+    for k, g in grads["cpu"].items():
+        gc = grads["cuda"][k]
+        cos = (g.flatten() @ gc.flatten()) / (g.norm() * gc.norm() + 1e-300)
+        assert cos.item() >= 0.999, (name, k, cos.item())

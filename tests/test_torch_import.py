@@ -67,6 +67,6 @@ def test_cuda_request_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(cfg, get_recipe("fp8_flow"), {}, ServeConfig())
     with pytest.raises(NotImplementedError):
-        get_recipe("naive_fp8")
+        ServeEngine(cfg, get_recipe("naive_fp8"), {}, ServeConfig())
     with pytest.raises(NotImplementedError):
         ServeConfig(prefix_cache=True)

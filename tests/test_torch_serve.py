@@ -269,3 +269,33 @@ def test_engine_first_tokens_match_reference_engine(setup):
     first = [res[r.rid]["tokens"][0] for r in reqs]
     assert first == first_ref
     assert all(len(res[r.rid]["tokens"]) == r.max_new_tokens for r in reqs)
+
+
+def test_bf16_teacher_forced_logits_match_reference(setup):
+    """The bf16 recipe (bf16 expert weights, no W8; FP8 paged KV) against
+    the reference engine's route A on token seed 2: logits cosine >= 0.999
+    and the same argmax at every step, and the same prefill ledger (no
+    activation cast; the KV page quantizes)."""
+    toks = [int(t) for t in np.random.default_rng(2).integers(
+        1, setup["cfg"].vocab, PROMPT + STEPS)]
+    mesh = setup["mesh"]
+    ref, jled = _ref_teacher_forced(
+        setup["jcfg"], jget_recipe("bf16"),
+        ParallelPlan(mesh=mesh, dp_axes=("data",)), setup["jparams"], mesh,
+        toks)
+    port, led, gaps = _port_teacher_forced(setup["cfg"], setup["params"],
+                                           toks, recipe=get_recipe("bf16"))
+    assert min(gaps) >= NEAR_TIE, gaps
+    for step, (a, b) in enumerate(zip(port, ref)):
+        assert _cos(a, b) >= 0.999, (step, _cos(a, b))
+        assert int(a.argmax()) == int(b.argmax()), step
+    L = setup["cfg"].n_layers
+    assert led == {k: v * L for k, v in jled.items()}
+    assert not any(kind in ("quantize", "dequantize") for kind, _ in led)
+
+
+@pytest.mark.parametrize("name", ["blockwise", "naive_fp8"])
+def test_engine_refuses_recipes_the_reference_cannot_decode(setup, name):
+    with pytest.raises(NotImplementedError, match="moe.py:433-438"):
+        ServeEngine(setup["cfg"], get_recipe(name), setup["params"],
+                    ServeConfig(), device="cpu")
