@@ -13,16 +13,24 @@ and naive_fp8 for training (phases 3c and 6c).  Serve pass: builds the same engi
 then again under torch.profiler (CPU + CUDA activity).  Train pass: the
 same for chip_smoke.py's phase 6 train step (full width, 1 layer, AdamW,
 the fixed 2 x 1024-token batch): one warm-up step, three timed unprofiled
-steps, three profiled steps.  Each pass prints one JSON line: the wall
+steps, three profiled steps.  Then the same two passes of deepseek_v2_lite
+(chip_smoke.py's phases 10-11): the serve pass at full depth (27 layers)
+and the train step at depth 4 (1 dense + 3 MoE layers), padded; and
+qwen15_05b's train step (24 dense layers).  Each
+pass prints one JSON line: the wall
 seconds of the plain and the profiled run, the device's busy time (kernel
 self time under the profiler), its busy and idle shares of the plain
 run's wall time (the profiler adds host time, so its own wall would
-overstate the idle share) and device time by group (the hand-written
-kernels, cuBLAS GEMMs, everything else), then a JSON line with the top
-kernels.
+overstate the idle share), device time by group (the hand-written
+kernels, cuBLAS GEMMs, everything else) and `quant_weights`: the device
+time of the blockwise quantizes of bf16 weights inside the expert FFN
+(``core.linear._quant_weights``, under a profiler range: in serving the
+dense layers' and shared experts' weights at every prefill, W8 covering
+only the routed experts), then a JSON line with the top kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import sys
@@ -75,6 +83,34 @@ def device_us(evt) -> float:
     return 0.0
 
 
+@contextlib.contextmanager
+def weight_quantize_range():
+    """core.linear._quant_weights under a profiler range named
+    quant_weights, so the device time of its kernels can be read."""
+    from repro_torch.core import linear
+    orig = linear._quant_weights
+
+    def annotated(*args, **kw):
+        with torch.profiler.record_function("quant_weights"):
+            return orig(*args, **kw)
+
+    linear._quant_weights = annotated
+    try:
+        yield
+    finally:
+        linear._quant_weights = orig
+
+
+def device_total_ms(prof, key) -> float:
+    """Device time of the kernels launched inside the ranges `key`."""
+    for e in prof.key_averages():
+        if e.key == key:
+            for attr in ("device_time_total", "cuda_time_total"):
+                if hasattr(e, attr):
+                    return float(getattr(e, attr)) / 1e3
+    return 0.0
+
+
 def profile_pass(label, run, unit):
     """Time one warmed call of `run` unprofiled, then profile another; `run`
     returns how many `unit`s it ran.  Prints the pass's JSON lines."""
@@ -85,14 +121,17 @@ def profile_pass(label, run, unit):
     run()                                              # timed, unprofiled
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with weight_quantize_range(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         n_units = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the quant_weights range also shows as a device event spanning its
+    # kernels: it is not a kernel
     kernels = [e for e in prof.key_averages() if device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
+               and e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != "quant_weights"]
     by_group = {}
     for e in kernels:
         g = group_of(e.key)
@@ -106,6 +145,7 @@ def profile_pass(label, run, unit):
         profiled_wall_s=wall, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (plain_wall * 1e3),
         device_idle_share=1 - busy_ms / (plain_wall * 1e3),
+        quant_weights_ms=device_total_ms(prof, "quant_weights"),
         groups={g: dict(ms=v[0], share=v[0] / busy_ms, launches=v[1])
                 for g, v in sorted(by_group.items(),
                                    key=lambda kv: -kv[1][0])})}))
@@ -123,9 +163,11 @@ def main() -> int:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0))
 
-    for label in ("serve", "masked_serve", "bf16_serve"):
-        eng, reqs = chip_smoke.make_serve(chip_smoke.serve_config(), dev,
-                                          label)
+    passes = [(label, chip_smoke.serve_config()) for label in (
+        "serve", "masked_serve", "bf16_serve")]
+    passes.append(("dsv2_serve", chip_smoke.arch_config("deepseek_v2_lite")))
+    for label, cfg in passes:
+        eng, reqs = chip_smoke.make_serve(cfg, dev, label)
         eng.run(reqs, realtime=False)                  # warm-up pass
 
         def serve():
@@ -139,9 +181,13 @@ def main() -> int:
         del eng
         torch.cuda.empty_cache()
 
-    cfg = chip_smoke.train_config()
-    for label in ("train", "masked_train", "bf16_train", "blockwise_train",
-                  "naive_train"):
+    passes = [(label, chip_smoke.train_config()) for label in (
+        "train", "masked_train", "bf16_train", "blockwise_train",
+        "naive_train")]
+    passes += [("dsv2_train", chip_smoke.arch_config(
+        "deepseek_v2_lite", chip_smoke.DSV2_TRAIN_LAYERS)),
+        ("qwen15_train", chip_smoke.arch_config("qwen15_05b"))]
+    for label, cfg in passes:
         state, step, batch = chip_smoke.make_train(cfg, dev, label)
         box = {"state": state}
         del state

@@ -79,9 +79,43 @@ Phases (any failure raises and the script exits non-zero):
      cosine >= 0.999 (the expert weights' and the router's, nonzero,
      included), the first step's loss within 1e-3 relative and global
      grad norm within 1%, the second step's loss (after the first update)
-     within 1e-3 relative;
+     within 1e-3 relative (a token the card routes to other experts than
+     the CPU must sit at a router near-tie, and the gradients are then
+     compared with the card routed as the CPU routed, when one did);
+     qwen3_moe_235b's served tokens and fp8_flow losses are held to PR
+     18's bits;
+ 10. the configs with dense layers and shared experts at full width:
+     deepseek_v2_lite served at full depth (27 layers) with the padded
+     and then the masked recipe (the same tokens), qwen15_05b served
+     whole (24 dense layers; no kernel in decode), deepseek_v3_671b
+     served at depth 4 (3 dense + 1 MoE layer); each through exactly its
+     kernels (the dense and shared MLPs on the padded #1, #3, #8 in
+     every recipe), with tokens/s, ticks, peak memory, tokens_sha256;
+     10b. #7 and #5 on the masked deepseek_v2_lite pass's own plans, as
+     phase 2b;
+ 11. each config's kernels at the shapes its paths give them, timed as
+     phases 2 and 5: deepseek_v2_lite's and deepseek_v3_671b's bucket-64
+     prefill and 8-slot decode step, qwen15_05b's prefill, and
+     deepseek_v2_lite's (depth 4) and qwen15_05b's train step; the dense
+     and shared MLPs as E = 1 groups (GEMMs, SwiGLU+quantize, in train
+     the transposes, the NT Wgrads contracting C = 2048 tokens and the
+     Dgrads), the routed experts at the path's capacity (with #2's
+     layouts), #1 at each quantize; deepseek_v3_671b's routed GEMMs on
+     64 of its 256 experts (the f32 twin of all 256 holds 30 GB);
+ 12. deepseek_v2_lite trained at depth 4 (1 dense + 3 MoE layers) and
+     qwen15_05b whole, as phase 6: padded, masked (bit for bit the
+     padded losses), bf16, blockwise and naive_fp8 for deepseek_v2_lite,
+     fp8_flow for qwen15_05b; activation casts per step pinned per
+     layer kind (a dense MLP 2 / 0 / 8 / 10, an MoE block 2 / 0 / 8 /
+     12, fp8_flow / bf16 / blockwise / naive_fp8; a shared expert is a
+     dense MLP); 12b. the four masked kernels on the masked
+     deepseek_v2_lite step's own plan, as phase 5b;
+ 13. GPU path vs CPU path at reduced() size for the three: serve logits
+     (fp8_flow), and train gradients and losses as phase 7, for all five
+     train paths of deepseek_v2_lite and qwen15_05b and for fp8_flow of
+     deepseek_v3_671b;
   9. the {"kernels": [...]} summary line (the eleven kernels and #1's
-     linear mode), then the result line.
+     linear mode, with the new shapes' rows), then the result line.
 It imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -133,10 +167,48 @@ PATH_KERNELS = {
     "naive_train": ("quantize_rowwise_linear", "fused_permute_pad",
                     "grouped_gemm_fp8", "grouped_gemm_nt_fp8"),
 }
+# The paths of the configs with dense layers and shared experts, by the
+# tag that prefixes their labels.  A dense MLP (a dense layer's, a shared
+# expert's) is the expert FFN as one group with no masked_m: the masked
+# recipe runs the padded #3, #4, #8 and #10 for it, as the reference does.
+# qwen15_05b has no dispatch (#2), and its decode runs no kernel.
+ARCH_TAGS = {"dsv2": "deepseek_v2_lite", "qwen15": "qwen15_05b",
+             "dsv3": "deepseek_v3_671b"}
+DENSE_MLP_KERNELS = {
+    "serve": ("grouped_gemm_fp8", "fused_swiglu_quant"),
+    "train": ("grouped_gemm_fp8", "fused_swiglu_quant",
+              "grouped_gemm_fp8_quant_out", "grouped_gemm_nt_fp8")}
+PATH_KERNELS.update({
+    "dsv2_serve": PATH_KERNELS["serve"],
+    "dsv2_masked_serve": PATH_KERNELS["masked_serve"]
+    + DENSE_MLP_KERNELS["serve"],
+    "dsv2_train": PATH_KERNELS["train"],
+    "dsv2_masked_train": PATH_KERNELS["masked_train"]
+    + DENSE_MLP_KERNELS["train"],
+    "dsv2_bf16_train": (),
+    "dsv2_blockwise_train": PATH_KERNELS["blockwise_train"],
+    "dsv2_naive_train": PATH_KERNELS["naive_train"],
+    "qwen15_serve": ("quantize_rowwise",) + DENSE_MLP_KERNELS["serve"],
+    "qwen15_train": ("quantize_rowwise", "fp8_transpose")
+    + DENSE_MLP_KERNELS["train"],
+    "dsv3_serve": PATH_KERNELS["serve"],
+})
 
-# activation casts per MoE layer per train step (paper Fig. 2)
+# activation casts per train step (paper Fig. 2): per MoE block (router,
+# dispatch, experts, combine) and per dense MLP (a dense layer's or a
+# shared expert's: the expert FFN's, plus fp8_flow's entry quantize), as
+# the reference's ledger counts them (tests/test_cast_count.py)
 CASTS_PER_LAYER = {"bf16": 0, "blockwise": 8, "naive_fp8": 12,
                    "fp8_flow": 2}
+CASTS_PER_MLP = {"bf16": 0, "blockwise": 8, "naive_fp8": 10, "fp8_flow": 2}
+
+
+def casts_per_step(cfg, name):
+    """Activation casts of one train step of `cfg` with recipe `name`."""
+    nd = cfg.n_dense_layers if cfg.moe else cfg.n_layers
+    moe_layer = CASTS_PER_LAYER[name] + (
+        CASTS_PER_MLP[name] if cfg.n_shared_experts else 0)
+    return nd * CASTS_PER_MLP[name] + (cfg.n_layers - nd) * moe_layer
 
 
 MASKED = dict(masked_experts=True, swiglu_epilogue=True)
@@ -152,10 +224,17 @@ PATH_RECIPES = {"serve": ("fp8_flow", {}),
                 "naive_train": ("naive_fp8", {})}
 
 
+def base_label(label: str) -> str:
+    """The path `label` less its config tag: "dsv2_masked_train" ->
+    "masked_train"."""
+    tag, _, rest = label.partition("_")
+    return rest if tag in ARCH_TAGS else label
+
+
 def recipe_for(label: str):
     """The recipe of the path `label`."""
     from repro_torch.core.recipes import get_recipe
-    name, kw = PATH_RECIPES[label]
+    name, kw = PATH_RECIPES[base_label(label)]
     return get_recipe(name, **kw)
 
 
@@ -912,6 +991,14 @@ def serve_config():
     return dataclasses.replace(get_arch("qwen3_moe_235b"), n_layers=4)
 
 
+# qwen3_moe_235b's served tokens (the 16-request trace at depth 4, random
+# weights from seed 0) since PR 13 (fp8_flow) and PR 18 (bf16): the head
+# and tail of their sha256, held bit for bit
+SERVE_SHA256 = {"serve": ("03d9545e", "14e6"),
+                "masked_serve": ("03d9545e", "14e6"),
+                "bf16_serve": ("dab58147", "6c6d")}
+
+
 def make_serve(cfg, dev, label="serve"):
     """The serve path's engine (random weights from seed 0: W8 for
     fp8_flow, bf16 for the bf16 recipe; FP8 KV) and its trace: 16 greedy
@@ -976,7 +1063,7 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None):
     None)."""
     from repro_torch import kernels
 
-    masked = label == "masked_serve"
+    masked = recipe_for(label).masked_experts
     torch.cuda.reset_peak_memory_stats()
     eng, reqs = make_serve(cfg, dev, label)
     ecfg = eng.ecfg
@@ -1001,11 +1088,16 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None):
     if masked:
         check(tokens == padded_tokens, "the masked serve pass generated "
               "other tokens than the padded pass")
+    sha = hashlib.sha256(json.dumps(tokens).encode()).hexdigest()
+    if label in SERVE_SHA256:
+        head, tail = SERVE_SHA256[label]
+        check(sha.startswith(head) and sha.endswith(tail),
+              f"{label}: tokens_sha256 {sha}, not {head}...{tail} as before")
     s = results.stats
     print(json.dumps({label: dict(
+        config=f"{cfg.name} n_layers={cfg.n_layers} full width",
         requests=len(results), tokens=n_tok, seconds=dt,
-        tokens_sha256=hashlib.sha256(json.dumps(tokens).encode()).hexdigest(),
-        tokens_per_s=n_tok / dt, ticks=s["ticks"],
+        tokens_sha256=sha, tokens_per_s=n_tok / dt, ticks=s["ticks"],
         prefill_chunks=s["prefill_chunks"], evicted=s["evicted"],
         max_concurrent=s["max_concurrent"],
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -1032,10 +1124,10 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None):
     del eng
     torch.cuda.empty_cache()
     picked = None
-    if masked:
+    if base_label(label) == "masked_serve":
         C_pf, C_dec = max(plans), min(plans)       # 128 (C_exp), 8 (C_dec)
         # live experts of every MoE call, by (rows routed, live experts)
-        print(json.dumps({"masked_serve_plans": {
+        print(json.dumps({f"{label}_plans": {
             call: sorted((int(p.sum()), int((p > 0).sum())) for p in plans[C])
             for call, C in (("prefill", C_pf), ("decode", C_dec))}}))
         picked = {"prefill": pick_plan(plans[C_pf]),
@@ -1043,11 +1135,11 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None):
     return launches, tokens, picked
 
 
-def masked_serve_kernel_checks(cfg, peaks, dev, plans):
+def masked_serve_kernel_checks(cfg, peaks, dev, plans, tag=""):
     """#7 (GEMM-1 + SwiGLU) and #5 (GEMM-2) on the dispatch layouts of the
     masked serve pass's own plans: a bucket-64 prefill (C = 128) and an
     8-slot decode step (C = 8); each against its twin and its padded
-    kernel(s), timed beside them."""
+    kernel(s), timed beside them.  `tag` prefixes the rows' shapes."""
     gen = torch.Generator(device=dev).manual_seed(3)
     D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     record = KernelRows(peaks)
@@ -1055,11 +1147,11 @@ def masked_serve_kernel_checks(cfg, peaks, dev, plans):
     w2 = blockq(gen, dev, E, F, D)
     for shape, C in (("prefill", 128), ("decode", 8)):
         mm = plans[shape]
-        print(json.dumps({"masked_plan": dict(path="serve", call=shape,
-                                              **live_stats(mm, C))}))
-        check_masked_swiglu(record, f"{shape}_gemm1",
+        print(json.dumps({"masked_plan": dict(
+            path=f"{tag}serve", call=shape, **live_stats(mm, C))}))
+        check_masked_swiglu(record, f"{tag}{shape}_gemm1",
                             *dispatch_rows(gen, dev, mm, C, D), w13, mm)
-        check_masked_gemm(record, f"{shape}_gemm2",
+        check_masked_gemm(record, f"{tag}{shape}_gemm2",
                           *dispatch_rows(gen, dev, mm, C, F), w2, mm)
     del w13, w2
     torch.cuda.empty_cache()
@@ -1069,7 +1161,7 @@ def masked_serve_kernel_checks(cfg, peaks, dev, plans):
 # ---------------------------------------------------------------------------
 # Phase 4: the GPU path against the CPU path at reduced() size.
 # ---------------------------------------------------------------------------
-def gpu_vs_cpu(dev, label="serve"):
+def gpu_vs_cpu(dev, label="serve", arch="qwen3_moe_235b"):
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import (init_params, paged_decode_step,
                                        paged_prefill)
@@ -1077,7 +1169,7 @@ def gpu_vs_cpu(dev, label="serve"):
     from repro_torch.serve.w8 import quantize_params_for_serving
     from repro_torch.weights import params_to
 
-    cfg = get_arch("qwen3_moe_235b").reduced()
+    cfg = get_arch(arch).reduced()
     recipe = recipe_for(label)
     params_cpu = init_params(cfg, seed=0, device="cpu")
     if recipe.name == "fp8_flow":                    # the engine's W8 weights
@@ -1103,7 +1195,7 @@ def gpu_vs_cpu(dev, label="serve"):
            for a, b in zip(out["cuda"], out["cpu"])]
     same = [int(a.argmax()) == int(b.argmax())
             for a, b in zip(out["cuda"], out["cpu"])]
-    print(json.dumps({"gpu_vs_cpu": dict(config="qwen3_moe_235b.reduced()",
+    print(json.dumps({"gpu_vs_cpu": dict(config=f"{arch}.reduced()",
                                          path=label, cosine=cos,
                                          same_argmax=same)}))
     check(min(cos) >= 0.999, f"GPU path vs CPU path cosine {cos} < 0.999")
@@ -1244,6 +1336,11 @@ def expert_grad_zero_fraction(cfg, recipe, params, batch):
     return out
 
 
+# qwen3_moe_235b's fp8_flow losses on the train path (depth 1, seed 0, the
+# fixed batch) as PR 18 measured them, to the six decimals PERF.md keeps
+TRAIN_LOSSES = {"train": (12.851900, 12.590693, 11.596179, 8.347960)}
+
+
 def train_path(cfg, dev, label="train", padded_losses=None):
     """TRAIN_STEPS steps on the fixed batch with the recipe of `label`,
     from the same seed; the masked recipe's every loss must be
@@ -1253,8 +1350,8 @@ def train_path(cfg, dev, label="train", padded_losses=None):
     from repro_torch.core import casts
     from repro_torch.optim.adamw import tree_leaves
 
-    masked = label == "masked_train"
     recipe = recipe_for(label)
+    masked = recipe.masked_experts
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, step, batch = make_train(cfg, dev, label)
@@ -1276,18 +1373,24 @@ def train_path(cfg, dev, label="train", padded_losses=None):
             n_casts.append(led.activation_casts())
         launches = dict(kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    zero_frac = None if masked else expert_grad_zero_fraction(
-        cfg, recipe, state["params"], batch)
-    want = CASTS_PER_LAYER[recipe.name] * cfg.n_layers
+    zero_frac = None if masked or "we13" not in state["params"]["layers"] \
+        else expert_grad_zero_fraction(cfg, recipe, state["params"], batch)
+    want = casts_per_step(cfg, recipe.name)
     check(all(np.isfinite(losses)), f"a non-finite train loss: {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     check(all(n == want for n in n_casts),
           f"activation casts per step {n_casts}, expected {want} "
-          f"({CASTS_PER_LAYER[recipe.name]} per MoE layer, {recipe.name})")
+          f"({CASTS_PER_LAYER[recipe.name]} per MoE block, "
+          f"{CASTS_PER_MLP[recipe.name]} per dense MLP, {recipe.name})")
     check_launches(label, launches)
     if masked:
         check(losses == padded_losses, f"masked train losses {losses} are "
               f"not the padded run's {padded_losses} bit for bit")
+    if label in TRAIN_LOSSES:
+        check(all(abs(a - b) <= 5e-7 for a, b in zip(losses,
+                                                      TRAIN_LOSSES[label])),
+              f"{label}: losses {losses}, not {TRAIN_LOSSES[label]} as "
+              "before")
     tokens = TRAIN_B * TRAIN_S
     warm = step_s[1:]
     print(json.dumps({label: dict(
@@ -1306,27 +1409,29 @@ def train_path(cfg, dev, label="train", padded_losses=None):
         })}))
     del state, step, batch, m
     torch.cuda.empty_cache()
-    plan = plans[max(plans)][0] if masked else None
+    plan = plans[max(plans)][0] if base_label(label) == "masked_train" \
+        else None
     return launches, losses, plan
 
 
-def masked_train_kernel_checks(cfg, peaks, dev, mm):
+def masked_train_kernel_checks(cfg, peaks, dev, mm, tag=""):
     """The four masked kernels at the shapes one full-width masked train
     step gives them (C = 256 rows an expert), on the dispatch layout of
     the masked train pass's own first plan: #7 GEMM-1, #5 GEMM-2, the h
     recompute and Dgrad-2 (w2 read transposed), #6 Dgrad-1 (w13 read
     transposed), #11 Wgrad-1 and Wgrad-2; each against its twin and its
-    padded kernel(s), timed beside them."""
+    padded kernel(s), timed beside them.  `tag` prefixes the rows'
+    shapes."""
     gen = torch.Generator(device=dev).manual_seed(4)
     D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     C = train_capacity(cfg)                                     # 256
     record = KernelRows(peaks)
-    print(json.dumps({"masked_plan": dict(path="train", call="step 1",
-                                          **live_stats(mm, C))}))
+    print(json.dumps({"masked_plan": dict(
+        path=f"{tag}train", call="step 1", **live_stats(mm, C))}))
     w13 = blockq(gen, dev, E, D, 2 * F)
-    check_masked_swiglu(record, "train_gemm1",
+    check_masked_swiglu(record, f"{tag}train_gemm1",
                         *dispatch_rows(gen, dev, mm, C, D), w13, mm)
-    check_masked_gemm(record, "train_h_recompute",
+    check_masked_gemm(record, f"{tag}train_h_recompute",
                       *dispatch_rows(gen, dev, mm, C, D), w13, mm)
     del w13
     for shape, K, N, w_trans, quant_out in (
@@ -1334,11 +1439,13 @@ def masked_train_kernel_checks(cfg, peaks, dev, mm):
             ("dgrad2", D, F, True, False),
             ("dgrad1", 2 * F, D, True, True)):
         qw = blockq(gen, dev, *((E, N, K) if w_trans else (E, K, N)))
-        check_masked_gemm(record, shape, *dispatch_rows(gen, dev, mm, C, K),
+        check_masked_gemm(record, f"{tag}{shape}",
+                          *dispatch_rows(gen, dev, mm, C, K),
                           qw, mm, w_trans=w_trans, quant_out=quant_out)
         del qw
     for shape, M, N in (("wgrad1", D, 2 * F), ("wgrad2", F, D)):
-        check_masked_nt(record, shape, *dispatch_cols(gen, dev, mm, M, C),
+        check_masked_nt(record, f"{tag}{shape}",
+                        *dispatch_cols(gen, dev, mm, M, C),
                         *dispatch_cols(gen, dev, mm, N, C), mm)
     torch.cuda.empty_cache()
     return record.rows
@@ -1390,6 +1497,135 @@ def linear_kernel_checks(cfg, peaks, dev, floor_ms):
 
 
 # ---------------------------------------------------------------------------
+# Phases 10-13: the configs with dense layers and shared experts.
+# ---------------------------------------------------------------------------
+# Depth cuts, at 16 bytes a parameter for training (bf16 weights and grads,
+# f32 AdamW moments and master weights) and, for serving, the bf16 tree
+# plus the W8 experts made from it (ArchConfig.n_params):
+# deepseek_v2_lite trains 1 dense + 3 MoE layers (2.27 G parameters, 36.3
+# GB of state) and serves all 27 (15.8 G: 31.6 GB bf16 + 14.4 GB W8);
+# deepseek_v3_671b serves its 3 dense layers + 1 MoE layer (15.4 G: 30.8
+# GB bf16 + 11.3 GB W8; a second MoE layer makes 54.0 + 22.6 GB); its
+# training needs the multi-GPU slice.  qwen15_05b runs whole (0.46 G).
+DSV2_TRAIN_LAYERS, DSV3_SERVE_LAYERS = 4, 4
+
+
+def arch_config(arch, n_layers=None):
+    """`arch` at full width, at full depth or cut to n_layers."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+# The largest expert stack a GEMM check takes whole (elements of w13): its
+# f32 twin holds 4 bytes an element.  deepseek_v3_671b's 256 routed
+# experts (7.5 G) are checked on 64 of them: each expert is its own tiles.
+GEMM_CHECK_ELEMS = 2**31
+
+
+def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms):
+    """Every kernel of `cfg`'s padded fp8_flow `path` at the shapes that
+    path gives it, each against its twin to its gate and timed as phases
+    2 and 5.  `path` is "train" (one step of TRAIN_B x TRAIN_S tokens),
+    "prefill" (a bucket-64 prefill) or "decode" (an 8-slot decode step).
+    The MLPs: the dense layers' and the shared experts' (E = 1 groups of
+    the tokens padded to 128 rows; decode runs them as bf16 products, no
+    kernel), and the routed experts at the path's capacity, C as
+    core/moe.py computes it.  For each: #3 GEMM-1 and GEMM-2 and #8; in
+    train also #1's dact quantize, #9 at its four operands, #10 Wgrad-1
+    and Wgrad-2 (contracting C = 2048 tokens at E = 1: past the two
+    cached b slots of csrc/grouped_gemm_nt_fp8.cu, which then turn over),
+    #3 Dgrad-2 and #4 Dgrad-1.  Then #1's entry quantize and, for routed
+    experts, #1's backward island and #2's layouts, as phases 2 and 5."""
+    from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    record = KernelRows(peaks, floor_ms)
+    D, train = cfg.d_model, path == "train"
+    T = {"train": TRAIN_B * TRAIN_S, "prefill": 64, "decode": 8}[path]
+    groups = []                                 # (kind, E, C, F)
+    if path != "decode":
+        if not cfg.moe or cfg.n_dense_layers:
+            groups.append(("dense", 1, _round_up(T, 128), cfg.d_ff))
+        if cfg.moe and cfg.n_shared_experts:
+            groups.append(("shared", 1, _round_up(T, 128),
+                           cfg.n_shared_experts * cfg.d_ff_expert))
+    if cfg.moe:
+        E, k = cfg.n_experts, cfg.top_k
+        C_send = _round_up(max(int(T * k * cfg.capacity_factor), 8), 8)
+        C = _round_up(max(int(2.0 * T * k / E), 8), 8) if path == "decode" \
+            else _round_up(max(C_send // E, 8), 128)
+        groups.append(("routed", E, C, cfg.d_ff_expert))
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def erowq(E, M, K, spread=0.0):
+        d, s = rowq(gen, dev, E * M, K, spread)
+        return d.reshape(E, M, K), s.reshape(E, M, K // 128)
+
+    # -- #1: the entry quantize of the tokens, padded to 128 rows for a
+    # dense MLP (dense_mlp pads first), as they are for the dispatch
+    for M in sorted({C for kind, _, C, _ in groups if kind != "routed"}
+                    | ({T} if cfg.moe else set())):
+        check_quantize(record, f"{tag} {path} q_entry", bf16(M, D))
+    for kind, E, C, F in groups:
+        name = f"{tag} {path} {kind}"
+        if kind == "routed":
+            # -- #2: the dispatch send and the expert grouping (decode:
+            # the gather of the slots' tokens), and in train the backward
+            # gather by the grouping's inverse map; #1's backward island
+            ids = torch.topk(torch.randn((T, E), generator=gen, device=dev),
+                             k, dim=-1).indices
+            if path == "decode":
+                rme, _ = _expert_plan(ids.reshape(-1), E, C)
+                maps = (("gather", T, torch.where(rme >= 0, rme // k, -1)),)
+            else:
+                rms, slot_e, _, _ = _dispatch_plan(ids, k, 1, E, C_send)
+                rme, ret = _expert_plan(slot_e, E, C)
+                maps = (("send", T, rms), ("group", C_send, rme)) + (
+                    (("bwd_inv_map", E * C, ret),) if train else ())
+            for what, M, row_map in maps:
+                check_permute(record, f"{name} {what}",
+                              *rowq(gen, dev, M, D), row_map)
+            if train:
+                check_quantize(record, f"{name} q_bwd_island",
+                               bf16(E * C, D))
+        check_swiglu(record, name, bf16(E * C, 2 * F))
+        if train:
+            check_quantize(record, f"{name} dact_quant", bf16(E * C, 2 * F))
+            for what, K in (("T(qx)", D), ("T(qa)", F), ("T(qg)", D),
+                            ("T(qgh)", 2 * F)):
+                d, s = erowq(E, C, K, spread=1.0)
+                check_transpose(record, f"{name} {what}", d, s,
+                                phases=what == "T(qa)" and E == 1)
+                del d, s
+            for what, M, N in (("wgrad1", D, 2 * F), ("wgrad2", F, D)):
+                check_nt(record, f"{name} {what}", *erowq(E, M, C),
+                         *erowq(E, N, C), phases=what == "wgrad1")
+                torch.cuda.empty_cache()
+        Eg = E
+        while Eg > 1 and Eg * D * 2 * F > GEMM_CHECK_ELEMS:
+            Eg //= 2
+        gemms = (("gemm1", D, 2 * F, False, False),
+                 ("gemm2", F, D, False, False))
+        if train:
+            gemms += (("dgrad2", D, F, True, False),
+                      ("dgrad1", 2 * F, D, True, True))
+        for what, K, N, w_trans, quant_out in gemms:
+            x, sx = erowq(Eg, C, K)
+            qw = blockq(gen, dev, *((Eg, N, K) if w_trans else (Eg, K, N)))
+            check_gemm(record, f"{name} {what}" + (
+                f" ({Eg} of {E} experts)" if Eg < E else ""), x, sx, qw,
+                w_trans=w_trans, quant_out=quant_out)
+            del x, sx, qw
+    torch.cuda.empty_cache()
+    return record.rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: one train step on the GPU path against the CPU path (reduced).
 # ---------------------------------------------------------------------------
 def named_leaves(tree, prefix=""):
@@ -1410,10 +1646,74 @@ def cosine(a, b):
 
 
 GRAD_COSINE_MIN = 0.999
-MOE_LEAVES = ("layers/we13", "layers/we2", "layers/w_router")
 
 
-def gpu_vs_cpu_train(dev, label="train"):
+def mlp_leaves(cfg):
+    """The leaves whose CPU gradient must be nonzero: the expert and
+    router weights, the dense layers' and the shared experts' MLP, or a
+    dense model's MLP."""
+    if not cfg.moe:
+        return ["layers/w13", "layers/w2"]
+    return (["layers/we13", "layers/we2", "layers/w_router"]
+            + (["layers/ws13", "layers/ws2"] if cfg.n_shared_experts else [])
+            + (["dense_layers/w13", "dense_layers/w2"]
+               if cfg.n_dense_layers else []))
+
+
+# The largest router gap (top_k-th minus next probability) at which a
+# token may go to other experts on the two devices: their bf16 products
+# round apart, and a few of 512 tokens sit that close to a tie (the CPU
+# tests' ROUTE_TIE, tests/test_torch_arch_train.py).
+ROUTE_TIE = 1e-3
+
+
+@contextlib.contextmanager
+def routed(ids_by_call=None):
+    """Records each router call's expert ids and its gaps (top_k-th minus
+    next probability) on the host; with ids_by_call, each call routes to
+    the given ids (in call order) instead of its own top-k.  The port's
+    own router runs (core/moe.py::router_topk): only its torch.topk is
+    replaced, for the call's length, by a gather of the given ids."""
+    from repro_torch.core import moe
+    orig, topk, calls = moe.router_topk, torch.topk, []
+    forced = None if ids_by_call is None else iter(ids_by_call)
+
+    def router_topk(x, w_router, top_k):
+        if forced is None:
+            p, ids, aux = orig(x, w_router, top_k)
+        else:
+            want = next(forced).to(x.device)
+            torch.topk = lambda probs, k, dim=-1: (
+                probs.gather(-1, want), want)
+            try:
+                p, ids, aux = orig(x, w_router, top_k)
+            finally:
+                torch.topk = topk
+        probs = torch.softmax(x.detach().float() @ w_router.detach().float(),
+                              dim=-1)
+        top = topk(probs, top_k + 1, dim=-1).values
+        calls.append((ids.detach().cpu(),
+                      (top[:, top_k - 1] - top[:, top_k]).cpu()))
+        return p, ids, aux
+
+    moe.router_topk = router_topk
+    try:
+        yield calls
+    finally:
+        moe.router_topk = orig
+
+
+def moved_tokens(calls, ref_calls):
+    """The gaps (on `calls`' side) of the tokens that `calls` routed to
+    other experts than `ref_calls` did."""
+    gaps = []
+    for (ids, gap), (ref, _) in zip(calls, ref_calls):
+        moved = (ids.sort(-1).values != ref.sort(-1).values).any(-1)
+        gaps += gap[moved].tolist()
+    return gaps
+
+
+def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
     """From the same params and batch on the card and on the CPU: every
     leaf's gradient (the expert weights' through the hand-written FP8
     backward), then two train steps, the second's loss depending on the
@@ -1421,7 +1721,11 @@ def gpu_vs_cpu_train(dev, label="train"):
     128-row block holds padding rows, and the scaling-aware transpose then
     flushes all of Wgrad-1 to zero on both paths (a fault the port keeps
     from the reference; ROADMAP.md, Queue 3), so the comparison could not
-    see it.  The MoE leaves' CPU gradients must be nonzero."""
+    see it.  The expert, router, dense and shared MLP leaves' CPU
+    gradients must be nonzero.  A token the card routes to other experts
+    than the CPU must sit at a router near-tie (ROUTE_TIE); when one
+    does, the gradients are compared on a third run, the card routed as
+    the CPU routed (the unrouted cosines are printed beside them)."""
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, make_batch_np
     from repro_torch.models.lm import forward, init_params
@@ -1430,50 +1734,70 @@ def gpu_vs_cpu_train(dev, label="train"):
                                               make_train_step)
     from repro_torch.weights import params_to
 
-    cfg = get_arch("qwen3_moe_235b").reduced()
+    cfg = get_arch(arch).reduced()
     recipe = recipe_for(label)
     opt = AdamWConfig(lr=1e-3)
     batch_np = make_batch_np(DataConfig(vocab=cfg.vocab, seq_len=64,
                                         global_batch=8), 0)
-    out, grads = {}, {}
-    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        # the same random params on both paths (a fresh CPU draw each)
+    out, grads, calls = {}, {}, {}
+
+    def grads_of(name, d, route=None):
+        """A fresh state on d (the same CPU draw each time), its gradients
+        by leaf (routed by `route`'s ids if given), and the state."""
         state = init_train_state(cfg, opt, device=d, params=params_to(
             init_params(cfg, seed=0, device="cpu"), d))
-        step = make_train_step(cfg, recipe, opt, total_steps=10,
-                               warmup_steps=1)
         batch = {k: torch.from_numpy(v).to(d) for k, v in batch_np.items()}
-        loss, _ = forward(cfg, recipe, state["params"], batch)
-        loss.backward()
+        with routed(route) as calls[name]:
+            loss, _ = forward(cfg, recipe, state["params"], batch)
+            loss.backward()
         grads[name] = {path: p.grad.float().cpu()
                        for path, p in named_leaves(state["params"])}
         for _, p in named_leaves(state["params"]):
             p.grad = None
+        return state, batch
+
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        state, batch = grads_of(name, d)
+        step = make_train_step(cfg, recipe, opt, total_steps=10,
+                               warmup_steps=1)
         state, m1 = step(state, batch)
         state, m2 = step(state, batch)
         out[name] = (float(m1["loss"]), float(m1["grad_norm"]),
                      float(m2["loss"]))
-        del state, step
+        del state, step, batch
     (lg, gg, lg2), (lc, gc, lc2) = out["cuda"], out["cpu"]
     rel_loss, rel_gn = abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc)
     rel_loss2 = abs(lg2 - lc2) / abs(lc2)
-    cos = {path: cosine(grads["cuda"][path], grads["cpu"][path])
-           for path in grads["cpu"]}
+    moved = moved_tokens(calls["cuda"], calls["cpu"])
+    unrouted = {path: cosine(grads["cuda"][path], grads["cpu"][path])
+                for path in grads["cpu"]}
+    cos = unrouted
+    if moved:
+        grads_of("cuda_routed", dev, [ids for ids, _ in calls["cpu"]])
+        cos = {path: cosine(grads["cuda_routed"][path], grads["cpu"][path])
+               for path in grads["cpu"]}
     print(json.dumps({"gpu_vs_cpu_train": dict(
-        config="qwen3_moe_235b.reduced()", path=label, loss=[lg, lc],
+        config=f"{arch}.reduced()", path=label, loss=[lg, lc],
         grad_norm=[gg, gc], rel_loss=rel_loss, rel_grad_norm=rel_gn,
         step2_loss=[lg2, lc2], rel_step2_loss=rel_loss2,
-        grad_cosine=cos)}))
+        tokens_routed_apart=len(moved), their_router_gaps=moved,
+        grad_cosine=cos,
+        **({"grad_cosine_unrouted": unrouted} if moved else {}))}))
     check(np.isfinite([lg, lc, gg, gc, lg2, lc2]).all(),
           "a non-finite train step")
     check(rel_loss <= 1e-3, f"GPU vs CPU train loss rel diff {rel_loss}")
     check(rel_gn <= 1e-2, f"GPU vs CPU grad norm rel diff {rel_gn}")
     check(rel_loss2 <= 1e-3,
           f"GPU vs CPU second-step loss rel diff {rel_loss2}")
-    check(set(MOE_LEAVES) <= set(cos),
-          f"the expert and router leaves are missing: {sorted(cos)}")
-    check(all(grads["cpu"][p].abs().max().item() > 0 for p in MOE_LEAVES),
-          "a MoE leaf's gradient is zero on the CPU path")
+    check(all(g < ROUTE_TIE for g in moved),
+          f"a token routed apart away from a router near-tie: {moved}")
+    need = mlp_leaves(cfg)
+    check(set(need) <= set(cos),
+          f"the MLP, expert or router leaves {need} are missing: "
+          f"{sorted(cos)}")
+    check(all(grads["cpu"][p].abs().max().item() > 0 for p in need),
+          f"an MLP, expert or router leaf's gradient is zero on the CPU "
+          f"path: {need}")
     low = {p: c for p, c in cos.items() if not c >= GRAD_COSINE_MIN}
     check(not low, f"GPU vs CPU gradient cosine < {GRAD_COSINE_MIN}: {low}")
 
@@ -1536,6 +1860,45 @@ def main() -> int:
     for label in ("train", "masked_train", "bf16_train", "blockwise_train",
                   "naive_train"):
         gpu_vs_cpu_train(dev, label)
+
+    # the configs with dense layers and shared experts (phases 10-13),
+    # each path's kernels checked at the shapes it gives them
+    dcfg = arch_config("deepseek_v2_lite")
+    launches["dsv2_serve"], tokens, _ = serve_path(dcfg, dev, "dsv2_serve")
+    launches["dsv2_masked_serve"], _, plans = serve_path(
+        dcfg, dev, "dsv2_masked_serve", padded_tokens=tokens)
+    add_rows(timings, masked_serve_kernel_checks(dcfg, PEAKS, dev, plans,
+                                                 "dsv2 "))
+    qcfg = arch_config("qwen15_05b")
+    launches["qwen15_serve"], _, _ = serve_path(qcfg, dev, "qwen15_serve")
+    v3cfg = arch_config("deepseek_v3_671b", DSV3_SERVE_LAYERS)
+    launches["dsv3_serve"], _, _ = serve_path(v3cfg, dev, "dsv3_serve")
+    for tag, c, path in (("dsv2", dcfg, "prefill"), ("dsv2", dcfg, "decode"),
+                         ("qwen15", qcfg, "prefill"),
+                         ("dsv3", v3cfg, "prefill"),
+                         ("dsv3", v3cfg, "decode")):
+        add_rows(timings, arch_kernel_checks(c, tag, path, PEAKS, dev,
+                                             floor_ms))
+    dcfg = arch_config("deepseek_v2_lite", DSV2_TRAIN_LAYERS)
+    for tag, c in (("dsv2", dcfg), ("qwen15", qcfg)):
+        add_rows(timings, arch_kernel_checks(c, tag, "train", PEAKS, dev,
+                                             floor_ms))
+    launches["dsv2_train"], losses, _ = train_path(dcfg, dev, "dsv2_train")
+    launches["dsv2_masked_train"], _, plan = train_path(
+        dcfg, dev, "dsv2_masked_train", padded_losses=losses)
+    add_rows(timings, masked_train_kernel_checks(dcfg, PEAKS, dev, plan,
+                                                 "dsv2 "))
+    for label in ("dsv2_bf16_train", "dsv2_blockwise_train",
+                  "dsv2_naive_train"):
+        launches[label], _, _ = train_path(dcfg, dev, label)
+    launches["qwen15_train"], _, _ = train_path(qcfg, dev, "qwen15_train")
+    for arch in ARCH_TAGS.values():
+        gpu_vs_cpu(dev, "serve", arch)
+    for arch in ("deepseek_v2_lite", "qwen15_05b"):
+        for label in ("train", "masked_train", "bf16_train",
+                      "blockwise_train", "naive_train"):
+            gpu_vs_cpu_train(dev, label, arch)
+    gpu_vs_cpu_train(dev, "train", "deepseek_v3_671b")
 
     from repro_torch.kernels import (fp8_transpose, fused_permute_pad,
                                      fused_swiglu_quant, grouped_gemm_fp8,

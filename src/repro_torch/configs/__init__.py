@@ -1,12 +1,15 @@
 """Architecture registry (a copy of ``repro.configs``' registry).
 
-Only the architectures the port can serve are registered; the others join
-as their layer kinds are ported (ROADMAP.md, Queue 1, item 2).
+Only the architectures the port can serve and train are registered: the
+all-MoE qwen3_moe_235b, the dense qwen15_05b, and the two DeepSeek models
+with a dense prologue and shared experts.  The others join as their layer
+kinds are ported (ROADMAP.md, Queue 1, item 2).
 """
 from repro_torch.configs.base import (ArchConfig, SHAPES, ShapeSpec,
                                       applicable_shapes)
 
-ARCH_IDS = ["qwen3_moe_235b"]
+ARCH_IDS = ["qwen15_05b", "qwen3_moe_235b", "deepseek_v2_lite",
+            "deepseek_v3_671b"]
 
 __all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeSpec",
            "applicable_shapes", "get_arch"]

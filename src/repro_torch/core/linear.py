@@ -469,3 +469,27 @@ def dequantize_exit(recipe: Recipe, q: QTensor) -> torch.Tensor:
     rounded to bf16 first, as there).  Backward: the bf16 gradient
     quantized row-wise with the recipe's scales (``q_bwd_dispatch``)."""
     return _DequantizeExit.apply(recipe, q.data, q.scale)
+
+
+def dense_mlp(recipe: Recipe, act: str, x: torch.Tensor, w13, w2):
+    """The dense-architecture MLP (a dense layer's, or the shared
+    experts'): the recipe's expert FFN as one group, with no dispatch.
+
+    x (T, D); w13 (D, g*F); w2 (F, D).  T and D are zero-padded to the
+    128-tile alignment the FP8 pathway needs (zero rows and columns add
+    nothing to outputs or gradients) and the result is sliced back.
+    fp8_flow quantizes once at the entry and stays FP8 end to end; the
+    baselines run their FFN on the bf16 input.  No ``masked_m``: every
+    recipe takes the padded kernels here.  The reference's guard-stats
+    hook on the entry (``record_entry_stats("q_entry_mlp")``) is not
+    ported (core/quant.py)."""
+    T, D = x.shape
+    Tp, Dp = -(-T // TILE) * TILE, -(-D // TILE) * TILE
+    if Tp != T or Dp != D:
+        x = torch.nn.functional.pad(x, (0, Dp - D, 0, Tp - T))
+        w13 = torch.nn.functional.pad(w13, (0, 0, 0, Dp - D))
+        w2 = torch.nn.functional.pad(w2, (0, Dp - D))
+    x3 = x.reshape(1, Tp, Dp)
+    x_in = quantize_entry(recipe, x3) if recipe.name == "fp8_flow" \
+        else x3.to(torch.bfloat16)
+    return expert_ffn(recipe, act, x_in, w13[None], w2[None])[0, :T, :D]

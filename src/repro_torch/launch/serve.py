@@ -7,8 +7,11 @@ W8-resident expert weights, on one device.
 
 The flags are the reference launcher's (``repro.launch.serve``) plus
 ``--device``.  The prefix cache, disaggregation and telemetry flags are
-accepted and raise until those slices are ported.  Without ``--reduced``
-the full 94-layer config is built, which one card cannot hold.
+accepted and raise until those slices are ported.  ``--arch`` takes
+every ported config (``repro_torch.configs.ARCH_IDS``).  Without
+``--reduced`` the full config is built: one card holds qwen15_05b and
+deepseek_v2_lite whole (W8 experts), not qwen3_moe_235b or
+deepseek_v3_671b.
 """
 import argparse
 import time

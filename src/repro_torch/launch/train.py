@@ -1,6 +1,6 @@
 """Training launcher: the train step of any recipe on one device.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_moe_235b \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v2_lite \\
       --reduced --device cuda [--recipe {bf16,blockwise,naive_fp8,fp8_flow}] \\
       [--steps 20] [--seq-len 256] [--global-batch 8]
 
@@ -8,9 +8,12 @@ The flags are the reference launcher's (``repro.launch.train``) that the
 single-device port runs, plus ``--device`` (``cuda``: the hand-written
 kernels; ``cpu``: their plain twins).  Checkpointing, the DP wire,
 guardrails, rematerialization policies, gradient accumulation and
-telemetry are not ported yet (ROADMAP.md, Queue 1, items 6-9).  Without
-``--reduced`` the full 94-layer config is built, which one card cannot
-hold.
+telemetry are not ported yet (ROADMAP.md, Queue 1, items 6-9).
+``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``);
+the default is the paper's convergence model, deepseek_v2_lite, as in the
+reference.  Without ``--reduced`` the full config is built: of these,
+one card trains only qwen15_05b at full depth (AdamW holds 16 bytes a
+parameter).
 """
 import argparse
 import time
@@ -24,7 +27,7 @@ from repro_torch.train.train_step import init_train_state, make_train_step
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3_moe_235b")
+    ap.add_argument("--arch", default="deepseek_v2_lite")
     ap.add_argument("--recipe", default="fp8_flow", choices=RECIPES)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=256)

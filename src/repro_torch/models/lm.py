@@ -1,13 +1,19 @@
-"""Decoder LM: parameters, embedding, logits, the MoE stage, the training
-forward with its loss, and the paged prefill / decode stacks.
+"""Decoder LM: parameters, embedding, logits, the MLP and MoE stages, the
+training forward with its loss, and the paged prefill / decode stacks.
 
-Counterpart of ``repro.models.lm`` for attention-only decoders whose every
-layer is an MoE layer (qwen3_moe).  Parameters keep the reference's
-stacked layout (``params["layers"][name]`` is (L, ...)), so
-``repro_torch.weights.params_from_numpy`` carries the reference's trees
-across unchanged; the stack runs as a Python loop over layer slices.
-Architectures with dense layers or shared experts raise until the dense
-MLP is ported (ROADMAP.md, Queue 1, item 2).
+Counterpart of ``repro.models.lm`` for attention-only decoders: dense
+(qwen15_05b), all-MoE (qwen3_moe) and MoE behind a dense prologue with
+shared experts (DeepSeek).  Parameters keep the reference's stacked
+layout (``params["layers"][name]`` is (L, ...), the dense prologue's in
+``params["dense_layers"]``), so ``repro_torch.weights.params_from_numpy``
+carries the reference's trees across unchanged; each stack runs as a
+Python loop over layer slices.  SSM, hybrid, encoder-decoder and frontend
+architectures raise (ROADMAP.md, Queue 1, item 2).
+
+Dense MLPs and shared experts run ``core.linear.dense_mlp`` (the expert
+FFN as one group, so the recipe's FP8 pathway and kernels) in training
+and prefill, and ``_mlp_decode`` (bf16 products, f32 SwiGLU) in decode:
+the reference engine's route (its mesh branch, ``lm.py:480-482``).
 
 Pools are updated IN PLACE (the reference returns new pools from a pure
 function): a page write is an indexed store into the pool tensors.
@@ -17,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.linear import _bf16_matmul, _check_act, dense_mlp
 from repro_torch.core.moe import MoEConfig, moe_block, moe_block_decode
 from repro_torch.core.quant import QTensor
 from repro_torch.core.recipes import Recipe
@@ -33,69 +40,87 @@ def layer_kinds(cfg: ArchConfig):
 
 
 def _paged_stacks(cfg: ArchConfig):
+    """(kinds, nd): every layer's kind and the dense prologue's depth, for
+    an attention-only decoder; other architectures raise."""
     kinds = layer_kinds(cfg)
     if cfg.encdec or cfg.frontend != "none" or any(
             k in ("ssm", "hybrid") for k in kinds):
         raise NotImplementedError(
-            "paged serving supports attention-only decoder stacks")
-    if not cfg.moe or cfg.n_dense_layers or cfg.n_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: dense layers and shared experts are not ported yet "
+            f"{cfg.name}: only attention-only decoder stacks are ported "
             "(ROADMAP.md, Queue 1, item 2)")
-    return kinds
+    return kinds, (cfg.n_dense_layers if cfg.moe else 0)
 
 
 # ---------------------------------------------------------------------------
 # Parameters: the reference's shapes, dtypes and init scales, drawn from a
 # torch.Generator (so different numbers than jax.random from the same seed).
 # ---------------------------------------------------------------------------
-def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
-                device="cuda"):
-    dev = resolve_device(device)
-    _paged_stacks(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def normal(shape, scale, dt):
-        return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=dev) * scale).to(dt)
-
+def _stack_params(cfg: ArchConfig, n: int, moe_layer: bool, normal, dtype,
+                  dev):
+    """A stack of n layers' parameters (the reference's ``_layer_params``,
+    stacked): MoE layers carry the router, the experts and the shared
+    experts, dense layers the MLP.  normal(shape, scale) is an f32 draw."""
     def stacked(shape, scale, dt):
         # one layer at a time keeps the f32 draw to a single layer's size
-        out = torch.empty((cfg.n_layers, *shape), dtype=dt, device=dev)
-        for i in range(cfg.n_layers):
-            out[i] = normal(shape, scale, dt)
+        # (30 GB for a deepseek_v3_671b expert stack), rounded into place
+        out = torch.empty((n, *shape), dtype=dt, device=dev)
+        for i in range(n):
+            out[i].copy_(normal(shape, scale))
         return out
 
     def zeros(shape):
-        return torch.zeros((cfg.n_layers, *shape), dtype=torch.float32,
-                           device=dev)
+        return torch.zeros((n, *shape), dtype=torch.float32, device=dev)
 
-    L, D, H, KV, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, \
-        cfg.head_dim
-    Vp, E, Fe, g = cfg.vocab_padded, cfg.n_experts, cfg.d_ff_expert, \
-        cfg.gate_factor
-    sc, sc_out = 0.02, 0.02 / L ** 0.5
-    params = {
-        "embed": normal((Vp, D), 0.02, dtype),
-        "final_norm_s": torch.zeros((D,), dtype=torch.float32, device=dev),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = normal((D, Vp), 0.02, dtype)
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    E, Fe, g = cfg.n_experts, cfg.d_ff_expert, cfg.gate_factor
+    sc, sc_out = 0.02, 0.02 / cfg.n_layers ** 0.5
     layers = {"ln1_s": zeros((D,)), "ln2_s": zeros((D,)),
               "wq": stacked((D, H * hd), sc, dtype),
               "wk": stacked((D, KV * hd), sc, dtype),
               "wv": stacked((D, KV * hd), sc, dtype),
               "wo": stacked((H * hd, D), sc_out, dtype)}
     if cfg.qkv_bias:
-        for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
-            layers[name] = zeros((n,))
+        for name, m in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            layers[name] = zeros((m,))
     if cfg.qk_norm:
         layers["q_norm"] = zeros((hd,))
         layers["k_norm"] = zeros((hd,))
-    layers["w_router"] = stacked((D, E), sc, torch.float32)
-    layers["we13"] = stacked((E, D, g, Fe), sc, dtype)
-    layers["we2"] = stacked((E, Fe, D), sc_out, dtype)
-    params["layers"] = layers
+    if moe_layer:
+        layers["w_router"] = stacked((D, E), sc, torch.float32)
+        layers["we13"] = stacked((E, D, g, Fe), sc, dtype)
+        layers["we2"] = stacked((E, Fe, D), sc_out, dtype)
+        if cfg.n_shared_experts:
+            Fs = cfg.n_shared_experts * Fe
+            layers["ws13"] = stacked((D, g, Fs), sc, dtype)
+            layers["ws2"] = stacked((Fs, D), sc_out, dtype)
+    elif cfg.d_ff:
+        layers["w13"] = stacked((D, g, cfg.d_ff), sc, dtype)
+        layers["w2"] = stacked((cfg.d_ff, D), sc_out, dtype)
+    return layers
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
+                device="cuda"):
+    dev = resolve_device(device)
+    _, nd = _paged_stacks(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=dev).mul_(scale)
+
+    D, Vp = cfg.d_model, cfg.vocab_padded
+    params = {
+        "embed": normal((Vp, D), 0.02).to(dtype),
+        "final_norm_s": torch.zeros((D,), dtype=torch.float32, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((D, Vp), 0.02).to(dtype)
+    if nd:
+        params["dense_layers"] = _stack_params(cfg, nd, False, normal, dtype,
+                                               dev)
+    params["layers"] = _stack_params(cfg, cfg.n_layers - nd, cfg.moe, normal,
+                                     dtype, dev)
     return params
 
 
@@ -111,7 +136,7 @@ def layer_slice(stack_params, i: int):
 
 
 # ---------------------------------------------------------------------------
-# Embedding, logits, MoE stage.
+# Embedding, logits, the MLP and MoE stages.
 # ---------------------------------------------------------------------------
 def _embed_tokens(cfg, params, tokens):
     return params["embed"][tokens]
@@ -130,9 +155,35 @@ def _lm_logits(cfg, params, x):
     return logits
 
 
+def _mlp_stage(cfg, recipe: Recipe, p, x):
+    """Dense MLP (a dense layer's, or the shared experts' with p = {w13:
+    ws13, w2: ws2}) on x (B, S, D): ``dense_mlp``, the reference's
+    no-mesh branch (its mesh branch computes the same at one device)."""
+    B, S, D = x.shape
+    w13 = p["w13"]
+    g, F = w13.shape[-2:]
+    y = dense_mlp(recipe, cfg.act, x.reshape(B * S, D),
+                  w13.reshape(D, g * F), p["w2"])
+    return y.reshape(B, S, D)
+
+
+def _mlp_decode(cfg, p, x):
+    """Forward-only dense MLP of decode: bf16 products (f32 sums rounded
+    once, as XLA's; cuBLAS on the card) around an f32 SwiGLU."""
+    _check_act(cfg.act)
+    B, S, D = x.shape
+    w13 = p["w13"]                                    # (D, 2, F)
+    F = w13.shape[-1]
+    h = _bf16_matmul(x, w13.reshape(D, 2 * F).to(x.dtype)).to(torch.float32)
+    a = torch.nn.functional.silu(h[..., :F]) * h[..., F:]
+    return _bf16_matmul(a.to(x.dtype), p["w2"].to(x.dtype))
+
+
 def _moe_stage(cfg, recipe: Recipe, p, x, decode=False):
     """x (B, S, D) -> (B, S, D), aux loss.  Prefill runs ``moe_block``,
-    decode ``moe_block_decode`` (the reference's EP/decode modes at EP=1)."""
+    decode ``moe_block_decode`` (the reference's EP/decode modes at EP=1);
+    the shared experts add their MLP after the routed block, through
+    ``_mlp_stage`` or, in decode, ``_mlp_decode``."""
     B, S, D = x.shape
     mcfg = MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k, d_model=D,
                      d_ff=cfg.d_ff_expert, capacity_factor=cfg.capacity_factor,
@@ -145,7 +196,12 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False):
         we13 = we13.reshape(E, Dl, g * F)
     block = moe_block_decode if decode else moe_block
     y, m = block(recipe, mcfg, x.reshape(B * S, D), p["w_router"], we13, we2)
-    return y.reshape(B, S, D), m["aux_loss"]
+    y = y.reshape(B, S, D)
+    if cfg.n_shared_experts:
+        shared = {"w13": p["ws13"], "w2": p["ws2"]}
+        y = y + (_mlp_decode(cfg, shared, x) if decode
+                 else _mlp_stage(cfg, recipe, shared, x))
+    return y, m["aux_loss"]
 
 
 # ---------------------------------------------------------------------------
@@ -154,29 +210,16 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False):
 AUX_LOSS_COEF = 0.01
 
 
-class _LayerSlice(torch.autograd.Function):
-    """leaf[i] of a stacked (L, ...) parameter.  Plain indexing would give
-    the stacked leaf a full-size zero gradient per layer; a one-layer stack
-    takes its layer's gradient as it comes (a view, no copy), which at full
-    width saves a 3.2 GB transient on w13."""
-
-    @staticmethod
-    def forward(ctx, leaf, i):
-        ctx.i, ctx.shape = i, leaf.shape
-        return leaf[i]
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.shape[0] == 1:
-            return g.unsqueeze(0), None
-        full = g.new_zeros(ctx.shape)
-        full[ctx.i] = g
-        return full, None
-
-
-def _train_layer_slice(stack_params, i: int):
-    return {name: _LayerSlice.apply(leaf, i)
-            for name, leaf in stack_params.items()}
+def _train_layer_slices(stack_params, n: int):
+    """Each layer's parameters of a stacked (n, ...) tree, for autograd.
+    A one-layer stack's leaf is squeezed: its gradient is the layer's, a
+    view (at full width a copy of w13's would be a 3.2 GB transient).
+    Deeper stacks unbind, whose backward stacks the layers' gradients
+    once; indexing would give the stacked leaf a full-size zero gradient
+    per layer."""
+    per_leaf = {name: ((leaf.squeeze(0),) if n == 1 else leaf.unbind(0))
+                for name, leaf in stack_params.items()}
+    return [{name: v[i] for name, v in per_leaf.items()} for i in range(n)]
 
 
 def stage_ln_attn(cfg, p, x, positions, window: int):
@@ -191,23 +234,30 @@ def stage_ln_attn(cfg, p, x, positions, window: int):
     return x + o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
-def _sub_layer(cfg, recipe, kind, p, x, positions):
-    """One decoder layer: attention, then the MoE stage.  Returns (x, aux)."""
+def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions):
+    """One decoder layer: attention, then the MoE stage or the dense MLP.
+    Returns (x, aux), aux None for a dense layer."""
     x = stage_ln_attn(cfg, p, x, positions,
                       cfg.window if kind == "local" else 0)
-    mo, aux = _moe_stage(cfg, recipe, p, apply_norm(cfg.norm, x, p, "ln2"))
-    return x + mo, aux
+    h2 = apply_norm(cfg.norm, x, p, "ln2")
+    if moe_layer:
+        mo, aux = _moe_stage(cfg, recipe, p, h2)
+        return x + mo, aux
+    return x + _mlp_stage(cfg, recipe, p, h2), None
 
 
-def _run_stack(cfg, recipe, stack_params, pattern, n_layers, x, positions):
-    """The reference's scanned stack as a Python loop over layer slices."""
+def _run_stack(cfg, recipe, stack_params, pattern, n_layers, moe, x,
+               positions):
+    """The reference's scanned stack as a Python loop over layer slices;
+    returns (x, the summed aux losses)."""
     if n_layers % len(pattern):
         pattern = (pattern[0],)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_layers):
-        x, a = _sub_layer(cfg, recipe, pattern[i % len(pattern)],
-                          _train_layer_slice(stack_params, i), x, positions)
-        aux = aux + a
+    for i, p in enumerate(_train_layer_slices(stack_params, n_layers)):
+        x, a = _sub_layer(cfg, recipe, pattern[i % len(pattern)], moe, p, x,
+                          positions)
+        if a is not None:
+            aux = aux + a
     return x, aux
 
 
@@ -258,15 +308,21 @@ def xent(logits, targets, mask):
 def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
             compute_loss: bool = True):
     """batch: {'tokens' (B, S) int, 'targets' (B, S), optional 'mask'
-    (B, S)}.  Returns (loss, metrics) or, with compute_loss=False,
-    (logits, metrics)."""
-    _paged_stacks(cfg)
+    (B, S)}.  Runs the dense prologue, then the main stack.  Returns
+    (loss, metrics) or, with compute_loss=False, (logits, metrics)."""
+    _, nd = _paged_stacks(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    x, aux = _run_stack(cfg, recipe, params["layers"], cfg.pattern,
-                        cfg.n_layers, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if nd:
+        x, a = _run_stack(cfg, recipe, params["dense_layers"],
+                          (cfg.pattern[0],), nd, False, x, positions)
+        aux = aux + a
+    x, a = _run_stack(cfg, recipe, params["layers"], cfg.pattern,
+                      cfg.n_layers - nd, cfg.moe, x, positions)
+    aux = aux + a
     logits = _lm_logits(cfg, params, _final_norm(cfg, params, x))
     metrics = {"aux_loss": aux}
     if not compute_loss:
@@ -283,7 +339,7 @@ def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
 # ---------------------------------------------------------------------------
 # Paged serving.
 # ---------------------------------------------------------------------------
-def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, x, pool,
+def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, moe, x, pool,
                      positions, page_idx, slot_idx, *, decode,
                      page_tables=None, pos=None, history=False):
     """Run a layer stack against its paged K/V pools (updated in place).
@@ -291,7 +347,9 @@ def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, x, pool,
     decode=True reads the paged history through `page_tables` and masks by
     per-request `pos`; decode=False runs causal flash attention over the
     in-flight chunk, and with history=True (a chunked-prefill continuation)
-    over the request's pages read back after this chunk's rows are written."""
+    over the request's pages read back after this chunk's rows are written.
+    A dense stack (moe=False) runs ``_mlp_stage`` in prefill and
+    ``_mlp_decode`` in decode."""
     for i, kind in enumerate(stack_kinds):
         pi = layer_slice(stack_params, i)
         kc = {name: t[i] for name, t in pool["k"].items()}
@@ -323,9 +381,27 @@ def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, x, pool,
         B, S = x.shape[:2]
         x = x + o.reshape(B, S, -1) @ pi["wo"].to(x.dtype)
         h2 = apply_norm(cfg.norm, x, pi, "ln2")
-        mo, _ = _moe_stage(cfg, recipe, pi, h2, decode=decode)
+        if moe:
+            mo, _ = _moe_stage(cfg, recipe, pi, h2, decode=decode)
+        else:
+            mo = _mlp_decode(cfg, pi, h2) if decode \
+                else _mlp_stage(cfg, recipe, pi, h2)
         x = x + mo
     return x
+
+
+def _run_paged_stacks(cfg, recipe, params, pools, x, positions, page_idx,
+                      slot_idx, **kw):
+    """The dense prologue's stack against ``dense_attn``, then the main
+    stack against ``main_attn``."""
+    kinds, nd = _paged_stacks(cfg)
+    if nd:
+        x = _run_paged_stack(cfg, recipe, params["dense_layers"], kinds[:nd],
+                             False, x, pools["dense_attn"], positions,
+                             page_idx, slot_idx, **kw)
+    return _run_paged_stack(cfg, recipe, params["layers"], kinds[nd:],
+                            cfg.moe, x, pools["main_attn"], positions,
+                            page_idx, slot_idx, **kw)
 
 
 def _final_norm(cfg, params, x):
@@ -341,7 +417,6 @@ def paged_decode_step(cfg: ArchConfig, recipe: Recipe, params, pools,
     tokens (B, 1) int; pos (B,) per-request positions of this token; active
     (B,) bool (inactive slots write to the scratch page; their outputs are
     garbage); page_tables (B, max_pages).  Returns logits (B, 1, V)."""
-    kinds = _paged_stacks(cfg)
     x = _embed_tokens(cfg, params, tokens)
     B = x.shape[0]
     pos = pos.to(torch.int64)
@@ -349,9 +424,9 @@ def paged_decode_step(cfg: ArchConfig, recipe: Recipe, params, pools,
     rows = torch.arange(B, device=x.device)
     page_idx = torch.where(active, page_tables[rows, pos // ps].to(torch.int64),
                            SCRATCH_PAGE)
-    x = _run_paged_stack(cfg, recipe, params["layers"], kinds, x,
-                         pools["main_attn"], pos[:, None], page_idx, pos % ps,
-                         decode=True, page_tables=page_tables, pos=pos)
+    x = _run_paged_stacks(cfg, recipe, params, pools, x, pos[:, None],
+                          page_idx, pos % ps, decode=True,
+                          page_tables=page_tables, pos=pos)
     return _lm_logits(cfg, params, _final_norm(cfg, params, x))
 
 
@@ -364,7 +439,6 @@ def paged_prefill(cfg: ArchConfig, recipe: Recipe, params, pools,
     this chunk at absolute offset `start`; rows >= length land on the
     scratch page.  history=True attends to the rows [0, start) already in
     the pages.  Returns logits (1, 1, V) at position start + length - 1."""
-    kinds = _paged_stacks(cfg)
     x = _embed_tokens(cfg, params, tokens)
     S = x.shape[1]
     rel = torch.arange(S, device=x.device)
@@ -375,10 +449,9 @@ def paged_prefill(cfg: ArchConfig, recipe: Recipe, params, pools,
     # scratch page); clamp them as jax indexing would
     pages = page_table_row[torch.clamp(positions // ps, max=mp - 1)]
     page_idx = torch.where(rel < length, pages.to(torch.int64), SCRATCH_PAGE)
-    x = _run_paged_stack(cfg, recipe, params["layers"], kinds, x,
-                         pools["main_attn"], positions, page_idx,
-                         positions % ps, decode=False,
-                         page_tables=page_table_row[None], history=history)
+    x = _run_paged_stacks(cfg, recipe, params, pools, x, positions,
+                          page_idx, positions % ps, decode=False,
+                          page_tables=page_table_row[None], history=history)
     x = _final_norm(cfg, params, x)
     last = min(max(int(length) - 1, 0), S - 1)
     return _lm_logits(cfg, params, x[:, last:last + 1])

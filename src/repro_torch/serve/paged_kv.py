@@ -93,12 +93,20 @@ def init_pool(n_layers: int, n_pages: int, page_size: int, n_kv: int,
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, fp8_kv: bool = True,
                      device="cuda"):
-    """Paged pools for the attention stack of an all-MoE decoder."""
+    """Paged pools for an attention-only decoder: ``main_attn`` over the
+    main stack's layers and, with a dense prologue, ``dense_attn`` over
+    its layers (one page id addresses the same rows in both)."""
     from repro_torch.models.lm import _paged_stacks
-    _paged_stacks(cfg)
-    return {"main_attn": {
-        kv: init_pool(cfg.n_layers, n_pages, page_size, cfg.n_kv,
-                      cfg.head_dim, fp8_kv, device) for kv in ("k", "v")}}
+    _, nd = _paged_stacks(cfg)
+
+    def stack(n):
+        return {kv: init_pool(n, n_pages, page_size, cfg.n_kv, cfg.head_dim,
+                              fp8_kv, device) for kv in ("k", "v")}
+
+    pools = {"main_attn": stack(cfg.n_layers - nd)}
+    if nd:
+        pools["dense_attn"] = stack(nd)
+    return pools
 
 
 def pool_nbytes(pools) -> int:

@@ -3,6 +3,10 @@
 Counterpart of ``repro.serve.w8``: the expert weights are quantized ONCE to
 blockwise po2 e4m3 (the layout the grouped GEMMs consume) and stay
 resident; norms, router and attention projections keep their dtypes.
+Only the routed experts' ``we13`` / ``we2`` convert, as in the reference:
+the dense layers' and shared experts' MLP weights stay bf16, and an
+fp8_flow prefill quantizes them inside ``expert_ffn`` at every call
+(``core.linear._quant_weights``); decode multiplies them in bf16.
 """
 from __future__ import annotations
 

@@ -1128,3 +1128,113 @@ def test_baseline_train_step_on_card(card, name):
         gc = grads["cuda"][k]
         cos = (g.flatten() @ gc.flatten()) / (g.norm() * gc.norm() + 1e-300)
         assert cos.item() >= 0.999, (name, k, cos.item())
+
+
+# ---------------------------------------------------------------------------
+# Dense layers and shared experts: dense_mlp (the expert FFN as one group).
+# ---------------------------------------------------------------------------
+# the kernels of a dense MLP's forward and backward, by recipe (bf16: its
+# products are bf16 matmuls); as chip_smoke.py's PATH_KERNELS, less #2
+DENSE_TRAIN_KERNELS = {
+    "fp8_flow": ("quantize_rowwise", "grouped_gemm_fp8",
+                 "fused_swiglu_quant", "fp8_transpose",
+                 "grouped_gemm_nt_fp8", "grouped_gemm_fp8_quant_out"),
+    "bf16": (),
+    "blockwise": ("quantize_rowwise_linear", "grouped_gemm_fp8",
+                  "grouped_gemm_nt_fp8"),
+    "naive_fp8": ("quantize_rowwise_linear", "grouped_gemm_fp8",
+                  "grouped_gemm_nt_fp8")}
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return ((a @ b) / (a.norm() * b.norm() + 1e-300)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recipe", list(DENSE_TRAIN_KERNELS))
+@pytest.mark.parametrize("t,d,f", [(72, 256, 384), (256, 2048, 1408),
+                                   (200, 200, 256)])
+def test_dense_mlp_on_card_matches_cpu(card, t, d, f, recipe):
+    """dense_mlp's forward and backward on the card (E = 1 groups; T = 72
+    and 200 padded to 128 rows, D = 200 padded to 256) against its plain
+    twins on the CPU, for every recipe: output and every gradient within
+    cosine 0.999 (the GPU-vs-CPU bar of chip_smoke.py), through the
+    kernels of the recipe's dense MLP train step and no other."""
+    from repro_torch import kernels
+    from repro_torch.core.linear import dense_mlp
+    from repro_torch.core.recipes import get_recipe
+
+    r = np.random.default_rng(21)
+    inputs = (torch.from_numpy(r.normal(size=(t, d)).astype(np.float32)
+                               ).to(torch.bfloat16),
+              torch.from_numpy(r.normal(size=(d, 2 * f)).astype(np.float32)
+                               * 0.05).to(torch.bfloat16),
+              torch.from_numpy(r.normal(size=(f, d)).astype(np.float32)
+                               * 0.05).to(torch.bfloat16))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        x, w13, w2 = (a.to(dev).requires_grad_() for a in inputs)
+        kernels.reset_launches()
+        y = dense_mlp(get_recipe(recipe), "swiglu", x, w13, w2)
+        y.backward((2 * y.detach().to(torch.float32)).to(y.dtype))
+        out[dev.type] = [a.detach().float().cpu()
+                         for a in (y, x.grad, w13.grad, w2.grad)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+    run = DENSE_TRAIN_KERNELS[recipe]
+    assert all(launches[k] > 0 for k in run), launches
+    assert all(n == 0 for k, n in launches.items() if k not in run), launches
+    assert out["cuda"][0].shape == (t, d)
+    for name, a, b in zip(("y", "gx", "wg13", "wg2"), out["cuda"],
+                          out["cpu"]):
+        assert a.isfinite().all() and a.abs().max() > 0, name
+        assert _cosine(a, b) >= 0.999, (name, _cosine(a, b))
+
+
+@pytest.mark.gpu
+def test_deepseek_v2_lite_engine_on_card(card):
+    """A short reduced() deepseek_v2_lite trace through the engine on the
+    card (a dense layer, then an MoE layer with a shared expert): every
+    request finishes, every page comes back, the serving kernels run, and
+    the masked recipe generates the padded recipe's tokens (its dense and
+    shared MLPs on the padded #3 and #8)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.scheduler import Request
+
+    cfg = get_arch("deepseek_v2_lite").reduced()
+    ecfg = ServeConfig(max_batch=4, page_size=8, n_pages=32,
+                       max_pages_per_req=4, token_budget=128,
+                       prefill_buckets=(16,), w8_weights=True)
+    r = np.random.default_rng(6)
+    prompts = [[int(v) for v in r.integers(1, cfg.vocab,
+                                           int(r.integers(4, 12)))]
+               for _ in range(5)]
+    tokens, launches = {}, {}
+    for name, kw in (("padded", {}), ("masked", dict(
+            masked_experts=True, swiglu_epilogue=True))):
+        eng = ServeEngine(cfg, get_recipe("fp8_flow", **kw),
+                          init_params(cfg, seed=0, device="cpu"), ecfg,
+                          device=card)
+        assert set(eng.pools) == {"main_attn", "dense_attn"}
+        reqs = [Request(prompt=p, max_new_tokens=3) for p in prompts]
+        kernels.reset_launches()
+        res = eng.run(reqs, realtime=False)
+        launches[name] = dict(kernels.LAUNCHES)
+        assert all(len(res[q.rid]["tokens"]) == 3 for q in reqs)
+        assert eng.alloc.free_pages == ecfg.n_pages - 1
+        tokens[name] = [res[q.rid]["tokens"] for q in reqs]
+    assert tokens["masked"] == tokens["padded"]
+    padded = ("quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8",
+              "fused_swiglu_quant")
+    masked = padded + ("masked_grouped_gemm_fp8",
+                       "masked_grouped_gemm_swiglu_quant")
+    for name, run in (("padded", padded), ("masked", masked)):
+        assert all(launches[name][k] > 0 for k in run), launches[name]
+        assert all(n == 0 for k, n in launches[name].items()
+                   if k not in run), launches[name]

@@ -92,7 +92,7 @@ def _ref_teacher_forced(cfg, recipe, plan, params, ctx, toks):
 def _port_teacher_forced(cfg, params, toks, recipe=None):
     """Per-step last-position logits, prefill ledger, and per step the
     smallest router gap (top_k-th minus next probability) over the live
-    tokens of every layer."""
+    tokens of every MoE layer (inf for a model without one)."""
     recipe = recipe or get_recipe("fp8_flow")
     port_router_topk, gaps = moe.router_topk, []
 
@@ -113,7 +113,8 @@ def _port_teacher_forced(cfg, params, toks, recipe=None):
         with casts.ledger() as led:
             lg = paged_prefill(cfg, recipe, params, pools, ptrow, tk, PROMPT)
         out.append(lg[0, -1].float().numpy())
-        step_gaps.append(min(float(g[:PROMPT].min()) for g in gaps))
+        step_gaps.append(min((float(g[:PROMPT].min()) for g in gaps),
+                             default=float("inf")))
         pt = torch.zeros((2, MP), dtype=torch.int64)
         pt[0, :len(PAGES)] = torch.tensor(PAGES)
         for t in range(STEPS):
@@ -123,8 +124,9 @@ def _port_teacher_forced(cfg, params, toks, recipe=None):
                 torch.tensor([[toks[PROMPT + t]], [0]]),
                 torch.tensor([PROMPT + t, 0]), torch.tensor([True, False]))
             out.append(lg[0, -1].float().numpy())
-            step_gaps.append(min(float(g[0]) for g in gaps))
-    assert len(gaps) == cfg.n_layers
+            step_gaps.append(min((float(g[0]) for g in gaps),
+                                 default=float("inf")))
+    assert len(gaps) == (cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0)
     return out, led.by_tag(), step_gaps
 
 

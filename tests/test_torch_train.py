@@ -225,7 +225,7 @@ def test_unported_training_options_raise():
 def test_train_launcher_refuses_unported_arch():
     from repro_torch.launch.train import main
     with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        main(["--arch", "deepseek_v2_lite", "--reduced", "--device", "cpu",
+        main(["--arch", "mamba2_27b", "--reduced", "--device", "cpu",
               "--steps", "1"])
 
 

@@ -52,8 +52,10 @@ def _one_thread():
         torch.set_num_threads(n)
 
 
-def _track_the_reference_loss(name, threads=contextlib.nullcontext):
-    jcfg = jget_arch("qwen3_moe_235b").reduced()
+def _reference_losses(name, arch="qwen3_moe_235b"):
+    """The reference's jitted train step on a 1x1 mesh for STEPS steps:
+    (losses, its initial params as numpy)."""
+    jcfg = jget_arch(arch).reduced()
     mesh = make_mesh11()
     plan = ParallelPlan(mesh=mesh, dp_axes=("data",))
     jopt = JAdamWConfig(lr=LR)
@@ -67,26 +69,38 @@ def _track_the_reference_loss(name, threads=contextlib.nullcontext):
         for i in range(STEPS):
             jstate, m = jstep(jstate, jmake_batch(jdata, i))
             ref.append(float(m["loss"]))
+    return ref, params_np
 
-    cfg = get_arch("qwen3_moe_235b").reduced()
+
+def _port_losses(recipe, params_np, arch="qwen3_moe_235b",
+                 threads=contextlib.nullcontext):
+    """The port's train step from the same params on the same batches."""
+    cfg = get_arch(arch).reduced()
     opt = AdamWConfig(lr=LR)
     state = init_train_state(cfg, opt, device="cpu",
                              params=params_from_numpy(params_np, "cpu"))
-    step = make_train_step(cfg, get_recipe(name), opt,
-                           total_steps=400, warmup_steps=5)
+    step = make_train_step(cfg, recipe, opt, total_steps=400, warmup_steps=5)
     data = DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH)
     got = []
     with threads():
         for i in range(STEPS):
             state, m = step(state, make_batch(data, i, device="cpu"))
             got.append(float(m["loss"]))
+    assert isinstance(state["params"]["embed"], torch.Tensor)
+    return got
 
+
+def _track_the_reference_loss(name, threads=contextlib.nullcontext,
+                              arch="qwen3_moe_235b"):
+    """Returns (the port's losses, the initial params as numpy)."""
+    ref, params_np = _reference_losses(name, arch)
+    got = _port_losses(get_recipe(name), params_np, arch, threads)
     ref, got = np.array(ref), np.array(got)
     assert np.isfinite(got).all()
     rel = np.abs(got - ref) / np.abs(ref)
     assert rel.max() < 0.01, (rel.max(), got, ref)
     assert got[-5:].mean() < got[:3].mean() - 0.1          # it learns
-    assert isinstance(state["params"]["embed"], torch.Tensor)
+    return list(got), params_np
 
 
 def test_twenty_steps_track_the_reference_loss():
