@@ -2,7 +2,10 @@
 """Where the time goes on the port's serve and train paths: torch.profiler
 over chip_smoke.py's serve trace and train step on one NVIDIA GPU.
 
-    python3 chip_profile.py        # from the repo root; needs one card
+    python3 chip_profile.py [label ...]   # from the repo root; one card
+
+With labels (``serve``, ``dsv2_train``, ``grok_serve``, ...), only those
+passes run.
 
 Each pass runs with the padded recipe, then with the masked one
 (masked_experts + the fused SwiGLU GEMM-1 epilogue; chip_smoke.py phases
@@ -16,7 +19,9 @@ the fixed 2 x 1024-token batch): one warm-up step, three timed unprofiled
 steps, three profiled steps.  Then the same two passes of deepseek_v2_lite
 (chip_smoke.py's phases 10-11): the serve pass at full depth (27 layers)
 and the train step at depth 4 (1 dense + 3 MoE layers), padded; and
-qwen15_05b's train step (24 dense layers).  Each
+qwen15_05b's train step (24 dense layers).  Then grok1_314b's serve pass
+(chip_smoke.py phase 14: 4 layers of 8 GeGLU experts, W8) and
+gemma2_9b's train step (phase 16: 8 local:global GeGLU layers).  Each
 pass prints one JSON line: the wall
 seconds of the plain and the profiled run, the device's busy time (kernel
 self time under the profiler), its busy and idle shares of the plain
@@ -162,11 +167,16 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0))
+    only = set(sys.argv[1:])
 
     passes = [(label, chip_smoke.serve_config()) for label in (
         "serve", "masked_serve", "bf16_serve")]
     passes.append(("dsv2_serve", chip_smoke.arch_config("deepseek_v2_lite")))
+    passes.append(("grok_serve", chip_smoke.arch_config(
+        "grok1_314b", chip_smoke.GROK_SERVE_LAYERS)))
     for label, cfg in passes:
+        if only and label not in only:
+            continue
         eng, reqs = chip_smoke.make_serve(cfg, dev, label)
         eng.run(reqs, realtime=False)                  # warm-up pass
 
@@ -186,8 +196,12 @@ def main() -> int:
         "naive_train")]
     passes += [("dsv2_train", chip_smoke.arch_config(
         "deepseek_v2_lite", chip_smoke.DSV2_TRAIN_LAYERS)),
-        ("qwen15_train", chip_smoke.arch_config("qwen15_05b"))]
+        ("qwen15_train", chip_smoke.arch_config("qwen15_05b")),
+        ("g2_train", chip_smoke.arch_config(
+            "gemma2_9b", chip_smoke.TRAIN_LAYERS["g2"]))]
     for label, cfg in passes:
+        if only and label not in only:
+            continue
         state, step, batch = chip_smoke.make_train(cfg, dev, label)
         box = {"state": state}
         del state

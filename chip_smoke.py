@@ -114,6 +114,23 @@ Phases (any failure raises and the script exits non-zero):
      (fp8_flow), and train gradients and losses as phase 7, for all five
      train paths of deepseek_v2_lite and qwen15_05b and for fp8_flow of
      deepseek_v3_671b;
+ 14. the GeGLU and GELU configs served at full width: starcoder2_15b
+     (40 layers, ungated GELU, LayerNorm, QKV bias), gemma3_4b (34
+     layers, every one local by the reference's fallback for a pattern
+     that does not divide the depth) and gemma2_9b (42 layers, local:
+     global, softcaps) whole, grok1_314b at depth 4 (8 GeGLU experts of
+     d_ff 32768) padded and then masked (the same tokens), each through
+     exactly its kernels: no #7 and no #8 (the activation in plain
+     PyTorch, then #1's act_quant), no #2 for a dense config; 14b. #5
+     GEMM-1 and GEMM-2 on the masked grok pass's own plans (4 of its 8
+     experts: GEMM_CHECK_ELEMS);
+ 15. each new path's kernels at its own shapes, as phase 11: the dense
+     configs' bucket-64 prefill and train step, grok's prefill and decode;
+ 16. starcoder2_15b (4 layers), gemma3_4b (12: two whole pattern groups)
+     and gemma2_9b (8) trained as phase 6 in fp8_flow, padded and then
+     masked (bit for bit the padded losses), 2 casts a layer a step;
+ 17. GPU path vs CPU path at reduced() size (the gemmas at window 8) for
+     the four: serve logits, and all five train paths as phase 7;
   9. the {"kernels": [...]} summary line (the eleven kernels and #1's
      linear mode, with the new shapes' rows), then the result line.
 It imports nothing of JAX or the JAX package.
@@ -193,6 +210,26 @@ PATH_KERNELS.update({
     + DENSE_MLP_KERNELS["train"],
     "dsv3_serve": PATH_KERNELS["serve"],
 })
+# The GeGLU and GELU configs: the activation runs in plain PyTorch and #1
+# quantizes it (``act_quant``; in train also ``dact_quant``), so no #7 and
+# no #8 run; the dense ones (starcoder2, the gemmas) have no dispatch (#2)
+# and no kernel in decode; the masked recipe runs their MLPs on the padded
+# kernels, and grok's experts on #5 (GEMM-1 and GEMM-2).
+ARCH_TAGS.update({"sc2": "starcoder2_15b", "g3": "gemma3_4b",
+                  "g2": "gemma2_9b", "grok": "grok1_314b"})
+ACT_MLP_KERNELS = {
+    "serve": ("quantize_rowwise", "grouped_gemm_fp8"),
+    "train": ("quantize_rowwise", "fp8_transpose", "grouped_gemm_fp8",
+              "grouped_gemm_nt_fp8", "grouped_gemm_fp8_quant_out")}
+for _tag in ("sc2", "g3", "g2"):
+    PATH_KERNELS.update({f"{_tag}_serve": ACT_MLP_KERNELS["serve"],
+                         f"{_tag}_train": ACT_MLP_KERNELS["train"],
+                         f"{_tag}_masked_train": ACT_MLP_KERNELS["train"]})
+PATH_KERNELS.update({
+    "grok_serve": ("quantize_rowwise", "fused_permute_pad",
+                   "grouped_gemm_fp8"),
+    "grok_masked_serve": ("quantize_rowwise", "fused_permute_pad",
+                          "masked_grouped_gemm_fp8")})
 
 # activation casts per train step (paper Fig. 2): per MoE block (router,
 # dispatch, experts, combine) and per dense MLP (a dense layer's or a
@@ -1136,22 +1173,31 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None):
 
 
 def masked_serve_kernel_checks(cfg, peaks, dev, plans, tag=""):
-    """#7 (GEMM-1 + SwiGLU) and #5 (GEMM-2) on the dispatch layouts of the
-    masked serve pass's own plans: a bucket-64 prefill (C = 128) and an
-    8-slot decode step (C = 8); each against its twin and its padded
-    kernel(s), timed beside them.  `tag` prefixes the rows' shapes."""
+    """#7 (GEMM-1 + SwiGLU; #5 for another activation) and #5 (GEMM-2) on
+    the dispatch layouts of the masked serve pass's own plans: a bucket-64
+    prefill (C = 128) and an 8-slot decode step (C = 8); each against its
+    twin and its padded kernel(s), timed beside them.  An expert stack
+    past GEMM_CHECK_ELEMS is checked on its first experts (grok's 8 of
+    65536-wide GEMM-1 on 4).  `tag` prefixes the rows' shapes."""
     gen = torch.Generator(device=dev).manual_seed(3)
     D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    g = cfg.gate_factor
+    Eg = experts_checked(E, D * g * F)
     record = KernelRows(peaks)
-    w13 = blockq(gen, dev, E, D, 2 * F)
-    w2 = blockq(gen, dev, E, F, D)
+    w13 = blockq(gen, dev, Eg, D, g * F)
+    w2 = blockq(gen, dev, Eg, F, D)
+    cut = f" ({Eg} of {E} experts)" if Eg < E else ""
     for shape, C in (("prefill", 128), ("decode", 8)):
-        mm = plans[shape]
+        mm = plans[shape][:Eg].contiguous()
         print(json.dumps({"masked_plan": dict(
             path=f"{tag}serve", call=shape, **live_stats(mm, C))}))
-        check_masked_swiglu(record, f"{tag}{shape}_gemm1",
-                            *dispatch_rows(gen, dev, mm, C, D), w13, mm)
-        check_masked_gemm(record, f"{tag}{shape}_gemm2",
+        if cfg.act == "swiglu":
+            check_masked_swiglu(record, f"{tag}{shape}_gemm1{cut}",
+                                *dispatch_rows(gen, dev, mm, C, D), w13, mm)
+        else:
+            check_masked_gemm(record, f"{tag}{shape}_gemm1{cut}",
+                              *dispatch_rows(gen, dev, mm, C, D), w13, mm)
+        check_masked_gemm(record, f"{tag}{shape}_gemm2{cut}",
                           *dispatch_rows(gen, dev, mm, C, F), w2, mm)
     del w13, w2
     torch.cuda.empty_cache()
@@ -1162,14 +1208,13 @@ def masked_serve_kernel_checks(cfg, peaks, dev, plans, tag=""):
 # Phase 4: the GPU path against the CPU path at reduced() size.
 # ---------------------------------------------------------------------------
 def gpu_vs_cpu(dev, label="serve", arch="qwen3_moe_235b"):
-    from repro_torch.configs import get_arch
     from repro_torch.models.lm import (init_params, paged_decode_step,
                                        paged_prefill)
     from repro_torch.serve.paged_kv import init_paged_cache
     from repro_torch.serve.w8 import quantize_params_for_serving
     from repro_torch.weights import params_to
 
-    cfg = get_arch(arch).reduced()
+    cfg = reduced_config(arch)
     recipe = recipe_for(label)
     params_cpu = init_params(cfg, seed=0, device="cpu")
     if recipe.name == "fp8_flow":                    # the engine's W8 weights
@@ -1409,8 +1454,9 @@ def train_path(cfg, dev, label="train", padded_losses=None):
         })}))
     del state, step, batch, m
     torch.cuda.empty_cache()
+    # a dense config's masked recipe has no expert plan
     plan = plans[max(plans)][0] if base_label(label) == "masked_train" \
-        else None
+        and plans else None
     return launches, losses, plan
 
 
@@ -1508,6 +1554,27 @@ def linear_kernel_checks(cfg, peaks, dev, floor_ms):
 # GB bf16 + 11.3 GB W8; a second MoE layer makes 54.0 + 22.6 GB); its
 # training needs the multi-GPU slice.  qwen15_05b runs whole (0.46 G).
 DSV2_TRAIN_LAYERS, DSV3_SERVE_LAYERS = 4, 4
+# The GeGLU and GELU configs (phases 14-17), by the same reckoning: every
+# dense one serves whole (starcoder2_15b 16.0 G: 31.9 GB; gemma3_4b 3.9 G,
+# every layer local by the reference's fallback, 34 % 6 != 0; gemma2_9b
+# 9.2 G) and trains cut: starcoder2_15b 4 layers (2.14 G, 34 GB), gemma3_4b
+# 12, two whole local:global groups (1.80 G, 29 GB), gemma2_9b 8 (2.50 G,
+# 40 GB).  grok1_314b serves 4 of 64 layers (4.92 G a layer: 42.6 GB bf16
+# + 19.3 GB W8, and the 12.9 GB f32 draw of one layer's we13 at init); one
+# layer's training state (79 GB) does not fit one card.
+TRAIN_LAYERS = {"sc2": 4, "g3": 12, "g2": 8}
+GROK_SERVE_LAYERS = 4
+# reduced() sets window 64, which neither the GPU-vs-CPU prompt (10
+# tokens) nor its train rows (64) cross: the local:global configs are
+# compared at window 8
+REDUCED_CUTS = {"gemma3_4b": dict(window=8), "gemma2_9b": dict(window=8)}
+
+
+def reduced_config(arch):
+    """`arch`'s reduced() config for the GPU-vs-CPU phases."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch).reduced(),
+                               **REDUCED_CUTS.get(arch, {}))
 
 
 def arch_config(arch, n_layers=None):
@@ -1520,8 +1587,17 @@ def arch_config(arch, n_layers=None):
 
 # The largest expert stack a GEMM check takes whole (elements of w13): its
 # f32 twin holds 4 bytes an element.  deepseek_v3_671b's 256 routed
-# experts (7.5 G) are checked on 64 of them: each expert is its own tiles.
+# experts (7.5 G) are checked on 64 of them, grok1_314b's 8 (3.2 G) on 4:
+# each expert is its own tiles.
 GEMM_CHECK_ELEMS = 2**31
+
+
+def experts_checked(E, per_expert):
+    """How many of E experts of `per_expert` weight elements a check takes:
+    halved until the stack fits GEMM_CHECK_ELEMS."""
+    while E > 1 and E * per_expert > GEMM_CHECK_ELEMS:
+        E //= 2
+    return E
 
 
 def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms):
@@ -1532,8 +1608,10 @@ def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms):
     The MLPs: the dense layers' and the shared experts' (E = 1 groups of
     the tokens padded to 128 rows; decode runs them as bf16 products, no
     kernel), and the routed experts at the path's capacity, C as
-    core/moe.py computes it.  For each: #3 GEMM-1 and GEMM-2 and #8; in
-    train also #1's dact quantize, #9 at its four operands, #10 Wgrad-1
+    core/moe.py computes it.  For each: #3 GEMM-1 and GEMM-2 and #8 (for
+    GeGLU, GELU or ReLU, #1's ``act_quant`` of the activation in its
+    place); in train also #1's dact quantize, #9 at its four operands,
+    #10 Wgrad-1
     and Wgrad-2 (contracting C = 2048 tokens at E = 1: past the two
     cached b slots of csrc/grouped_gemm_nt_fp8.cu, which then turn over),
     #3 Dgrad-2 and #4 Dgrad-1.  Then #1's entry quantize and, for routed
@@ -1542,7 +1620,7 @@ def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms):
 
     gen = torch.Generator(device=dev).manual_seed(6)
     record = KernelRows(peaks, floor_ms)
-    D, train = cfg.d_model, path == "train"
+    D, train, g = cfg.d_model, path == "train", cfg.gate_factor
     T = {"train": TRAIN_B * TRAIN_S, "prefill": 64, "decode": 8}[path]
     groups = []                                 # (kind, E, C, F)
     if path != "decode":
@@ -1593,27 +1671,28 @@ def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms):
             if train:
                 check_quantize(record, f"{name} q_bwd_island",
                                bf16(E * C, D))
-        check_swiglu(record, name, bf16(E * C, 2 * F))
+        if cfg.act == "swiglu":
+            check_swiglu(record, name, bf16(E * C, 2 * F))
+        else:
+            check_quantize(record, f"{name} act_quant", bf16(E * C, F))
         if train:
-            check_quantize(record, f"{name} dact_quant", bf16(E * C, 2 * F))
+            check_quantize(record, f"{name} dact_quant", bf16(E * C, g * F))
             for what, K in (("T(qx)", D), ("T(qa)", F), ("T(qg)", D),
-                            ("T(qgh)", 2 * F)):
+                            ("T(qgh)", g * F)):
                 d, s = erowq(E, C, K, spread=1.0)
                 check_transpose(record, f"{name} {what}", d, s,
                                 phases=what == "T(qa)" and E == 1)
                 del d, s
-            for what, M, N in (("wgrad1", D, 2 * F), ("wgrad2", F, D)):
+            for what, M, N in (("wgrad1", D, g * F), ("wgrad2", F, D)):
                 check_nt(record, f"{name} {what}", *erowq(E, M, C),
                          *erowq(E, N, C), phases=what == "wgrad1")
                 torch.cuda.empty_cache()
-        Eg = E
-        while Eg > 1 and Eg * D * 2 * F > GEMM_CHECK_ELEMS:
-            Eg //= 2
-        gemms = (("gemm1", D, 2 * F, False, False),
+        Eg = experts_checked(E, D * g * F)
+        gemms = (("gemm1", D, g * F, False, False),
                  ("gemm2", F, D, False, False))
         if train:
             gemms += (("dgrad2", D, F, True, False),
-                      ("dgrad1", 2 * F, D, True, True))
+                      ("dgrad1", g * F, D, True, True))
         for what, K, N, w_trans, quant_out in gemms:
             x, sx = erowq(Eg, C, K)
             qw = blockq(gen, dev, *((Eg, N, K) if w_trans else (Eg, K, N)))
@@ -1726,7 +1805,6 @@ def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
     than the CPU must sit at a router near-tie (ROUTE_TIE); when one
     does, the gradients are compared on a third run, the card routed as
     the CPU routed (the unrouted cosines are printed beside them)."""
-    from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, make_batch_np
     from repro_torch.models.lm import forward, init_params
     from repro_torch.optim.adamw import AdamWConfig
@@ -1734,7 +1812,7 @@ def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
                                               make_train_step)
     from repro_torch.weights import params_to
 
-    cfg = get_arch(arch).reduced()
+    cfg = reduced_config(arch)
     recipe = recipe_for(label)
     opt = AdamWConfig(lr=1e-3)
     batch_np = make_batch_np(DataConfig(vocab=cfg.vocab, seq_len=64,
@@ -1892,13 +1970,42 @@ def main() -> int:
                   "dsv2_naive_train"):
         launches[label], _, _ = train_path(dcfg, dev, label)
     launches["qwen15_train"], _, _ = train_path(qcfg, dev, "qwen15_train")
-    for arch in ARCH_TAGS.values():
+    for arch in ("deepseek_v2_lite", "qwen15_05b", "deepseek_v3_671b"):
         gpu_vs_cpu(dev, "serve", arch)
     for arch in ("deepseek_v2_lite", "qwen15_05b"):
         for label in ("train", "masked_train", "bf16_train",
                       "blockwise_train", "naive_train"):
             gpu_vs_cpu_train(dev, label, arch)
     gpu_vs_cpu_train(dev, "train", "deepseek_v3_671b")
+
+    # the GeGLU, GELU and local:global configs (phases 14-17)
+    for tag in ("sc2", "g3", "g2"):
+        c = arch_config(ARCH_TAGS[tag])
+        launches[f"{tag}_serve"], _, _ = serve_path(c, dev, f"{tag}_serve")
+        add_rows(timings, arch_kernel_checks(c, tag, "prefill", PEAKS, dev,
+                                             floor_ms))
+    gcfg = arch_config("grok1_314b", GROK_SERVE_LAYERS)
+    launches["grok_serve"], tokens, _ = serve_path(gcfg, dev, "grok_serve")
+    launches["grok_masked_serve"], _, plans = serve_path(
+        gcfg, dev, "grok_masked_serve", padded_tokens=tokens)
+    add_rows(timings, masked_serve_kernel_checks(gcfg, PEAKS, dev, plans,
+                                                 "grok "))
+    for path in ("prefill", "decode"):
+        add_rows(timings, arch_kernel_checks(gcfg, "grok", path, PEAKS, dev,
+                                             floor_ms))
+    for tag, n in TRAIN_LAYERS.items():
+        c = arch_config(ARCH_TAGS[tag], n)
+        add_rows(timings, arch_kernel_checks(c, tag, "train", PEAKS, dev,
+                                             floor_ms))
+        launches[f"{tag}_train"], losses, _ = train_path(c, dev,
+                                                         f"{tag}_train")
+        launches[f"{tag}_masked_train"], _, _ = train_path(
+            c, dev, f"{tag}_masked_train", padded_losses=losses)
+    for tag in ("sc2", "g3", "g2", "grok"):
+        gpu_vs_cpu(dev, "serve", ARCH_TAGS[tag])
+        for label in ("train", "masked_train", "bf16_train",
+                      "blockwise_train", "naive_train"):
+            gpu_vs_cpu_train(dev, label, ARCH_TAGS[tag])
 
     from repro_torch.kernels import (fp8_transpose, fused_permute_pad,
                                      fused_swiglu_quant, grouped_gemm_fp8,

@@ -5,24 +5,26 @@ Counterpart of ``repro.core.linear``.  The fp8_flow branch:
 
     h = x[e] @ w13[e]          (E, C, 2F)   grouped GEMM-1  -> bf16 island
     a = swiglu(h) -> e4m3      (E, C, F)    fused SwiGLU + quantize
+        (GeGLU, GELU, ReLU: the activation to bf16, then the row-wise
+        quantize, ``act_quant``, as the reference computes them)
     y = a  @ w2[e]             (E, C, D)    grouped GEMM-2  -> bf16
 
 and its backward, ``ffn_bwd_fp8_core``, in the reference's order: the one
 explicit island quantize of the output gradient; Dgrad-2 against the
 transposed w2; Wgrad-2 from two scaling-aware direct transposes; the h
-recompute; dSwiGLU in f32 and its fused quantize; Dgrad-1 with the
-quantizing epilogue (the input gradient leaves in FP8); Wgrad-1 from two
-direct transposes.  Every GEMM, quantize and transpose goes through
-``kernels.ops`` (the hand-written kernels on a CUDA tensor, their twins on
-the CPU).
+recompute; the activation's backward in f32 and its fused quantize;
+Dgrad-1 with the quantizing epilogue (the input gradient leaves in FP8);
+Wgrad-1 from two direct transposes.  Every GEMM, quantize and transpose
+goes through ``kernels.ops`` (the hand-written kernels on a CUDA tensor,
+their twins on the CPU).
 
 The baselines, each with the reference's hand-written backward and its
 cast-ledger records in the reference's order:
 
   bf16       bf16 ``matmul``s and f32 ``einsum`` Wgrads (0 casts); the
              reference computes these products outside any Pallas kernel.
-  blockwise  FP8 only inside the GEMMs: the bf16 input, SwiGLU output and
-             gradients quantized row-wise with linear scales right before
+  blockwise  FP8 only inside the GEMMs: the bf16 input, activation output
+             and gradients quantized row-wise with linear scales right before
              each GEMM, the Wgrad operands freshly quantized from
              transposed bf16 copies (8 casts).
   naive_fp8  FP8-saved input and activation whose Wgrad layouts are
@@ -121,6 +123,35 @@ def _fused_swiglu_quant(recipe: Recipe, h: torch.Tensor) -> QTensor:
                    row_tile(3))
 
 
+# ---------------------------------------------------------------------------
+# Activations, in f32 (the BF16 island), the reference's table
+# (repro/core/linear.py:164-207).  GELU is the tanh approximation, written
+# in f32 ops in the reference's order; its derivative is written out in
+# the order of the reference's ``jax.vjp`` of that expression.  The two
+# packages' tanh may differ in the last bit, as their sigmoid does.
+# ---------------------------------------------------------------------------
+# sqrt(2 / pi) and 0.044715 as f32 values (the reference's constants are
+# f32), so an f32 product with them rounds the same in any precision
+_SQRT_2_OVER_PI = 0.7978845834732056
+_GELU_A = 0.044714998453855515
+
+
+def _gelu_f32(t: torch.Tensor) -> torch.Tensor:
+    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI
+                                  * (t + _GELU_A * (t * t * t))))
+    return t * cdf
+
+
+def _dgelu_f32(t: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """ct * gelu'(t), the terms and sums in the order of the reference's
+    vjp: d(t * cdf) + d(tanh) + d(t ** 3)."""
+    th = torch.tanh(_SQRT_2_OVER_PI * (t + _GELU_A * (t * t * t)))
+    cdf = 0.5 * (1.0 + th)
+    dt = (0.5 * (t * ct)) * (1.0 - th)
+    dinner = _SQRT_2_OVER_PI * (dt + dt * th)
+    return (ct * cdf + dinner) + (_GELU_A * dinner) * (3.0 * (t * t))
+
+
 def _swiglu(h: torch.Tensor) -> torch.Tensor:
     """silu(g) * u in f32 -> bf16: the baselines' separate activation
     pass (the BF16 island's forward)."""
@@ -139,6 +170,50 @@ def _dswiglu(h: torch.Tensor, ga: torch.Tensor) -> torch.Tensor:
     return torch.cat([dgate, dup], dim=-1).to(torch.bfloat16)
 
 
+def _geglu(h: torch.Tensor) -> torch.Tensor:
+    g, u = h.to(torch.float32).chunk(2, dim=-1)
+    return (_gelu_f32(g) * u).to(torch.bfloat16)
+
+
+def _dgeglu(h: torch.Tensor, ga: torch.Tensor) -> torch.Tensor:
+    g, u = h.to(torch.float32).chunk(2, dim=-1)
+    ga = ga.to(torch.float32)
+    dgate = _dgelu_f32(g, ga * u)
+    dup = ga * _gelu_f32(g)
+    return torch.cat([dgate, dup], dim=-1).to(torch.bfloat16)
+
+
+def _gelu(h: torch.Tensor) -> torch.Tensor:
+    return _gelu_f32(h.to(torch.float32)).to(torch.bfloat16)
+
+
+def _dgelu(h: torch.Tensor, ga: torch.Tensor) -> torch.Tensor:
+    return _dgelu_f32(h.to(torch.float32),
+                      ga.to(torch.float32)).to(torch.bfloat16)
+
+
+def _relu(h: torch.Tensor) -> torch.Tensor:
+    return torch.relu(h.to(torch.float32)).to(torch.bfloat16)
+
+
+def _drelu(h: torch.Tensor, ga: torch.Tensor) -> torch.Tensor:
+    return torch.where(h.to(torch.float32) > 0, ga.to(torch.float32),
+                       0.0).to(torch.bfloat16)
+
+
+_ACT_FWD = {"swiglu": _swiglu, "geglu": _geglu, "gelu": _gelu, "relu": _relu}
+_ACT_BWD = {"swiglu": _dswiglu, "geglu": _dgeglu, "gelu": _dgelu,
+            "relu": _drelu}
+
+
+def _act_fwd(act: str, h: torch.Tensor) -> torch.Tensor:
+    return _ACT_FWD[act](h)
+
+
+def _act_bwd(act: str, h: torch.Tensor, ga: torch.Tensor) -> torch.Tensor:
+    return _ACT_BWD[act](h, ga)
+
+
 def _quant_weights(recipe: Recipe, w13, w2):
     """W8-resident serving passes QTensors through; bf16 weights are
     quantized blockwise here (the reference's per-call path)."""
@@ -147,12 +222,6 @@ def _quant_weights(recipe: Recipe, w13, w2):
     qw2 = w2 if isinstance(w2, QTensor) else quantize_blockwise(
         w2, recipe.scale_mode, tag="q_w2")
     return qw13, qw2
-
-
-def _check_act(act: str):
-    if act != "swiglu":
-        raise NotImplementedError(
-            f"activation {act!r}: only the SwiGLU expert FFN is ported")
 
 
 def _use_swiglu_epilogue(recipe: Recipe, act: str, masked_m) -> bool:
@@ -167,8 +236,9 @@ def ffn_fwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qw13: QTensor,
                      qw2: QTensor, masked_m=None):
     """fp8_flow grouped FFN forward on an already-quantized input.
     Returns (y bf16, (qx, qa, None)) like the reference (h is recomputed
-    in the backward: FP8 activation checkpointing)."""
-    _check_act(act)
+    in the backward: FP8 activation checkpointing).  SwiGLU runs the
+    fused SwiGLU + quantize; another activation is computed to bf16 and
+    quantized row-wise by #1 (``act_quant``), as the reference does."""
     if _use_swiglu_epilogue(recipe, act, masked_m):
         # GEMM-1 with the SwiGLU + quantize in its epilogue: the BF16
         # island lives only in registers (bitwise the unfused pair), and
@@ -179,7 +249,12 @@ def ffn_fwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qw13: QTensor,
         qa = ops.grouped_gemm_swiglu_quant_masked(qx, qw13, masked_m)
     else:
         h = _ggemm(recipe, qx, qw13, masked_m=masked_m)     # BF16 island
-        qa = _fused_swiglu_quant(recipe, h)
+        if act == "swiglu":
+            qa = _fused_swiglu_quant(recipe, h)
+        else:
+            casts.record("fused_quantize", "act_quant", h.numel())
+            qa = _q_row(recipe, _act_fwd(act, h), "act_quant",
+                        kind="fused_quantize_inner")
         del h
     y = _ggemm(recipe, qa, qw2, masked_m=masked_m)
     return y, (qx, qa, None)
@@ -196,16 +271,16 @@ def ffn_bwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qa: QTensor,
     dead capacity groups in all five grouped GEMMs (the Dgrad rows beyond
     the count are zero because the combine's probability weighting zeros
     dead slots upstream; the NT forms skip zero token columns)."""
-    _check_act(act)
     # Dgrad-2: FP8 x FP8 against the transposed w2
     ga = _ggemm(recipe, qg, _block_t(qw2), masked_m=masked_m)
     # Wgrad-2 via scaling-aware DIRECT transposes -- zero casts
     wg2 = _ggemm_nt(recipe, transpose_direct(qa), transpose_direct(qg),
                     wg2_dtype, masked_m=masked_m)
-    # BF16 island: recompute h (FP8 activation checkpointing); dSwiGLU
-    # needs the bf16 h, so the masked path recomputes it unfused
+    # BF16 island: recompute h (FP8 activation checkpointing); the
+    # activation's backward needs the bf16 h, so the masked path recomputes
+    # it unfused
     h = _ggemm(recipe, qx, qw13, masked_m=masked_m)
-    gh = _dswiglu(h, ga)
+    gh = _act_bwd(act, h, ga)
     del h, ga
     casts.record("fused_quantize", "dact_quant", gh.numel())
     qgh = _q_row(recipe, gh, "dact_quant", kind="fused_quantize_inner")
@@ -272,27 +347,28 @@ class _BF16FFN(torch.autograd.Function):
     """The bf16 recipe: no quantization; bf16 products, f32 Wgrads."""
 
     @staticmethod
-    def forward(ctx, recipe, x, w13, w2):
+    def forward(ctx, recipe, act, x, w13, w2):
         h = _bf16_matmul(x.to(torch.bfloat16), w13.to(torch.bfloat16))
-        y = _bf16_matmul(_swiglu(h), w2.to(torch.bfloat16))
+        y = _bf16_matmul(_act_fwd(act, h), w2.to(torch.bfloat16))
         ctx.save_for_backward(x, h, w13, w2)
+        ctx.act = act
         return y
 
     @staticmethod
     def backward(ctx, gy):
         x, h, w13, w2 = ctx.saved_tensors
         gy = gy.to(torch.bfloat16)
-        a = _swiglu(h)
+        a = _act_fwd(ctx.act, h)
         ga = _bf16_matmul(gy, w2.to(torch.bfloat16).transpose(-1, -2))
         wg2 = torch.einsum("ecf,ecd->efd", a.to(torch.float32),
                            gy.to(torch.float32)).to(w2.dtype)
         del a
-        gh = _dswiglu(h, ga)
+        gh = _act_bwd(ctx.act, h, ga)
         del ga
         gx = _bf16_matmul(gh, w13.to(torch.bfloat16).transpose(-1, -2))
         wg13 = torch.einsum("eck,ecf->ekf", x.to(torch.float32),
                             gh.to(torch.float32)).to(w13.dtype)
-        return None, gx.to(x.dtype), wg13, wg2
+        return None, None, gx.to(x.dtype), wg13, wg2
 
 
 class _BlockwiseFFN(torch.autograd.Function):
@@ -300,16 +376,16 @@ class _BlockwiseFFN(torch.autograd.Function):
     h are saved; every GEMM operand is quantized fresh (8 casts)."""
 
     @staticmethod
-    def forward(ctx, recipe, x, w13, w2):
+    def forward(ctx, recipe, act, x, w13, w2):
         ctx.ledger = casts.current()
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         qx = _q_row(recipe, x, "q_gemm1_in")
         h = _ggemm(recipe, qx, qw13)
         del qx
-        qa = _q_row(recipe, _swiglu(h), "q_gemm2_in")
+        qa = _q_row(recipe, _act_fwd(act, h), "q_gemm2_in")
         y = _ggemm(recipe, qa, qw2)
         ctx.save_for_backward(x, h)
-        ctx.recipe, ctx.qw13, ctx.qw2 = recipe, qw13, qw2
+        ctx.recipe, ctx.act, ctx.qw13, ctx.qw2 = recipe, act, qw13, qw2
         ctx.w_dtypes = (w13.dtype, w2.dtype)
         return y
 
@@ -324,11 +400,11 @@ class _BlockwiseFFN(torch.autograd.Function):
             ga = _ggemm(r, qg, _block_t(qw2))
             del qg
             # fresh Wgrad-layout quantizes of the bf16-saved tensors
-            qaT = _q_row(r, _t(_swiglu(h)), "q_bwd_wgrad2_a")
+            qaT = _q_row(r, _t(_act_fwd(ctx.act, h)), "q_bwd_wgrad2_a")
             qgT = _q_row(r, _t(gy), "q_bwd_wgrad2_g")
             wg2 = _ggemm_nt(r, qaT, qgT, wg2_dtype)
             del qaT, qgT
-            gh = _dswiglu(h, ga)
+            gh = _act_bwd(ctx.act, h, ga)
             del ga
             qgh = _q_row(r, gh, "q_bwd_dgrad1")
             gx = _ggemm(r, qgh, _block_t(qw13))
@@ -338,7 +414,7 @@ class _BlockwiseFFN(torch.autograd.Function):
             qxT = _q_row(r, _t(x), "q_bwd_wgrad1_x")
             wg13 = _ggemm_nt(r, qxT, qghT, wg13_dtype)
         ctx.qw13 = ctx.qw2 = None
-        return None, gx.to(x.dtype), wg13, wg2
+        return None, None, gx.to(x.dtype), wg13, wg2
 
 
 class _NaiveFFN(torch.autograd.Function):
@@ -347,15 +423,15 @@ class _NaiveFFN(torch.autograd.Function):
     -> requantize (the double quantization error; 10 casts)."""
 
     @staticmethod
-    def forward(ctx, recipe, x, w13, w2):
+    def forward(ctx, recipe, act, x, w13, w2):
         ctx.ledger = casts.current()
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         qx = _q_row(recipe, x, "q_gemm1_in")
         h = _ggemm(recipe, qx, qw13)
-        qa = _q_row(recipe, _swiglu(h), "q_gemm2_in")
+        qa = _q_row(recipe, _act_fwd(act, h), "q_gemm2_in")
         del h
         y = _ggemm(recipe, qa, qw2)
-        ctx.recipe, ctx.qx, ctx.qa = recipe, qx, qa
+        ctx.recipe, ctx.act, ctx.qx, ctx.qa = recipe, act, qx, qa
         ctx.qw13, ctx.qw2 = qw13, qw2
         ctx.x_dtype, ctx.w_dtypes = x.dtype, (w13.dtype, w2.dtype)
         return y
@@ -374,7 +450,7 @@ class _NaiveFFN(torch.autograd.Function):
             wg2 = _ggemm_nt(r, qaT, qgT, wg2_dtype)
             del qaT, qgT
             h = _ggemm(r, qx, qw13)                 # recompute from FP8 x
-            gh = _dswiglu(h, ga)
+            gh = _act_bwd(ctx.act, h, ga)
             del h, ga
             qgh = _q_row(r, gh, "q_bwd_dgrad1")
             gx = _ggemm(r, qgh, _block_t(qw13))     # bf16 to the combine
@@ -384,7 +460,7 @@ class _NaiveFFN(torch.autograd.Function):
             del gh
             wg13 = _ggemm_nt(r, qxT, qghT, wg13_dtype)
         ctx.qx = ctx.qa = ctx.qw13 = ctx.qw2 = None
-        return None, gx.to(ctx.x_dtype), wg13, wg2
+        return None, None, gx.to(ctx.x_dtype), wg13, wg2
 
 
 _BASELINE_FFN = {"bf16": _BF16FFN, "blockwise": _BlockwiseFFN,
@@ -399,11 +475,10 @@ def expert_ffn(recipe: Recipe, act: str, x_in, w13, w2, masked_m=None):
     layout (None: padded).  The other recipes take the bf16 (E, C, D)
     input and bf16 weights and ignore masked_m, as the reference does."""
     if recipe.name != "fp8_flow":
-        _check_act(act)
         if isinstance(w13, QTensor) or isinstance(w2, QTensor):
             raise ValueError(f"{recipe.name}: W8-resident weights are "
                              "fp8_flow only")
-        return _BASELINE_FFN[recipe.name].apply(recipe, x_in, w13, w2)
+        return _BASELINE_FFN[recipe.name].apply(recipe, act, x_in, w13, w2)
     if isinstance(w13, QTensor) or isinstance(w2, QTensor):
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         y, _ = ffn_fwd_fp8_core(recipe, act, x_in, qw13, qw2, masked_m)

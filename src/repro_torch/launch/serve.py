@@ -8,10 +8,15 @@ W8-resident expert weights, on one device.
 The flags are the reference launcher's (``repro.launch.serve``) plus
 ``--device``.  The prefix cache, disaggregation and telemetry flags are
 accepted and raise until those slices are ported.  ``--arch`` takes
-every ported config (``repro_torch.configs.ARCH_IDS``).  Without
-``--reduced`` the full config is built: one card holds qwen15_05b and
-deepseek_v2_lite whole (W8 experts), not qwen3_moe_235b or
-deepseek_v3_671b.
+every ported config (``repro_torch.configs.ARCH_IDS``): qwen15_05b,
+qwen3_moe_235b, deepseek_v2_lite, deepseek_v3_671b, starcoder2_15b,
+gemma3_4b, gemma2_9b and grok1_314b.  Without ``--reduced`` the full
+config is built: one 80 GB card holds qwen15_05b, deepseek_v2_lite (W8
+experts), starcoder2_15b (40 layers, 32 GB), gemma3_4b (34 layers; every
+layer local, the reference's rule for a pattern that does not divide the
+depth) and gemma2_9b (42 layers) whole; qwen3_moe_235b, deepseek_v3_671b
+and grok1_314b only at a cut depth (``chip_smoke.py`` serves them at 4
+layers).
 """
 import argparse
 import time

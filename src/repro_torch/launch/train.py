@@ -13,7 +13,12 @@ telemetry are not ported yet (ROADMAP.md, Queue 1, items 6-9).
 the default is the paper's convergence model, deepseek_v2_lite, as in the
 reference.  Without ``--reduced`` the full config is built: of these,
 one card trains only qwen15_05b at full depth (AdamW holds 16 bytes a
-parameter).
+parameter).  At full width and a cut depth one 80 GB card trains
+deepseek_v2_lite (4 layers), starcoder2_15b (4), gemma3_4b (12: two
+whole local:global groups) and gemma2_9b (8), as ``chip_smoke.py`` does;
+one layer of qwen3_moe_235b; no layer of deepseek_v3_671b or grok1_314b
+(one grok layer's state is 79 GB: it waits for the FP8-split optimizer
+state or multi-GPU, ROADMAP.md Queue 1).
 """
 import argparse
 import time

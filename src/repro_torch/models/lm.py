@@ -2,7 +2,9 @@
 training forward with its loss, and the paged prefill / decode stacks.
 
 Counterpart of ``repro.models.lm`` for attention-only decoders: dense
-(qwen15_05b), all-MoE (qwen3_moe) and MoE behind a dense prologue with
+(qwen15_05b; starcoder2's ungated GELU MLP, LayerNorm and biases;
+gemma's GeGLU and local:global attention with softcaps), all-MoE
+(qwen3_moe, grok-1's GeGLU experts) and MoE behind a dense prologue with
 shared experts (DeepSeek).  Parameters keep the reference's stacked
 layout (``params["layers"][name]`` is (L, ...), the dense prologue's in
 ``params["dense_layers"]``), so ``repro_torch.weights.params_from_numpy``
@@ -12,7 +14,8 @@ architectures raise (ROADMAP.md, Queue 1, item 2).
 
 Dense MLPs and shared experts run ``core.linear.dense_mlp`` (the expert
 FFN as one group, so the recipe's FP8 pathway and kernels) in training
-and prefill, and ``_mlp_decode`` (bf16 products, f32 SwiGLU) in decode:
+and prefill, and ``_mlp_decode`` (bf16 products, the activation in f32)
+in decode:
 the reference engine's route (its mesh branch, ``lm.py:480-482``).
 
 Pools are updated IN PLACE (the reference returns new pools from a pure
@@ -23,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.linear import _bf16_matmul, _check_act, dense_mlp
+from repro_torch.core.linear import _bf16_matmul, _gelu_f32, dense_mlp
 from repro_torch.core.moe import MoEConfig, moe_block, moe_block_decode
 from repro_torch.core.quant import QTensor
 from repro_torch.core.recipes import Recipe
@@ -37,6 +40,17 @@ from repro_torch.serve.w8 import w8_merge_gate
 
 def layer_kinds(cfg: ArchConfig):
     return [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+
+
+def _pattern_or_fallback(pattern, n_layers: int, first=None):
+    """The reference's one rule for a stack's kinds: a pattern whose length
+    does not divide the stack depth degrades to one kind, its first (or
+    `first`: the paged stacks fall back to their first layer's kind,
+    ``repro/models/lm.py:1110-1111``).  Training and serving both resolve
+    their kinds here."""
+    if n_layers % len(pattern) == 0:
+        return tuple(pattern)
+    return (pattern[0] if first is None else first,)
 
 
 def _paged_stacks(cfg: ArchConfig):
@@ -74,7 +88,15 @@ def _stack_params(cfg: ArchConfig, n: int, moe_layer: bool, normal, dtype,
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     E, Fe, g = cfg.n_experts, cfg.d_ff_expert, cfg.gate_factor
     sc, sc_out = 0.02, 0.02 / cfg.n_layers ** 0.5
-    layers = {"ln1_s": zeros((D,)), "ln2_s": zeros((D,)),
+
+    def norm(name):
+        # RMSNorm scales 1 + s from zeros; LayerNorm scales from ones, and
+        # biases
+        if cfg.norm != "layernorm":
+            return {f"{name}_s": zeros((D,))}
+        return {f"{name}_s": zeros((D,)).fill_(1.0), f"{name}_b": zeros((D,))}
+
+    layers = {**norm("ln1"), **norm("ln2"),
               "wq": stacked((D, H * hd), sc, dtype),
               "wk": stacked((D, KV * hd), sc, dtype),
               "wv": stacked((D, KV * hd), sc, dtype),
@@ -110,10 +132,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                            device=dev).mul_(scale)
 
     D, Vp = cfg.d_model, cfg.vocab_padded
+    ln = cfg.norm == "layernorm"
     params = {
         "embed": normal((Vp, D), 0.02).to(dtype),
-        "final_norm_s": torch.zeros((D,), dtype=torch.float32, device=dev),
+        "final_norm_s": (torch.ones if ln else torch.zeros)(
+            (D,), dtype=torch.float32, device=dev),
     }
+    if ln:
+        params["final_norm_b"] = torch.zeros((D,), dtype=torch.float32,
+                                             device=dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, Vp), 0.02).to(dtype)
     if nd:
@@ -169,13 +196,19 @@ def _mlp_stage(cfg, recipe: Recipe, p, x):
 
 def _mlp_decode(cfg, p, x):
     """Forward-only dense MLP of decode: bf16 products (f32 sums rounded
-    once, as XLA's; cuBLAS on the card) around an f32 SwiGLU."""
-    _check_act(cfg.act)
+    once, as XLA's; cuBLAS on the card) around the activation in f32 --
+    gated SwiGLU or GeGLU, or ungated GELU or ReLU (the reference's
+    ``_mlp_decode``)."""
     B, S, D = x.shape
-    w13 = p["w13"]                                    # (D, 2, F)
-    F = w13.shape[-1]
-    h = _bf16_matmul(x, w13.reshape(D, 2 * F).to(x.dtype)).to(torch.float32)
-    a = torch.nn.functional.silu(h[..., :F]) * h[..., F:]
+    w13 = p["w13"]                                    # (D, g, F)
+    g, F = w13.shape[-2:]
+    h = _bf16_matmul(x, w13.reshape(D, g * F).to(x.dtype)).to(torch.float32)
+    if g == 2:
+        gt, up = h[..., :F], h[..., F:]
+        a = (torch.nn.functional.silu(gt) if cfg.act == "swiglu"
+             else _gelu_f32(gt)) * up
+    else:
+        a = _gelu_f32(h) if cfg.act == "gelu" else torch.relu(h)
     return _bf16_matmul(a.to(x.dtype), p["w2"].to(x.dtype))
 
 
@@ -250,8 +283,7 @@ def _run_stack(cfg, recipe, stack_params, pattern, n_layers, moe, x,
                positions):
     """The reference's scanned stack as a Python loop over layer slices;
     returns (x, the summed aux losses)."""
-    if n_layers % len(pattern):
-        pattern = (pattern[0],)
+    pattern = _pattern_or_fallback(pattern, n_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(_train_layer_slices(stack_params, n_layers)):
         x, a = _sub_layer(cfg, recipe, pattern[i % len(pattern)], moe, p, x,
@@ -349,8 +381,13 @@ def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, moe, x, pool,
     in-flight chunk, and with history=True (a chunked-prefill continuation)
     over the request's pages read back after this chunk's rows are written.
     A dense stack (moe=False) runs ``_mlp_stage`` in prefill and
-    ``_mlp_decode`` in decode."""
-    for i, kind in enumerate(stack_kinds):
+    ``_mlp_decode`` in decode.  The layers' kinds follow the reference's
+    fallback rule (``_pattern_or_fallback``): gemma3_4b's six-kind pattern
+    over 34 layers serves every layer local, as the reference does."""
+    n = len(stack_kinds)
+    pat = _pattern_or_fallback(cfg.pattern, n, first=stack_kinds[0])
+    for i in range(n):
+        kind = pat[i % len(pat)]
         pi = layer_slice(stack_params, i)
         kc = {name: t[i] for name, t in pool["k"].items()}
         vc = {name: t[i] for name, t in pool["v"].items()}

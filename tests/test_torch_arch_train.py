@@ -75,10 +75,12 @@ def _batch_np(cfg):
         JDataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8), 0).items()}
 
 
-def _reference(arch, name):
+def _reference(arch, name, cut=None):
     """(loss, grads by path, params, batch, ledger by tag, the expert ids
-    of each router call) of the reference's jitted value_and_grad."""
-    jcfg = dataclasses.replace(jget_arch(arch).reduced(), remat_policy="none")
+    of each router call) of the reference's jitted value_and_grad, on
+    reduced() with the fields of `cut` replaced."""
+    jcfg = dataclasses.replace(jget_arch(arch).reduced(), remat_policy="none",
+                               **(cut or {}))
     params = jinit_params(jcfg, jax.random.key(0))
     batch = _batch_np(jcfg)
     mesh = make_mesh11()
@@ -110,14 +112,14 @@ def _reference(arch, name):
             jax.tree.map(np.asarray, params), batch, +led, ids)
 
 
-def _port(arch, recipe, params_np, batch_np, ids_by_call=None):
+def _port(arch, recipe, params_np, batch_np, ids_by_call=None, cut=None):
     """(loss, grads by path, ledger by tag, [(ids, gaps)] a router call),
     routed by its own router or, with `ids_by_call`, to those expert ids
     (chip_smoke.routed: the port's router with only its top-k replaced,
     the helper chip_smoke.py's GPU-vs-CPU check uses)."""
     sys.path.insert(0, str(ROOT))
     from chip_smoke import routed
-    cfg = get_arch(arch).reduced()
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **(cut or {}))
     params = params_from_numpy(params_np, device="cpu")
     for p in tree_leaves(params):
         p.requires_grad_()

@@ -1,0 +1,301 @@
+"""The local:global decoders served against the JAX reference on the CPU:
+gemma3_4b (GeGLU, qk-norm, a 5 local : 1 global pattern, the tied
+embedding) and gemma2_9b (GeGLU, local:global, attention softcap 50 and
+final softcap 30), at reduced() size with the reference's
+init_params(key(0)) carried across bit for bit.
+
+reduced() sets window 64, longer than any prompt here, so the local mask
+would never bite: both packages get window 8 (the 9-token prompt and its
+3 decode steps reach position 11), and gemma3_4b 6 layers, one whole
+pattern group (at 2 layers the fallback below makes every layer local).
+The bars are tests/test_torch_archs.py's: the trees and W8 trees bit for
+bit, teacher-forced served logits at cosine >= 0.999 with the same
+argmax against route A (the engine's: 1x1 mesh, W8, XLA) and route B
+(no mesh, bf16 weights, Pallas in interpret mode), and route A's prefill
+cast ledger.  Also: a chunked prefill whose second chunk attends to the
+first through the pages (``history=True``) across the window.
+
+The pattern fallback: a pattern whose length does not divide the stack
+depth degrades to its first kind, in the reference's training and paged
+serving alike (``repro/models/lm.py:632-639, :1110-1111``).  gemma3_4b at
+8 layers therefore serves every layer local in the reference, and so must
+the port: its served logits match the reference's and every attention
+call runs with the window."""
+import contextlib
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jget_arch
+from repro.core.recipes import get_recipe as jget_recipe
+from repro.models.lm import NO_PLAN, ParallelPlan
+from repro.models.lm import init_params as jinit_params
+from repro.models.lm import paged_prefill as jpaged_prefill
+from repro.serve.paged_kv import init_paged_cache as jinit_paged_cache
+from repro.serve.w8 import quantize_params_for_serving as jquantize_w8
+from repro_torch.configs import get_arch
+from repro_torch.core.quant import QTensor
+from repro_torch.core.recipes import get_recipe
+from repro_torch.models import lm
+from repro_torch.models.lm import init_params, paged_prefill
+from repro_torch.serve.paged_kv import init_paged_cache
+from repro_torch.serve.w8 import quantize_params_for_serving
+from repro_torch.weights import params_from_numpy
+from test_torch_archs import _bits, _fields, _named
+from test_torch_serve import (NEAR_TIE, PROMPT, STEPS, _cos, _np_tree,
+                              _port_teacher_forced, _ref_teacher_forced)
+from tests.conftest import make_mesh11
+
+# each config's cut (both packages), and the token seed of its prompt:
+# tests/test_torch_archs.py's seed 2, and for grok1_314b seed 4, the first
+# of seeds 1-7 with no router gap below 1e-3 (seed 2 has one of 2.9e-4)
+CUTS = {"gemma3_4b": dict(window=8, n_layers=6),
+        "gemma2_9b": dict(window=8),
+        "starcoder2_15b": {},
+        "grok1_314b": {}}
+TOKEN_SEEDS = {"gemma3_4b": 2, "gemma2_9b": 2, "starcoder2_15b": 2,
+               "grok1_314b": 4}
+
+
+def configs(arch, **cut):
+    """(reference config, port config): reduced(), then `cut`."""
+    return (dataclasses.replace(jget_arch(arch).reduced(), **cut),
+            dataclasses.replace(get_arch(arch).reduced(), **cut))
+
+
+def tokens(cfg, seed):
+    return [int(t) for t in np.random.default_rng(seed).integers(
+        1, cfg.vocab, PROMPT + STEPS)]
+
+
+def serve_case(arch):
+    """Route A, route B and the port (W8, fp8_flow) on the arch's token
+    seed, with the trees they ran on."""
+    jcfg, cfg = configs(arch, **CUTS[arch])
+    jparams = jinit_params(jcfg, jax.random.key(0))
+    jw8 = jquantize_w8(jparams)
+    params = params_from_numpy(_np_tree(jparams), device="cpu")
+    toks = tokens(cfg, TOKEN_SEEDS[arch])
+    mesh = make_mesh11()
+    return dict(
+        cfg=cfg, jcfg=jcfg, jparams=jparams, jw8=jw8, params=params,
+        mesh=mesh, toks=toks,
+        A=_ref_teacher_forced(jcfg, jget_recipe("fp8_flow"),
+                              ParallelPlan(mesh=mesh, dp_axes=("data",)),
+                              jw8, mesh, toks),
+        B=_ref_teacher_forced(jcfg, jget_recipe("fp8_flow", use_pallas=True),
+                              NO_PLAN, jparams, contextlib.nullcontext(),
+                              toks),
+        port=_port_teacher_forced(cfg, quantize_params_for_serving(params),
+                                  toks))
+
+
+def groups(cfg):
+    """How many times the port runs a layer of each scanned group of the
+    reference: the main stack's depth over its resolved pattern's length
+    (the reference's trace-time ledger sees one group)."""
+    n = cfg.n_layers - (cfg.n_dense_layers if cfg.moe else 0)
+    return n // len(lm._pattern_or_fallback(cfg.pattern, n))
+
+
+def check_trees(s):
+    """The port's init_params builds the reference's tree (paths, shapes,
+    dtypes, and the LayerNorm scales, biases and zero-init leaves' values);
+    params_from_numpy carries the reference's params and W8 trees bit for
+    bit, and the port's W8 quantize is the reference's."""
+    ref = _named(_np_tree(s["jparams"]))
+    mine = _named(init_params(s["cfg"], seed=0, device="cpu"))
+    assert {p: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for p, t in mine.items()} == \
+        {p: (tuple(a.shape), np.dtype(a.dtype).name) for p, a in ref.items()}
+    for path, t in mine.items():
+        if path.split("/")[-1] in ("ln1_s", "ln1_b", "ln2_s", "ln2_b",
+                                   "final_norm_s", "final_norm_b", "bq", "bk",
+                                   "bv", "q_norm", "k_norm"):
+            assert np.array_equal(t.numpy(), ref[path]), path
+    for tree in (s["jparams"], s["jw8"]):
+        ref = _named(_np_tree(tree))
+        got = _named(params_from_numpy(_np_tree(tree), device="cpu"))
+        assert got.keys() == ref.keys()
+        for path, t in got.items():
+            (ts, tile), (rs, rtile) = _fields(t), _fields(ref[path])
+            assert tile == rtile, path
+            for a, b in zip(ts, rs):
+                a = _bits(a).numpy()
+                assert np.array_equal(
+                    a, np.ascontiguousarray(b).view(a.dtype)), path
+    mine = _named(quantize_params_for_serving(s["params"]))
+    ref = _named(params_from_numpy(_np_tree(s["jw8"]), device="cpu"))
+    assert mine.keys() == ref.keys()
+    w8 = sorted(p for p, t in mine.items() if isinstance(t, QTensor))
+    assert w8 == (["layers/we13", "layers/we2"] if s["cfg"].moe else [])
+    for path, t in mine.items():
+        (ts, tile), (rs, rtile) = _fields(t), _fields(ref[path])
+        assert tile == rtile, path
+        for a, b in zip(ts, rs):
+            assert torch.equal(_bits(a), _bits(b)), path
+
+
+def check_logits(s, route):
+    ref, _ = s[route]
+    port, _, gaps = s["port"]
+    assert min(gaps) >= NEAR_TIE, gaps
+    for step, (a, b) in enumerate(zip(port, ref)):
+        assert np.isfinite(a).all()
+        assert _cos(a, b) >= 0.999, (route, step, _cos(a, b))
+        assert int(a.argmax()) == int(b.argmax()), (route, step)
+
+
+def check_ledger(s):
+    """Route A's prefill events once a layer of the group it traced, less
+    the XLA route's inner SwiGLU quantize (the port's fused kernel records
+    none; both record the inner quantize of ``act_quant``); one entry
+    quantize an MLP, and a non-SwiGLU activation's ``act_quant`` in place
+    of ``swiglu_quant``."""
+    _, ref = s["A"]
+    _, port, _ = s["port"]
+    cfg = s["cfg"]
+    ref = {k: v * groups(cfg) for k, v in ref.items()}
+
+    def outer(led):
+        return {k: v for k, v in led.items() if not k[0].endswith("_inner")}
+
+    assert outer(port) == outer(ref)
+    if cfg.act != "swiglu":         # both record act_quant's inner event
+        inner = ("fused_quantize_inner", "act_quant")
+        assert port[inner] == ref[inner] == cfg.n_layers
+    assert port[("quantize", "q_entry")] == cfg.n_layers
+    act = ("fused_quantize", "swiglu_quant" if cfg.act == "swiglu"
+           else "act_quant")
+    assert port[act] == cfg.n_layers
+
+
+@pytest.fixture(scope="module", params=["gemma3_4b", "gemma2_9b"])
+def served(request):
+    return serve_case(request.param)
+
+
+def test_trees_carry_across_bitwise(served):
+    check_trees(served)
+
+
+@pytest.mark.parametrize("route", ["A", "B"])
+def test_teacher_forced_logits_match_reference(served, route):
+    check_logits(served, route)
+
+
+def test_prefill_cast_ledger_matches_reference(served):
+    check_ledger(served)
+
+
+def test_local_layers_use_the_window(served):
+    """Every layer of the pattern is served with its kind: the local ones
+    with the window (8), the global ones without."""
+    cfg = served["cfg"]
+    seen = []
+    orig = lm.flash_attention
+
+    def flash(*a, window=0, **kw):
+        seen.append(window)
+        return orig(*a, window=window, **kw)
+
+    params = quantize_params_for_serving(served["params"])
+    pools = init_paged_cache(cfg, 32, 8, fp8_kv=True, device="cpu")
+    row = torch.tensor([1, 2, 0, 0, 0, 0, 0, 0])
+    tk = torch.zeros((1, 16), dtype=torch.int64)
+    tk[0, :PROMPT] = torch.tensor(served["toks"][:PROMPT])
+    with pytest.MonkeyPatch.context() as mp, torch.inference_mode():
+        mp.setattr(lm, "flash_attention", flash)
+        paged_prefill(cfg, get_recipe("fp8_flow"), params, pools, row, tk,
+                      PROMPT)
+    assert seen == [cfg.window if k == "local" else 0
+                    for k in lm.layer_kinds(cfg)]
+    assert 0 in seen and cfg.window in seen
+
+
+def _chunked(cfg, toks, prefill, init_cache, asarray, ctx):
+    """A 12-token prompt prefilled as two chunks of 8 and 4 into pages 1
+    and 2, the second attending to the first through the pages; the last
+    chunk's logits."""
+    pools = init_cache(cfg, 32, 8)
+    row = asarray(np.asarray([1, 2, 0, 0, 0, 0, 0, 0], np.int32))
+    out = None
+    with ctx:
+        for start, n in ((0, 8), (8, 4)):
+            tk = np.zeros((1, 8), np.int32)
+            tk[0, :n] = toks[start:start + n]
+            out, pools = prefill(pools, row, asarray(tk), n, start,
+                                 start > 0)
+    return np.asarray(out[0, -1], np.float32)
+
+
+def test_chunked_prefill_across_the_window(served):
+    """A prompt longer than the window prefilled in two chunks (the second
+    with history=True): the port's last logits against route A's."""
+    cfg, jcfg, mesh = served["cfg"], served["jcfg"], served["mesh"]
+    toks = served["toks"]
+    plan = ParallelPlan(mesh=mesh, dp_axes=("data",))
+
+    def jprefill(pools, row, tk, n, start, history):
+        return jpaged_prefill(jcfg, jget_recipe("fp8_flow"), plan,
+                              served["jw8"], pools, row, tk, jnp.int32(n),
+                              jnp.int32(start), history=history)
+
+    params = quantize_params_for_serving(served["params"])
+
+    def prefill(pools, row, tk, n, start, history):
+        with torch.inference_mode():
+            return paged_prefill(cfg, get_recipe("fp8_flow"), params, pools,
+                                 row, tk, n, start, history).float(), pools
+
+    ref = _chunked(jcfg, toks, jprefill,
+                   lambda c, n, ps: jinit_paged_cache(c, n, ps, fp8_kv=True),
+                   jnp.asarray, mesh)
+    got = _chunked(cfg, toks, prefill,
+                   lambda c, n, ps: init_paged_cache(c, n, ps, fp8_kv=True,
+                                                     device="cpu"),
+                   lambda a: torch.from_numpy(a).long(),
+                   contextlib.nullcontext())
+    assert np.isfinite(got).all()
+    assert _cos(got, ref) >= 0.999, _cos(got, ref)
+    assert int(got.argmax()) == int(ref.argmax())
+
+
+def test_pattern_fallback_serves_every_layer_local():
+    """gemma3_4b at 8 layers (8 % 6 != 0): the reference serves every
+    layer local, so the port's served logits match route B's only if it
+    does too, and every attention call of its prefill and decode steps
+    carries the window."""
+    jcfg, cfg = configs("gemma3_4b", window=8, n_layers=8)
+    jparams = jinit_params(jcfg, jax.random.key(0))
+    params = params_from_numpy(_np_tree(jparams), device="cpu")
+    toks = tokens(cfg, 2)
+    ref, _ = _ref_teacher_forced(
+        jcfg, jget_recipe("fp8_flow", use_pallas=True), NO_PLAN, jparams,
+        contextlib.nullcontext(), toks)
+    windows = []
+    flash, dec = lm.flash_attention, lm.decode_attention
+
+    def record(fn):
+        def wrapped(*a, window=0, **kw):
+            windows.append(window)
+            return fn(*a, window=window, **kw)
+        return wrapped
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lm, "flash_attention", record(flash))
+        mp.setattr(lm, "decode_attention", record(dec))
+        port, _, _ = _port_teacher_forced(
+            cfg, quantize_params_for_serving(params), toks)
+    assert len(windows) == cfg.n_layers * (1 + STEPS)
+    assert set(windows) == {cfg.window}, windows
+    for step, (a, b) in enumerate(zip(port, ref)):
+        assert _cos(a, b) >= 0.999, (step, _cos(a, b))
+        assert int(a.argmax()) == int(b.argmax()), step
+    # the training stack resolves its kinds by the same rule
+    assert lm._pattern_or_fallback(cfg.pattern, cfg.n_layers) == ("local",)
+    assert lm._pattern_or_fallback(cfg.pattern, 12) == cfg.pattern

@@ -1238,3 +1238,152 @@ def test_deepseek_v2_lite_engine_on_card(card):
         assert all(launches[name][k] > 0 for k in run), launches[name]
         assert all(n == 0 for k, n in launches[name].items()
                    if k not in run), launches[name]
+
+
+# ---------------------------------------------------------------------------
+# GeGLU, GELU and ReLU FFNs: the activation in plain PyTorch, then #1.
+# ---------------------------------------------------------------------------
+# the kernels of a non-SwiGLU FFN's forward and backward: no #8 and no #7
+# (the activation is computed in f32 and quantized by #1, ``act_quant``)
+ACT_TRAIN_KERNELS = dict(DENSE_TRAIN_KERNELS, fp8_flow=(
+    "quantize_rowwise", "grouped_gemm_fp8", "fp8_transpose",
+    "grouped_gemm_nt_fp8", "grouped_gemm_fp8_quant_out"))
+ACT_MASKED_KERNELS = ("quantize_rowwise", "fp8_transpose",
+                      "masked_grouped_gemm_fp8",
+                      "masked_grouped_gemm_fp8_quant_out",
+                      "masked_grouped_gemm_nt_fp8")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recipe", list(ACT_TRAIN_KERNELS) + ["masked"])
+@pytest.mark.parametrize("act", ["geglu", "gelu", "relu"])
+def test_act_expert_ffn_on_card_matches_cpu(card, act, recipe):
+    """The expert FFN (E = 4, C = 256, K = 2048, F = 1408; the masked
+    recipe with per-expert counts 256 / 100 / 0 / 17 and dead rows zero)
+    on the card against its plain twins on the CPU, forward and backward:
+    cosine >= 0.999 everywhere, through exactly the recipe's kernels."""
+    from repro_torch import kernels
+    from repro_torch.core.linear import expert_ffn, quantize_entry
+    from repro_torch.core.recipes import get_recipe
+
+    masked = recipe == "masked"
+    r = get_recipe("fp8_flow", masked_experts=True, swiglu_epilogue=True) \
+        if masked else get_recipe(recipe)
+    g = 2 if act == "geglu" else 1
+    E, C, K, F = 4, 256, 2048, 1408
+    rng = np.random.default_rng(23)
+    mm = np.asarray([256, 100, 0, 17], np.int32)
+    live = (np.arange(C)[None, :] < mm[:, None]).astype(np.float32)[..., None]
+    inputs = (torch.from_numpy(rng.normal(size=(E, C, K)).astype(np.float32)
+                               * live).to(torch.bfloat16),
+              torch.from_numpy(rng.normal(size=(E, K, g * F)).astype(
+                  np.float32) * 0.03).to(torch.bfloat16),
+              torch.from_numpy(rng.normal(size=(E, F, K)).astype(np.float32)
+                               * 0.03).to(torch.bfloat16))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        x, w13, w2 = (a.to(dev).clone().requires_grad_() for a in inputs)
+        kernels.reset_launches()
+        xi = quantize_entry(r, x) if r.name == "fp8_flow" else x
+        y = expert_ffn(r, act, xi, w13, w2,
+                       torch.from_numpy(mm).to(dev) if masked else None)
+        wl = torch.from_numpy(live).to(dev)
+        ((y.to(torch.float32) * wl) ** 2).sum().backward()
+        out[dev.type] = [a.detach().float().cpu()
+                         for a in (y, x.grad, w13.grad, w2.grad)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+    run = ACT_MASKED_KERNELS if masked else ACT_TRAIN_KERNELS[recipe]
+    assert all(launches[k] > 0 for k in run), launches
+    assert all(n == 0 for k, n in launches.items() if k not in run), launches
+    for name, a, b in zip(("y", "gx", "wg13", "wg2"), out["cuda"],
+                          out["cpu"]):
+        assert a.isfinite().all() and a.abs().max() > 0, name
+        assert _cosine(a, b) >= 0.999, (name, _cosine(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["geglu", "gelu", "relu"])
+def test_act_dense_mlp_on_card_matches_cpu(card, act):
+    """dense_mlp in fp8_flow (T = 200 padded to 256, D 2048, F 2816) on the
+    card against the CPU: cosine >= 0.999, exactly the non-SwiGLU kernels,
+    and the masked recipe (no expert plan: the padded kernels) the padded
+    one bit for bit on the card."""
+    from repro_torch import kernels
+    from repro_torch.core.linear import dense_mlp
+    from repro_torch.core.recipes import get_recipe
+
+    g = 2 if act == "geglu" else 1
+    rng = np.random.default_rng(24)
+    inputs = (torch.from_numpy(rng.normal(size=(200, 2048)).astype(
+                  np.float32)).to(torch.bfloat16),
+              torch.from_numpy(rng.normal(size=(2048, g * 2816)).astype(
+                  np.float32) * 0.03).to(torch.bfloat16),
+              torch.from_numpy(rng.normal(size=(2816, 2048)).astype(
+                  np.float32) * 0.03).to(torch.bfloat16))
+    out = {}
+    for key, dev, kw in (("cuda", card, {}), ("cpu", torch.device("cpu"), {}),
+                         ("masked", card, dict(masked_experts=True,
+                                               swiglu_epilogue=True))):
+        x, w13, w2 = (a.to(dev).clone().requires_grad_() for a in inputs)
+        kernels.reset_launches()
+        y = dense_mlp(get_recipe("fp8_flow", **kw), act, x, w13, w2)
+        y.backward((2 * y.detach().to(torch.float32)).to(y.dtype))
+        out[key] = [a.detach().float().cpu()
+                    for a in (y, x.grad, w13.grad, w2.grad)]
+        if key == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+    run = ACT_TRAIN_KERNELS["fp8_flow"]
+    assert all(launches[k] > 0 for k in run), launches
+    assert all(n == 0 for k, n in launches.items() if k not in run), launches
+    for name, a, b, m in zip(("y", "gx", "wg13", "wg2"), out["cuda"],
+                             out["cpu"], out["masked"]):
+        assert a.isfinite().all() and a.abs().max() > 0, name
+        assert _cosine(a, b) >= 0.999, (name, _cosine(a, b))
+        assert torch.equal(a, m), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["grok1_314b", "gemma2_9b"])
+def test_geglu_engine_on_card(card, arch):
+    """A short reduced() trace of grok1_314b (GeGLU experts) or gemma2_9b
+    (GeGLU, local:global with window 8, softcaps) through the engine on
+    the card: every request finishes, every page comes back, no #7 or #8
+    runs, and the masked recipe generates the padded recipe's tokens."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.scheduler import Request
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), window=8)
+    ecfg = ServeConfig(max_batch=4, page_size=8, n_pages=32,
+                       max_pages_per_req=4, token_budget=128,
+                       prefill_buckets=(16,), w8_weights=True)
+    r = np.random.default_rng(7)
+    prompts = [[int(v) for v in r.integers(1, cfg.vocab,
+                                           int(r.integers(4, 14)))]
+               for _ in range(5)]
+    tokens, launches = {}, {}
+    for name, kw in (("padded", {}), ("masked", dict(
+            masked_experts=True, swiglu_epilogue=True))):
+        eng = ServeEngine(cfg, get_recipe("fp8_flow", **kw),
+                          init_params(cfg, seed=0, device="cpu"), ecfg,
+                          device=card)
+        reqs = [Request(prompt=p, max_new_tokens=4) for p in prompts]
+        kernels.reset_launches()
+        res = eng.run(reqs, realtime=False)
+        launches[name] = dict(kernels.LAUNCHES)
+        assert all(len(res[q.rid]["tokens"]) == 4 for q in reqs)
+        assert eng.alloc.free_pages == ecfg.n_pages - 1
+        tokens[name] = [res[q.rid]["tokens"] for q in reqs]
+    assert tokens["masked"] == tokens["padded"]
+    assert all(launches[n]["fused_swiglu_quant"] == 0 and launches[n][
+        "masked_grouped_gemm_swiglu_quant"] == 0 for n in launches), launches
+    assert launches["padded"]["grouped_gemm_fp8"] > 0
+    assert launches["padded"]["quantize_rowwise"] > 0

@@ -26,7 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 configs = {f"repro_torch.configs.{a}" for a in (
-    "qwen3_moe_235b", "qwen15_05b", "deepseek_v2_lite", "deepseek_v3_671b")}
+    "qwen3_moe_235b", "qwen15_05b", "deepseek_v2_lite", "deepseek_v3_671b",
+    "starcoder2_15b", "gemma3_4b", "gemma2_9b", "grok1_314b")}
 assert configs <= set(names), sorted(configs - set(names))
 import chip_profile, chip_smoke
 bad = sorted(m for m in sys.modules
