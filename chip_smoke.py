@@ -131,6 +131,28 @@ Phases (any failure raises and the script exits non-zero):
      masked (bit for bit the padded losses), 2 casts a layer a step;
  17. GPU path vs CPU path at reduced() size (the gemmas at window 8) for
      the four: serve logits, and all five train paths as phase 7;
+ 18. the configs the paged engine refuses, served whole through
+     serve.serve_step: mamba2_27b (64 SSD mixer layers: no kernel of the
+     port), hymba_15b (32 hybrid layers), seamless_m4t_v2 (24 encoder +
+     24 decoder layers; its cross cache filled from its encoder) and
+     llava_next_34b (60 layers, 64 GiB of bf16 weights): make_prefill
+     timed (llava's at 2 x (2880-row prefix + 192 tokens)), then 8
+     requests' 16-token prompts fed through make_serve_step at one
+     shared position and 16 greedy tokens, through exactly their kernels
+     (#1, #3, #8 in hymba's and llava's prefill, #1 and #3 in seamless's;
+     none in decode), with tokens/s, ms a step, peak memory,
+     tokens_sha256;
+ 19. their kernels at the shapes those paths give them, as phase 11:
+     hymba's, seamless's (decoder and encoder) and llava's prefill MLPs
+     (llava's GEMM-1 at 6144 x 7168 x 40960) and their train steps;
+ 20. the four trained as phase 6 in fp8_flow at full width (mamba2 52 of
+     64 layers, hymba and seamless whole, llava 4 of 60 at batch 1 with
+     its prefix) and hymba in bf16: losses falling, 2 casts a dense MLP a
+     step (the encoder's too), exactly their kernels;
+ 21. GPU path vs CPU path at reduced() size for the four: make_prefill
+     and four decode steps' logits, and fp8_flow training as phase 7
+     (seamless's fp8_flow gradients at the six-layer bar 0.998, its bf16
+     and hymba's bf16 at 0.999);
   9. the {"kernels": [...]} summary line (the eleven kernels and #1's
      linear mode, with the new shapes' rows), then the result line.
 It imports nothing of JAX or the JAX package.
@@ -241,11 +263,15 @@ CASTS_PER_MLP = {"bf16": 0, "blockwise": 8, "naive_fp8": 10, "fp8_flow": 2}
 
 
 def casts_per_step(cfg, name):
-    """Activation casts of one train step of `cfg` with recipe `name`."""
-    nd = cfg.n_dense_layers if cfg.moe else cfg.n_layers
+    """Activation casts of one train step of `cfg` with recipe `name`: its
+    dense MLPs (none in mamba2's mixer-only layers; an encoder-decoder's
+    encoder layers have one each) and its MoE blocks."""
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
+    n_mlp = (cfg.n_layers - n_moe if cfg.d_ff else 0) + (
+        cfg.n_enc_layers if cfg.encdec else 0)
     moe_layer = CASTS_PER_LAYER[name] + (
         CASTS_PER_MLP[name] if cfg.n_shared_experts else 0)
-    return nd * CASTS_PER_MLP[name] + (cfg.n_layers - nd) * moe_layer
+    return n_mlp * CASTS_PER_MLP[name] + n_moe * moe_layer
 
 
 MASKED = dict(masked_experts=True, swiglu_epilogue=True)
@@ -1355,8 +1381,11 @@ def make_train(cfg, dev, label="train"):
     opt = AdamWConfig(lr=1e-3)
     state = init_train_state(cfg, opt, seed=0, device=dev)
     step = make_train_step(cfg, recipe_for(label), opt)
-    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
-                                  global_batch=TRAIN_B), 0, device=dev)
+    B, S = TRAIN_SHAPES.get(label.partition("_")[0], (TRAIN_B, TRAIN_S))
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B), 0, device=dev)
+    batch.update(stub_inputs(cfg, B, S, torch.Generator(
+        device=dev).manual_seed(7), dev))
     return state, step, batch
 
 
@@ -1436,13 +1465,16 @@ def train_path(cfg, dev, label="train", padded_losses=None):
                                                       TRAIN_LOSSES[label])),
               f"{label}: losses {losses}, not {TRAIN_LOSSES[label]} as "
               "before")
-    tokens = TRAIN_B * TRAIN_S
+    B, S = batch["tokens"].shape
+    tokens = B * S
     warm = step_s[1:]
     print(json.dumps({label: dict(
         config=f"{cfg.name} n_layers={cfg.n_layers} full width",
         recipe=recipe.name,
         params=sum(p.numel() for p in tree_leaves(state["params"])),
-        batch=[TRAIN_B, TRAIN_S], steps=TRAIN_STEPS, losses=losses,
+        batch=[B, S], stub_rows={k: batch[k].shape[1] for k in (
+            "prefix", "enc_input") if k in batch},
+        steps=TRAIN_STEPS, losses=losses,
         grad_norms=gnorms, step_s=step_s, init_s=init_s,
         ms_per_step_warm=1e3 * statistics.mean(warm),
         tokens_per_s_warm=tokens / statistics.mean(warm),
@@ -1600,7 +1632,7 @@ def experts_checked(E, per_expert):
     return E
 
 
-def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms):
+def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms, T=None):
     """Every kernel of `cfg`'s padded fp8_flow `path` at the shapes that
     path gives it, each against its twin to its gate and timed as phases
     2 and 5.  `path` is "train" (one step of TRAIN_B x TRAIN_S tokens),
@@ -1615,15 +1647,20 @@ def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms):
     and Wgrad-2 (contracting C = 2048 tokens at E = 1: past the two
     cached b slots of csrc/grouped_gemm_nt_fp8.cu, which then turn over),
     #3 Dgrad-2 and #4 Dgrad-1.  Then #1's entry quantize and, for routed
-    experts, #1's backward island and #2's layouts, as phases 2 and 5."""
+    experts, #1's backward island and #2's layouts, as phases 2 and 5.
+    `T` replaces the path's token count (a serve_step prefill's B x S, an
+    encoder's rows); a config without an MLP (mamba2_27b) has no row."""
     from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
 
     gen = torch.Generator(device=dev).manual_seed(6)
     record = KernelRows(peaks, floor_ms)
-    D, train, g = cfg.d_model, path == "train", cfg.gate_factor
-    T = {"train": TRAIN_B * TRAIN_S, "prefill": 64, "decode": 8}[path]
+    # dense_mlp zero-pads D to the 128-tile (hymba_15b's 1600 -> 1664)
+    D, train, g = _round_up(cfg.d_model, 128), path == "train", \
+        cfg.gate_factor
+    if T is None:
+        T = {"train": TRAIN_B * TRAIN_S, "prefill": 64, "decode": 8}[path]
     groups = []                                 # (kind, E, C, F)
-    if path != "decode":
+    if path != "decode" and cfg.d_ff:
         if not cfg.moe or cfg.n_dense_layers:
             groups.append(("dense", 1, _round_up(T, 128), cfg.d_ff))
         if cfg.moe and cfg.n_shared_experts:
@@ -1731,8 +1768,12 @@ def mlp_leaves(cfg):
     """The leaves whose CPU gradient must be nonzero: the expert and
     router weights, the dense layers' and the shared experts' MLP, or a
     dense model's MLP."""
+    if not cfg.d_ff and not cfg.moe:             # mamba2: the mixer only
+        return ["layers/in_proj", "layers/out_proj", "layers/conv_w"]
     if not cfg.moe:
-        return ["layers/w13", "layers/w2"]
+        return ["layers/w13", "layers/w2"] + (
+            ["enc_layers/w13", "enc_layers/w2", "cross_layers/wk"]
+            if cfg.encdec else [])
     return (["layers/we13", "layers/we2", "layers/w_router"]
             + (["layers/ws13", "layers/ws2"] if cfg.n_shared_experts else [])
             + (["dense_layers/w13", "dense_layers/w2"]
@@ -1817,6 +1858,7 @@ def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
     opt = AdamWConfig(lr=1e-3)
     batch_np = make_batch_np(DataConfig(vocab=cfg.vocab, seq_len=64,
                                         global_batch=8), 0)
+    batch_np.update(stub_inputs_np(cfg, 8, 64))
     out, grads, calls = {}, {}, {}
 
     def grads_of(name, d, route=None):
@@ -1828,7 +1870,10 @@ def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
         with routed(route) as calls[name]:
             loss, _ = forward(cfg, recipe, state["params"], batch)
             loss.backward()
-        grads[name] = {path: p.grad.float().cpu()
+        # a leaf the forward never reads (mamba2's ln2) has no gradient:
+        # jax.grad's zeros
+        grads[name] = {path: torch.zeros(p.shape) if p.grad is None
+                       else p.grad.float().cpu()
                        for path, p in named_leaves(state["params"])}
         for _, p in named_leaves(state["params"]):
             p.grad = None
@@ -1876,8 +1921,230 @@ def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
     check(all(grads["cpu"][p].abs().max().item() > 0 for p in need),
           f"an MLP, expert or router leaf's gradient is zero on the CPU "
           f"path: {need}")
-    low = {p: c for p, c in cos.items() if not c >= GRAD_COSINE_MIN}
-    check(not low, f"GPU vs CPU gradient cosine < {GRAD_COSINE_MIN}: {low}")
+    bar = DEEP_GRAD_COSINE if arch in FP8_DEEP_ARCHS \
+        and recipe.name != "bf16" else GRAD_COSINE_MIN
+    low = {p: c for p, c in cos.items() if not c >= bar}
+    check(not low, f"GPU vs CPU gradient cosine < {bar}: {low}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 18-21: the SSM, hybrid, encoder-decoder and frontend configs.
+# ---------------------------------------------------------------------------
+# mamba2_27b (mixer-only SSM layers: no FP8 site, no kernel of the port,
+# as in the reference), hymba_15b (attention + Mamba2 mixer, SwiGLU MLP),
+# seamless_m4t_v2 (encoder-decoder, ReLU MLPs, in the encoder too) and
+# llava_next_34b (a 2880-row vision prefix in front of the tokens, SwiGLU
+# MLP).  The paged engine refuses all four, as the reference's does; they
+# serve through serve.serve_step (make_prefill, then make_serve_step over
+# a dense cache at one shared position).
+ARCH_TAGS.update({"m2": "mamba2_27b", "hy": "hymba_15b",
+                  "sm": "seamless_m4t_v2", "lv": "llava_next_34b"})
+PATH_KERNELS.update({
+    "m2_serve": (), "m2_train": (),
+    "hy_serve": PATH_KERNELS["qwen15_serve"],
+    "hy_train": PATH_KERNELS["qwen15_train"], "hy_bf16_train": (),
+    "sm_serve": ACT_MLP_KERNELS["serve"], "sm_train": ACT_MLP_KERNELS["train"],
+    "lv_serve": PATH_KERNELS["qwen15_serve"],
+    "lv_train": PATH_KERNELS["qwen15_train"]})
+# the serve path: SERVE_B requests, SERVE_PROMPT-token prompts fed through
+# the serve step at positions 0.., then SERVE_NEW greedy tokens; the
+# encoder-decoder's input has SERVE_ENC rows (its cross cache holds as
+# many: the cache is SERVE_PROMPT + SERVE_NEW long)
+SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_ENC = 8, 16, 16, 32
+# llava's prefill batch: its 2880-row prefix and 192 tokens (3072 rows, a
+# multiple of the flash block of 256) for LLAVA_PREFILL_B requests
+LLAVA_PREFILL_B, LLAVA_TOKENS = 2, 192
+# the stub frontend and encoder inputs: N(0, 1) x STUB_SCALE
+STUB_SCALE = 0.5
+# train batches other than TRAIN_B x TRAIN_S: llava at batch 1 with its
+# prefix (1 x (2880 + 192) rows)
+TRAIN_SHAPES = {"lv": (1, LLAVA_TOKENS)}
+# depths trained, each config's deepest with ~6 GiB of the card's 79.18
+# GiB to spare (chip_depths.py, one fp8_flow step: mamba2_27b 52 layers
+# 73.31 GiB, 54 76.07, 56 out of memory; llava_next_34b 4 layers 72.92;
+# hymba_15b and seamless_m4t_v2 whole, 56.45 and 52.95; PERF.md section
+# 4); every one serves whole
+NEW_TRAIN_LAYERS = {"m2": 52, "hy": 32, "sm": 24, "lv": 4}
+# seamless_m4t_v2's reduced() encoder sits under both decoder layers'
+# cross-attention, four FP8 MLPs deep: its fp8_flow gradients on the two
+# devices meet at the six-layer bar of the CPU tests (DEEP_GRAD_COSINE in
+# tests/test_torch_train_gelu_moe.py; the port against itself with a
+# last-bit change reads 0.99889 on enc_layers/ln2_s there), and its bf16
+# gradients at GRAD_COSINE_MIN
+DEEP_GRAD_COSINE, FP8_DEEP_ARCHS = 0.998, ("seamless_m4t_v2",)
+
+
+def stub_inputs(cfg, B, S, gen, dev):
+    """The frontend's stub prefix (B, frontend_len, D) and an encoder-
+    decoder's input (B, S, D), bf16, from `gen` (the batch keys forward
+    reads)."""
+    shapes = {}
+    if cfg.frontend != "none" and cfg.frontend_len:
+        shapes["prefix"] = (B, cfg.frontend_len, cfg.d_model)
+    if cfg.encdec:
+        shapes["enc_input"] = (B, S, cfg.d_model)
+    return {k: (torch.randn(shape, generator=gen, device=dev)
+                * STUB_SCALE).to(torch.bfloat16)
+            for k, shape in shapes.items()}
+
+
+def stub_inputs_np(cfg, B, S, seed=5):
+    """stub_inputs as f32 numpy from a numpy seed (the same on both
+    devices)."""
+    r = np.random.default_rng(seed)
+    out = {}
+    if cfg.frontend != "none" and cfg.frontend_len:
+        out["prefix"] = (r.normal(size=(B, cfg.frontend_len, cfg.d_model))
+                         * STUB_SCALE).astype(np.float32)
+    if cfg.encdec:
+        out["enc_input"] = (r.normal(size=(B, S, cfg.d_model))
+                            * STUB_SCALE).astype(np.float32)
+    return out
+
+
+def fill_cross_cache(cfg, recipe, params, cache, enc_input):
+    """cache["cross"] rows [0, S_enc) from the port's own encoder on
+    enc_input and each decoder layer's _project_cross_kv (no code of the
+    port or the reference writes them: the caller does)."""
+    from repro_torch.models import lm
+    with torch.no_grad():
+        enc, _ = lm._run_encoder(cfg, recipe, params, enc_input)
+        n = enc.shape[1]
+        for i in range(cfg.n_layers):
+            k, v = lm._project_cross_kv(
+                cfg, lm.layer_slice(params["cross_layers"], i), enc)
+            cache["cross"]["k"][i, :, :n] = k
+            cache["cross"]["v"][i, :, :n] = v
+
+
+def prefill_batch(cfg, dev, gen, prompts):
+    """make_prefill's batch: the prompts, or llava's LLAVA_PREFILL_B
+    requests of LLAVA_TOKENS tokens behind their prefix; an
+    encoder-decoder's SERVE_ENC-row input."""
+    if cfg.frontend == "vision":
+        B, S = LLAVA_PREFILL_B, LLAVA_TOKENS
+        tokens = torch.randint(1, cfg.vocab, (B, S), generator=gen,
+                               device=dev)
+    else:
+        tokens = prompts
+        B, S = prompts.shape
+    return {"tokens": tokens, **stub_inputs(cfg, B, SERVE_ENC, gen, dev)}
+
+
+def serve_step_path(cfg, dev, label):
+    """The fixed-batch serve path of `cfg` (random bf16 params from seed
+    0): one make_prefill call timed after a warm one, then SERVE_B
+    requests through make_serve_step, their SERVE_PROMPT-token prompts fed
+    at positions 0.. and SERVE_NEW greedy tokens after them; an
+    encoder-decoder's cross cache filled first from its encoder on its
+    input.  Every kernel of the path launched in that run, no other.
+    Returns (launches, tokens)."""
+    from repro_torch import kernels
+    from repro_torch.models import lm
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+
+    recipe = recipe_for(label)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gib = torch.cuda.memory_allocated() / 2**30
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
+    pbatch = prefill_batch(cfg, dev, gen, prompts)
+    prefill, step = make_prefill(cfg, recipe), make_serve_step(cfg, recipe)
+    kernels.reset_launches()
+    prefill_ms = []
+    for _ in range(2):                           # warm, then timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = prefill(params, pbatch)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    check(bool(torch.isfinite(last.float()).all()) and tuple(last.shape)
+          == (pbatch["tokens"].shape[0], cfg.vocab_padded),
+          f"{label}: prefill logits {tuple(last.shape)} not finite or "
+          "not (B, V)")
+    cache = lm.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_NEW, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if cfg.encdec:
+        fill_cross_cache(cfg, recipe, params, cache,
+                         pbatch["enc_input"][:SERVE_B])
+    out, tok = [], prompts[:, :1]
+    for pos in range(SERVE_PROMPT + SERVE_NEW - 1):
+        if pos < SERVE_PROMPT:
+            tok = prompts[:, pos:pos + 1]
+        tok, cache = step(params, cache, tok, pos)
+        if pos >= SERVE_PROMPT - 1:
+            out.append(tok)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    tokens = torch.cat(out, dim=1).tolist()
+    check(all(len(t) == SERVE_NEW for t in tokens),
+          f"{label}: a request stopped short of {SERVE_NEW} tokens")
+    check(all(0 <= t < cfg.vocab for ts in tokens for t in ts),
+          f"{label}: a token outside the vocabulary")
+    check_launches(label, launches)
+    sha = hashlib.sha256(json.dumps(tokens).encode()).hexdigest()
+    steps = SERVE_PROMPT + SERVE_NEW - 1
+    print(json.dumps({label: dict(
+        config=f"{cfg.name} n_layers={cfg.n_layers} full width",
+        path="make_prefill + make_serve_step (dense cache, shared pos)",
+        requests=SERVE_B, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        prefill_batch={k: list(v.shape) for k, v in pbatch.items()},
+        prefill_ms=prefill_ms, decode_steps=steps, seconds=dt,
+        ms_per_step=1e3 * dt / steps,
+        tokens_per_s=SERVE_B * SERVE_NEW / dt, tokens_sha256=sha,
+        init_s=init_s, params_gib=params_gib,
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)}))
+    del params, cache, pbatch, last
+    torch.cuda.empty_cache()
+    return launches, tokens
+
+
+def gpu_vs_cpu_serve_step(dev, arch):
+    """At reduced() size, from the same params: make_prefill's logits and
+    four serve steps' decode_step logits on the card and on the CPU,
+    cosine >= 0.999 each (an encoder-decoder's cross cache filled on each
+    device from its own encoder)."""
+    from repro_torch.models import lm
+    from repro_torch.serve.serve_step import make_prefill
+    from repro_torch.weights import params_to
+
+    cfg = reduced_config(arch)
+    recipe = recipe_for("serve")
+    params_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    r = np.random.default_rng(2)
+    tokens = r.integers(1, cfg.vocab, (2, 16))
+    stubs = stub_inputs_np(cfg, 2, 16)
+    out = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        params = params_to(params_cpu, d)
+        batch = {"tokens": torch.from_numpy(tokens).to(d), **{
+            k: torch.from_numpy(v).to(d).to(torch.bfloat16)
+            for k, v in stubs.items()}}
+        logits = [make_prefill(cfg, recipe)(params, batch).float().cpu()]
+        cache = lm.init_cache(cfg, 2, 16, device=d)
+        if cfg.encdec:
+            fill_cross_cache(cfg, recipe, params, cache, batch["enc_input"])
+        for pos in range(4):
+            lg, cache = lm.decode_step(cfg, recipe, params, cache,
+                                       batch["tokens"][:, pos:pos + 1], pos)
+            logits.append(lg[:, 0].float().cpu())
+        out[name] = logits
+    cos = [torch.nn.functional.cosine_similarity(
+        a.reshape(-1), b.reshape(-1), dim=0).item()
+        for a, b in zip(out["cuda"], out["cpu"])]
+    print(json.dumps({"gpu_vs_cpu": dict(
+        config=f"{arch}.reduced()", path="serve_step (prefill + 4 decode "
+        "steps)", cosine=cos)}))
+    check(min(cos) >= 0.999, f"{arch}: GPU path vs CPU path cosine {cos} "
+          "< 0.999")
 
 
 def main() -> int:
@@ -2006,6 +2273,36 @@ def main() -> int:
         for label in ("train", "masked_train", "bf16_train",
                       "blockwise_train", "naive_train"):
             gpu_vs_cpu_train(dev, label, ARCH_TAGS[tag])
+
+    # the SSM, hybrid, encoder-decoder and frontend configs (phases
+    # 18-21): served whole through serve_step, their kernels at the shapes
+    # their paths give them (after llava's 64 GiB of weights are freed),
+    # trained at NEW_TRAIN_LAYERS, and GPU-vs-CPU for the four
+    for tag in ("m2", "hy", "sm", "lv"):
+        c = arch_config(ARCH_TAGS[tag])
+        launches[f"{tag}_serve"], _ = serve_step_path(c, dev, f"{tag}_serve")
+    hy, sm, lv = (arch_config(ARCH_TAGS[t]) for t in ("hy", "sm", "lv"))
+    lv_rows = lv.frontend_len + LLAVA_TOKENS                      # 3072
+    for c, tag, path, T in (
+            (hy, "hy", "prefill", SERVE_B * SERVE_PROMPT),
+            (sm, "sm", "prefill", SERVE_B * SERVE_PROMPT),
+            (sm, "sm enc", "prefill", SERVE_B * SERVE_ENC),
+            (lv, "lv", "prefill", LLAVA_PREFILL_B * lv_rows),
+            (hy, "hy", "train", None), (sm, "sm", "train", None),
+            (lv, "lv", "train", TRAIN_SHAPES["lv"][0] * lv_rows)):
+        add_rows(timings, arch_kernel_checks(c, tag, path, PEAKS, dev,
+                                             floor_ms, T))
+    for tag, n in NEW_TRAIN_LAYERS.items():
+        c = arch_config(ARCH_TAGS[tag], n)
+        launches[f"{tag}_train"], _, _ = train_path(c, dev, f"{tag}_train")
+    launches["hy_bf16_train"], _, _ = train_path(
+        arch_config("hymba_15b", NEW_TRAIN_LAYERS["hy"]), dev,
+        "hy_bf16_train")
+    for tag in ("m2", "hy", "sm", "lv"):
+        gpu_vs_cpu_serve_step(dev, ARCH_TAGS[tag])
+        gpu_vs_cpu_train(dev, "train", ARCH_TAGS[tag])
+    for arch in ("hymba_15b", "seamless_m4t_v2"):
+        gpu_vs_cpu_train(dev, "bf16_train", arch)
 
     from repro_torch.kernels import (fp8_transpose, fused_permute_pad,
                                      fused_swiglu_quant, grouped_gemm_fp8,

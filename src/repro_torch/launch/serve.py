@@ -7,10 +7,13 @@ W8-resident expert weights, on one device.
 
 The flags are the reference launcher's (``repro.launch.serve``) plus
 ``--device``.  The prefix cache, disaggregation and telemetry flags are
-accepted and raise until those slices are ported.  ``--arch`` takes
-every ported config (``repro_torch.configs.ARCH_IDS``): qwen15_05b,
-qwen3_moe_235b, deepseek_v2_lite, deepseek_v3_671b, starcoder2_15b,
-gemma3_4b, gemma2_9b and grok1_314b.  Without ``--reduced`` the full
+accepted and raise until those slices are ported.  ``--arch`` takes the
+attention-only decoders: qwen15_05b, qwen3_moe_235b, deepseek_v2_lite,
+deepseek_v3_671b, starcoder2_15b, gemma3_4b, gemma2_9b and grok1_314b.
+The paged engine refuses llava_next_34b, seamless_m4t_v2, mamba2_27b and
+hymba_15b before any weight is made, as the reference's does: they serve
+through ``repro_torch.serve.serve_step`` (``make_prefill``,
+``make_serve_step``).  Without ``--reduced`` the full
 config is built: one 80 GB card holds qwen15_05b, deepseek_v2_lite (W8
 experts), starcoder2_15b (40 layers, 32 GB), gemma3_4b (34 layers; every
 layer local, the reference's rule for a pattern that does not divide the
@@ -25,12 +28,12 @@ import numpy as np
 
 from repro_torch.configs import get_arch
 from repro_torch.core.recipes import RECIPES, get_recipe
-from repro_torch.models.lm import init_params
+from repro_torch.models.lm import _paged_stacks, init_params
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.scheduler import Request
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_moe_235b")
     ap.add_argument("--recipe", default="fp8_flow", choices=RECIPES,
@@ -64,7 +67,7 @@ def main():
                     help="not ported yet (raises)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain twins)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.disagg or args.obs_jsonl or args.obs_prom:
         raise NotImplementedError(
             "--disagg / --obs-* are not ported yet (ROADMAP.md, Queue 1)")
@@ -72,6 +75,7 @@ def main():
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    _paged_stacks(cfg)              # refuses a stack the engine cannot page
     recipe = get_recipe(args.recipe)
     params = init_params(cfg, seed=0, device=args.device)
     ecfg = ServeConfig(

@@ -9,16 +9,21 @@ single-device port runs, plus ``--device`` (``cuda``: the hand-written
 kernels; ``cpu``: their plain twins).  Checkpointing, the DP wire,
 guardrails, rematerialization policies, gradient accumulation and
 telemetry are not ported yet (ROADMAP.md, Queue 1, items 6-9).
-``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``);
-the default is the paper's convergence model, deepseek_v2_lite, as in the
-reference.  Without ``--reduced`` the full config is built: of these,
-one card trains only qwen15_05b at full depth (AdamW holds 16 bytes a
-parameter).  At full width and a cut depth one 80 GB card trains
-deepseek_v2_lite (4 layers), starcoder2_15b (4), gemma3_4b (12: two
-whole local:global groups) and gemma2_9b (8), as ``chip_smoke.py`` does;
-one layer of qwen3_moe_235b; no layer of deepseek_v3_671b or grok1_314b
-(one grok layer's state is 79 GB: it waits for the FP8-split optimizer
-state or multi-GPU, ROADMAP.md Queue 1).
+``--arch`` takes every config (``repro_torch.configs.ARCH_IDS``); the
+default is the paper's convergence model, deepseek_v2_lite, as in the
+reference.  The batches are make_batch's tokens, as the reference
+launcher's: llava_next_34b trains without its vision prefix, and
+seamless_m4t_v2 (an encoder-decoder, whose batch needs an encoder input)
+raises, where the reference raises KeyError.  Without ``--reduced`` the
+full config is built: of these, one card trains only qwen15_05b and
+hymba_15b at full depth (AdamW holds 16 bytes a parameter).  At full
+width and a cut depth one 80 GB card trains deepseek_v2_lite (4 layers),
+starcoder2_15b (4), gemma3_4b (12: two whole local:global groups),
+gemma2_9b (8), mamba2_27b, seamless_m4t_v2 and llava_next_34b at the
+depths ``chip_smoke.py`` records (PERF.md section 4); one layer of
+qwen3_moe_235b; no layer of deepseek_v3_671b or grok1_314b (one grok
+layer's state is 79 GB: it waits for the FP8-split optimizer state or
+multi-GPU, ROADMAP.md Queue 1).
 """
 import argparse
 import time
@@ -46,6 +51,14 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.encdec:
+        # the reference launcher's make_batch has no encoder input either:
+        # its forward raises KeyError('enc_input') on the first step
+        raise ValueError(
+            f"{args.arch} is an encoder-decoder: its batch needs "
+            "'enc_input' (B, S_enc, D), which make_batch does not make; "
+            "train it through repro_torch.train.train_step with your own "
+            "batches")
     recipe = get_recipe(args.recipe)
     opt = AdamWConfig(lr=args.lr)
     state = init_train_state(cfg, opt, seed=0, device=args.device)

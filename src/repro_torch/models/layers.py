@@ -1,6 +1,8 @@
 """Transformer layer primitives for the serving and training paths: norms,
-RoPE, the QKV projection, blocked (flash-style) prefill attention and
-per-request decode attention.
+RoPE, the QKV projection, blocked (flash-style) prefill attention
+(causal, windowed, or non-causal over an encoder's rows), decode
+attention at a per-request or shared position, and the attention block
+over a dense decode cache.
 
 Counterpart of the forward subset of ``repro.models.layers``, in plain
 PyTorch ops with the reference's layouts (q (B, S, H, hd), k/v
@@ -107,45 +109,106 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
 
 
 def decode_attention(q, k_cache, v_cache, *, pos, window=0, softcap=0.0):
-    """Single-step decode, each request at its own depth: q (B, 1, H, hd);
-    caches (B, Smax, KV, hd); pos (B,) -- rows [0, pos_b] are valid."""
+    """Single-step decode: q (B, 1, H, hd); caches (B, Smax, KV, hd); rows
+    [0, pos] are valid.  pos is a (B,) tensor (each request at its own
+    depth: the full cache is read and window-masked) or a scalar (one
+    shared position: a windowed layer reads only the `window` rows that end
+    at pos, the reference's dynamic slice, whose values equal the masked
+    read)."""
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
-    kv_pos = torch.arange(Smax, device=q.device)
+    pos = torch.as_tensor(pos, device=q.device)
+    per_request = pos.ndim == 1
+    if window and window < Smax and not per_request:
+        start = torch.clamp(pos - window + 1, 0, Smax - window)
+        kv_pos = start + torch.arange(window, device=q.device)
+        k_cache = k_cache.index_select(1, kv_pos)
+        v_cache = v_cache.index_select(1, kv_pos)
+    else:
+        kv_pos = torch.arange(Smax, device=q.device)
     G = H // KV
     qf = q.to(torch.float32).reshape(B, KV, G, hd)
     s = torch.einsum("bkgh,bckh->bkgc", qf, k_cache.to(torch.float32)) \
         * _softmax_scale(hd, q.device)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    mask = kv_pos[None, :] <= pos[:, None]
-    if window:
-        mask &= kv_pos[None, :] > (pos[:, None] - window)
-    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    if per_request:
+        mask = kv_pos[None, :] <= pos[:, None]
+        if window:
+            mask &= kv_pos[None, :] > (pos[:, None] - window)
+        s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    else:
+        s = torch.where((kv_pos <= pos)[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckh->bkgh", p, v_cache.to(torch.float32))
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def project_qkv(cfg, p, x, positions):
+def project_qkv(cfg, p, x, positions, cross_kv=None):
     """QKV projections + bias + qk-norm + RoPE.  x (B, S, D); positions
-    (S,) or (B, S).  Returns q (B,S,H,hd), k and v (B,S,KV,hd)."""
+    (S,) or (B, S).  Returns q (B,S,H,hd), k and v (B,S,KV,hd); with
+    `cross_kv` (the encoder's projected k, v) only q is projected, and
+    neither is normed or rotated."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    if cross_kv is None:
+        k = x @ p["wk"].to(x.dtype)
+        v = x @ p["wv"].to(x.dtype)
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(x.dtype)
+            v = v + p["bv"].to(x.dtype)
+        k = k.reshape(B, S, KV, hd)
+        v = v.reshape(B, S, KV, hd)
+    else:
+        k, v = cross_kv
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
-    if cfg.rope_theta:
+        if cross_kv is None:
+            k = rmsnorm(k, p["k_norm"])
+    if cross_kv is None and cfg.rope_theta:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attn_block(cfg, p, x, *, positions, layer_window=0, cache=None,
+               cache_pos=None, cross_kv=None, causal=True):
+    """Projections + RoPE + attention + output projection.  x (B, S, D).
+
+    cache: optional dense (k_cache, v_cache), each (B, Smax, KV, hd), for
+    decode: this step's row is written IN PLACE at cache_pos (a scalar
+    shared position, clamped into the cache as the reference's dynamic
+    update is, or a (B,) vector), and the step attends over the cache.
+    cross_kv: the encoder's projected (k, v): no row is written, and
+    without a cache the attention is non-causal over kv positions
+    arange(S_enc).  Returns (out (B, S, D), the cache or None)."""
+    B, S, D = x.shape
+    q, k, v = project_qkv(cfg, p, x, positions, cross_kv=cross_kv)
+    if cache is not None:
+        k_cache, v_cache = cache
+        if cross_kv is None:
+            cp = torch.as_tensor(cache_pos, device=x.device)
+            if cp.ndim == 1:                   # per-request write rows
+                rows = torch.arange(B, device=x.device)
+                k_cache[rows, cp] = k[:, 0].to(k_cache.dtype)
+                v_cache[rows, cp] = v[:, 0].to(v_cache.dtype)
+            else:
+                row = torch.clamp(cp, 0, k_cache.shape[1] - 1).reshape(1)
+                k_cache.index_copy_(1, row, k.to(k_cache.dtype))
+                v_cache.index_copy_(1, row, v.to(v_cache.dtype))
+        o = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                             pos=cache_pos, window=layer_window,
+                             softcap=cfg.attn_softcap)
+        new_cache = (k_cache, v_cache)
+    else:
+        kv_pos = positions if cross_kv is None else torch.arange(
+            k.shape[1], device=x.device)
+        o = flash_attention(q, k, v, q_pos=positions, kv_pos=kv_pos,
+                            causal=causal and cross_kv is None,
+                            window=layer_window, softcap=cfg.attn_softcap)
+        new_cache = None
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), new_cache

@@ -1,16 +1,22 @@
 """Decoder LM: parameters, embedding, logits, the MLP and MoE stages, the
-training forward with its loss, and the paged prefill / decode stacks.
+training forward with its loss, the dense-cache decode step, and the
+paged prefill / decode stacks.
 
-Counterpart of ``repro.models.lm`` for attention-only decoders: dense
-(qwen15_05b; starcoder2's ungated GELU MLP, LayerNorm and biases;
-gemma's GeGLU and local:global attention with softcaps), all-MoE
-(qwen3_moe, grok-1's GeGLU experts) and MoE behind a dense prologue with
-shared experts (DeepSeek).  Parameters keep the reference's stacked
-layout (``params["layers"][name]`` is (L, ...), the dense prologue's in
-``params["dense_layers"]``), so ``repro_torch.weights.params_from_numpy``
+Counterpart of ``repro.models.lm`` for every architecture family of the
+reference: dense (qwen15_05b; starcoder2's ungated GELU MLP, LayerNorm
+and biases; gemma's GeGLU and local:global attention with softcaps),
+all-MoE (qwen3_moe, grok-1's GeGLU experts), MoE behind a dense prologue
+with shared experts (DeepSeek), SSM (mamba2: mixer-only layers) and
+hybrid (hymba: attention and a Mamba2 mixer side by side, averaged),
+encoder-decoder (seamless: a non-causal encoder, then decoder layers
+with cross-attention) and a stub vision frontend (llava: precomputed
+patch embeddings in front of the tokens).  Parameters keep the
+reference's stacked layout (``params["layers"][name]`` is (L, ...), the
+dense prologue's in ``params["dense_layers"]``, the encoder's in
+``params["enc_layers"]``, the decoder's cross-attention in
+``params["cross_layers"]``), so ``repro_torch.weights.params_from_numpy``
 carries the reference's trees across unchanged; each stack runs as a
-Python loop over layer slices.  SSM, hybrid, encoder-decoder and frontend
-architectures raise (ROADMAP.md, Queue 1, item 2).
+Python loop over layer slices.
 
 Dense MLPs and shared experts run ``core.linear.dense_mlp`` (the expert
 FFN as one group, so the recipe's FP8 pathway and kernels) in training
@@ -18,8 +24,14 @@ and prefill, and ``_mlp_decode`` (bf16 products, the activation in f32)
 in decode:
 the reference engine's route (its mesh branch, ``lm.py:480-482``).
 
-Pools are updated IN PLACE (the reference returns new pools from a pure
-function): a page write is an indexed store into the pool tensors.
+Two serving paths, as in the reference.  ``init_cache`` / ``decode_step``
+hold a dense (B, max_len) cache a stack (``dense_attn``, ``main_attn``,
+``main_ssm``, ``cross``) and serve every architecture at a shared or
+per-request position (``serve.serve_step``).  The paged path
+(``paged_prefill`` / ``paged_decode_step``, the engine's) serves
+attention-only decoders.  Caches and pools are updated IN PLACE (the
+reference returns new ones from a pure function): a row write is an
+indexed store into the cache tensors.
 """
 from __future__ import annotations
 
@@ -31,8 +43,10 @@ from repro_torch.core.moe import MoEConfig, moe_block, moe_block_decode
 from repro_torch.core.quant import QTensor
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import CHUNK_ELEMS, resolve_device
-from repro_torch.models.layers import (apply_norm, decode_attention,
-                                       flash_attention, project_qkv)
+from repro_torch.models.layers import (apply_norm, attn_block,
+                                       decode_attention, flash_attention,
+                                       project_qkv, rmsnorm)
+from repro_torch.models.ssm import mamba2_block
 from repro_torch.serve.paged_kv import (SCRATCH_PAGE, page_read,
                                         page_write_rows)
 from repro_torch.serve.w8 import w8_merge_gate
@@ -55,25 +69,39 @@ def _pattern_or_fallback(pattern, n_layers: int, first=None):
 
 def _paged_stacks(cfg: ArchConfig):
     """(kinds, nd): every layer's kind and the dense prologue's depth, for
-    an attention-only decoder; other architectures raise."""
+    an attention-only decoder.  The paged path refuses the others, as the
+    reference's does (``repro/models/lm.py:1176-1183``)."""
     kinds = layer_kinds(cfg)
     if cfg.encdec or cfg.frontend != "none" or any(
             k in ("ssm", "hybrid") for k in kinds):
         raise NotImplementedError(
-            f"{cfg.name}: only attention-only decoder stacks are ported "
-            "(ROADMAP.md, Queue 1, item 2)")
-    return kinds, (cfg.n_dense_layers if cfg.moe else 0)
+            f"{cfg.name}: paged serving supports attention-only decoder "
+            "stacks; serve it through repro_torch.serve.serve_step "
+            "(make_prefill, make_serve_step)")
+    return kinds, _n_dense(cfg)
+
+
+def _n_dense(cfg: ArchConfig) -> int:
+    return cfg.n_dense_layers if cfg.moe else 0
 
 
 # ---------------------------------------------------------------------------
 # Parameters: the reference's shapes, dtypes and init scales, drawn from a
 # torch.Generator (so different numbers than jax.random from the same seed).
 # ---------------------------------------------------------------------------
-def _stack_params(cfg: ArchConfig, n: int, moe_layer: bool, normal, dtype,
+def _stack_params(cfg: ArchConfig, kinds, moe_layer: bool, normal, dtype,
                   dev):
-    """A stack of n layers' parameters (the reference's ``_layer_params``,
-    stacked): MoE layers carry the router, the experts and the shared
-    experts, dense layers the MLP.  normal(shape, scale) is an f32 draw."""
+    """A stack of len(kinds) layers' parameters (the reference's
+    ``_layer_params``, stacked): attention for the global, local and
+    hybrid kinds, the Mamba2 mixer for the ssm and hybrid kinds; MoE
+    layers carry the router, the experts and the shared experts, dense
+    layers the MLP (an ssm layer none).  One stack is one tree, as the
+    reference's stacking requires: its first kind decides the leaves.
+    normal(shape, scale) is an f32 draw."""
+    n, kind = len(kinds), kinds[0]
+    attn, ssm = kind in ("global", "local", "hybrid"), kind in ("ssm",
+                                                               "hybrid")
+
     def stacked(shape, scale, dt):
         # one layer at a time keeps the f32 draw to a single layer's size
         # (30 GB for a deepseek_v3_671b expert stack), rounded into place
@@ -96,17 +124,29 @@ def _stack_params(cfg: ArchConfig, n: int, moe_layer: bool, normal, dtype,
             return {f"{name}_s": zeros((D,))}
         return {f"{name}_s": zeros((D,)).fill_(1.0), f"{name}_b": zeros((D,))}
 
-    layers = {**norm("ln1"), **norm("ln2"),
-              "wq": stacked((D, H * hd), sc, dtype),
-              "wk": stacked((D, KV * hd), sc, dtype),
-              "wv": stacked((D, KV * hd), sc, dtype),
-              "wo": stacked((H * hd, D), sc_out, dtype)}
-    if cfg.qkv_bias:
-        for name, m in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
-            layers[name] = zeros((m,))
-    if cfg.qk_norm:
-        layers["q_norm"] = zeros((hd,))
-        layers["k_norm"] = zeros((hd,))
+    layers = {**norm("ln1"), **norm("ln2")}
+    if attn:
+        layers.update(wq=stacked((D, H * hd), sc, dtype),
+                      wk=stacked((D, KV * hd), sc, dtype),
+                      wv=stacked((D, KV * hd), sc, dtype),
+                      wo=stacked((H * hd, D), sc_out, dtype))
+        if cfg.qkv_bias:
+            for name, m in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+                layers[name] = zeros((m,))
+        if cfg.qk_norm:
+            layers["q_norm"] = zeros((hd,))
+            layers["k_norm"] = zeros((hd,))
+    if ssm and cfg.ssm_state:
+        di, N, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        layers["in_proj"] = stacked((D, 2 * di + 2 * N + nh), sc, dtype)
+        layers["conv_w"] = stacked((cfg.ssm_conv, di + 2 * N), 0.2,
+                                   torch.float32)
+        layers["A_log"] = torch.log(torch.linspace(
+            1.0, 16.0, nh, dtype=torch.float32, device=dev)).repeat(n, 1)
+        layers["D"] = zeros((nh,)).fill_(1.0)
+        layers["dt_bias"] = zeros((nh,))
+        layers["norm_s"] = zeros((di,))
+        layers["out_proj"] = stacked((di, D), sc_out, dtype)
     if moe_layer:
         layers["w_router"] = stacked((D, E), sc, torch.float32)
         layers["we13"] = stacked((E, D, g, Fe), sc, dtype)
@@ -115,7 +155,7 @@ def _stack_params(cfg: ArchConfig, n: int, moe_layer: bool, normal, dtype,
             Fs = cfg.n_shared_experts * Fe
             layers["ws13"] = stacked((D, g, Fs), sc, dtype)
             layers["ws2"] = stacked((Fs, D), sc_out, dtype)
-    elif cfg.d_ff:
+    elif cfg.d_ff and kind != "ssm":
         layers["w13"] = stacked((D, g, cfg.d_ff), sc, dtype)
         layers["w2"] = stacked((cfg.d_ff, D), sc_out, dtype)
     return layers
@@ -124,7 +164,7 @@ def _stack_params(cfg: ArchConfig, n: int, moe_layer: bool, normal, dtype,
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                 device="cuda"):
     dev = resolve_device(device)
-    _, nd = _paged_stacks(cfg)
+    kinds, nd = layer_kinds(cfg), _n_dense(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def normal(shape, scale):
@@ -144,10 +184,25 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, Vp), 0.02).to(dtype)
     if nd:
-        params["dense_layers"] = _stack_params(cfg, nd, False, normal, dtype,
-                                               dev)
-    params["layers"] = _stack_params(cfg, cfg.n_layers - nd, cfg.moe, normal,
-                                     dtype, dev)
+        params["dense_layers"] = _stack_params(cfg, kinds[:nd], False, normal,
+                                               dtype, dev)
+    params["layers"] = _stack_params(cfg, kinds[nd:], cfg.moe, normal, dtype,
+                                     dev)
+    if cfg.encdec:
+        params["enc_layers"] = _stack_params(
+            cfg, ["global"] * cfg.n_enc_layers, False, normal, dtype, dev)
+        # the decoder's cross-attention, stacked over its layers (every
+        # matrix at scale 0.02, the RMSNorm scale from zeros)
+        H, KV, hd, n = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.n_layers
+        cross = {name: torch.empty((n, *shape), dtype=dtype, device=dev)
+                 for name, shape in (("wq", (D, H * hd)), ("wk", (D, KV * hd)),
+                                     ("wv", (D, KV * hd)),
+                                     ("wo", (H * hd, D)))}
+        for i in range(n):
+            for leaf in cross.values():
+                leaf[i].copy_(normal(leaf.shape[1:], 0.02))
+        cross["ln_s"] = torch.zeros((n, D), dtype=torch.float32, device=dev)
+        params["cross_layers"] = cross
     return params
 
 
@@ -255,23 +310,34 @@ def _train_layer_slices(stack_params, n: int):
     return [{name: v[i] for name, v in per_leaf.items()} for i in range(n)]
 
 
-def stage_ln_attn(cfg, p, x, positions, window: int):
-    """Pre-norm + causal attention + residual add (autograd differentiates
-    the flash forward; the reference's hand-written flash VJP is XLA, not
+def stage_ln_attn(cfg, p, x, positions, window: int, causal: bool = True):
+    """Pre-norm + attention + residual add (autograd differentiates the
+    flash forward; the reference's hand-written flash VJP is XLA, not
     Pallas, and comes with a later slice)."""
-    B, S, _ = x.shape
     h = apply_norm(cfg.norm, x, p, "ln1")
-    q, k, v = project_qkv(cfg, p, h, positions)
-    o = flash_attention(q, k, v, q_pos=positions, kv_pos=positions,
-                        causal=True, window=window, softcap=cfg.attn_softcap)
-    return x + o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    out, _ = attn_block(cfg, p, h, positions=positions, layer_window=window,
+                        causal=causal)
+    return x + out
 
 
-def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions):
-    """One decoder layer: attention, then the MoE stage or the dense MLP.
-    Returns (x, aux), aux None for a dense layer."""
-    x = stage_ln_attn(cfg, p, x, positions,
-                      cfg.window if kind == "local" else 0)
+def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True):
+    """One layer: the mixer (attention; a Mamba2 mixer for ``ssm``; both
+    on the same normed input, averaged, for ``hybrid``), then the MoE
+    stage or the dense MLP (none for a mixer-only ssm layer).  Returns
+    (x, aux), aux None without a router."""
+    if kind in ("ssm", "hybrid"):
+        h = apply_norm(cfg.norm, x, p, "ln1")
+        mix, _, _ = mamba2_block(cfg, p, h)
+        if kind == "hybrid":
+            attn_out, _ = attn_block(cfg, p, h, positions=positions,
+                                     causal=causal)
+            mix = 0.5 * (attn_out + mix)
+        x = x + mix
+        if kind == "ssm" and not cfg.d_ff:
+            return x, None
+    else:
+        x = stage_ln_attn(cfg, p, x, positions,
+                          cfg.window if kind == "local" else 0, causal)
     h2 = apply_norm(cfg.norm, x, p, "ln2")
     if moe_layer:
         mo, aux = _moe_stage(cfg, recipe, p, h2)
@@ -280,14 +346,61 @@ def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions):
 
 
 def _run_stack(cfg, recipe, stack_params, pattern, n_layers, moe, x,
-               positions):
+               positions, causal=True):
     """The reference's scanned stack as a Python loop over layer slices;
     returns (x, the summed aux losses)."""
     pattern = _pattern_or_fallback(pattern, n_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(_train_layer_slices(stack_params, n_layers)):
         x, a = _sub_layer(cfg, recipe, pattern[i % len(pattern)], moe, p, x,
+                          positions, causal)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def rms_or_ln(cfg, x, p_cross):
+    """The cross-attention pre-norm: an RMSNorm whatever cfg.norm says (the
+    reference's ``rms_or_ln``, ``lm.py:876-878``)."""
+    return rmsnorm(x, p_cross["ln_s"])
+
+
+def _project_cross_kv(cfg, p, enc):
+    """The encoder output enc (B, S_enc, D) projected to one decoder
+    layer's cross-attention k and v, each (B, S_enc, KV, hd)."""
+    B, Se, _ = enc.shape
+    k = enc @ p["wk"].to(enc.dtype)
+    v = enc @ p["wv"].to(enc.dtype)
+    return (k.reshape(B, Se, cfg.n_kv, cfg.head_dim),
+            v.reshape(B, Se, cfg.n_kv, cfg.head_dim))
+
+
+def _run_encoder(cfg, recipe, params, enc_input):
+    """The encoder stack, non-causal over enc_input (B, S_enc, D), then the
+    DECODER's final norm (the reference's encoder has none of its own,
+    ``lm.py:800-803``).  Returns (enc, aux)."""
+    positions = torch.arange(enc_input.shape[1], device=enc_input.device)
+    enc, aux = _run_stack(cfg, recipe, params["enc_layers"], ("global",),
+                          cfg.n_enc_layers, False, enc_input, positions,
+                          causal=False)
+    return _final_norm(cfg, params, enc), aux
+
+
+def _run_encdec_decoder(cfg, recipe, params, x, positions, enc):
+    """The decoder stack with cross-attention: each layer's self-attention
+    and MLP, then cross-attention to its projection of `enc`, added to
+    the residual."""
+    n = cfg.n_layers
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p_self, p_cross in zip(_train_layer_slices(params["layers"], n),
+                               _train_layer_slices(params["cross_layers"],
+                                                   n)):
+        x, a = _sub_layer(cfg, recipe, "global", cfg.moe, p_self, x,
                           positions)
+        h = rms_or_ln(cfg, x, p_cross)
+        c_out, _ = attn_block(cfg, p_cross, h, positions=positions,
+                              cross_kv=_project_cross_kv(cfg, p_cross, enc))
+        x = x + c_out
         if a is not None:
             aux = aux + a
     return x, aux
@@ -340,22 +453,42 @@ def xent(logits, targets, mask):
 def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
             compute_loss: bool = True):
     """batch: {'tokens' (B, S) int, 'targets' (B, S), optional 'mask'
-    (B, S)}.  Runs the dense prologue, then the main stack.  Returns
+    (B, S), optional 'prefix' (B, P, D) [the vision or audio frontend's
+    stub embeddings, put in front of the tokens and cut off before the
+    logits], 'enc_input' (B, S_enc, D) [an encoder-decoder's; required]}.
+    Runs the encoder, the dense prologue, then the main stack.  Returns
     (loss, metrics) or, with compute_loss=False, (logits, metrics)."""
-    _, nd = _paged_stacks(cfg)
+    nd = _n_dense(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
+    prefix = batch.get("prefix") if cfg.frontend != "none" else None
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.encdec:
+        if "enc_input" not in batch:
+            raise KeyError(
+                f"enc_input: {cfg.name} is an encoder-decoder, and its "
+                "batch needs the encoder's input embeddings (B, S_enc, D)")
+        enc, a = _run_encoder(cfg, recipe, params,
+                              batch["enc_input"].to(x.dtype))
+        aux = aux + a
     if nd:
         x, a = _run_stack(cfg, recipe, params["dense_layers"],
                           (cfg.pattern[0],), nd, False, x, positions)
         aux = aux + a
-    x, a = _run_stack(cfg, recipe, params["layers"], cfg.pattern,
-                      cfg.n_layers - nd, cfg.moe, x, positions)
+    if cfg.encdec:
+        x, a = _run_encdec_decoder(cfg, recipe, params, x, positions, enc)
+    else:
+        x, a = _run_stack(cfg, recipe, params["layers"], cfg.pattern,
+                          cfg.n_layers - nd, cfg.moe, x, positions)
     aux = aux + a
-    logits = _lm_logits(cfg, params, _final_norm(cfg, params, x))
+    x = _final_norm(cfg, params, x)
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]
+    logits = _lm_logits(cfg, params, x)
     metrics = {"aux_loss": aux}
     if not compute_loss:
         return logits, metrics
@@ -366,6 +499,127 @@ def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
     loss = xent(logits, batch["targets"], mask) + AUX_LOSS_COEF * aux
     metrics["loss"] = loss
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Serving over a dense cache: one decode token a step for every
+# architecture (the reference's fixed-batch serve path).
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               cache_dtype=torch.bfloat16, device="cuda"):
+    """The decode cache, zeros: per stack, K/V (n, batch, max_len, KV, hd)
+    in cache_dtype for the attention kinds (``main_attn``, ``dense_attn``),
+    the f32 SSM state (n, batch, H, P, N) and conv history (n, batch,
+    conv - 1, channels) for the ssm and hybrid kinds (``main_ssm``), and
+    for an encoder-decoder the cross-attention K/V (``cross``, n_layers
+    deep).  ``cross`` stays zero unless the caller fills it: no code of the
+    reference writes it (its ``init_cache``, ``lm.py:926-931``)."""
+    dev = resolve_device(device)
+    kinds, nd = layer_kinds(cfg), _n_dense(cfg)
+    KV, hd = cfg.n_kv, cfg.head_dim
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def attn_cache(n):
+        return {"k": zeros((n, batch, max_len, KV, hd), cache_dtype),
+                "v": zeros((n, batch, max_len, KV, hd), cache_dtype)}
+
+    cache = {}
+    main_kinds = kinds[nd:]
+    n_main = len(main_kinds)
+    if any(k != "ssm" for k in main_kinds):
+        cache["main_attn"] = attn_cache(n_main)
+    if any(k in ("ssm", "hybrid") for k in main_kinds):
+        di, N = cfg.d_inner, cfg.ssm_state
+        cache["main_ssm"] = {
+            "state": zeros((n_main, batch, cfg.ssm_heads, cfg.ssm_headdim, N),
+                           torch.float32),
+            "conv": zeros((n_main, batch, cfg.ssm_conv - 1, di + 2 * N),
+                          torch.float32)}
+    if nd:
+        cache["dense_attn"] = attn_cache(nd)
+    if cfg.encdec:
+        cache["cross"] = attn_cache(cfg.n_layers)
+    return cache
+
+
+def _decode_stack(cfg, recipe, stack_params, stack_kinds, moe, x, positions,
+                  pos, attn_c, ssm_c, cross_c=None, cross_params=None):
+    """One decode step through a stack: each layer's mixer against its
+    cache slices (K/V rows and SSM states written in place), then
+    cross-attention over ``cross`` (read, never written) for an
+    encoder-decoder, then the MoE or dense MLP.  The kinds follow the
+    reference's fallback: a pattern that does not divide the stack
+    degrades to the stack's first kind.  Returns (x, the new SSM conv
+    histories stacked, or None): the reference emits them in the
+    activation dtype, so after a step the cache's conv leaf is bf16."""
+    n = len(stack_kinds)
+    pat = _pattern_or_fallback(cfg.pattern, n, first=stack_kinds[0])
+    convs = []
+    for i in range(n):
+        kind = pat[i % len(pat)]
+        pi = layer_slice(stack_params, i)
+        kv = None if attn_c is None else (attn_c["k"][i], attn_c["v"][i])
+        h = apply_norm(cfg.norm, x, pi, "ln1")
+        if kind in ("ssm", "hybrid"):
+            mix, new_state, new_conv = mamba2_block(
+                cfg, pi, h, state=ssm_c["state"][i],
+                conv_state=ssm_c["conv"][i], decode=True)
+            ssm_c["state"][i].copy_(new_state)
+            convs.append(new_conv)
+            if kind == "hybrid":
+                attn_out, _ = attn_block(cfg, pi, h, positions=positions,
+                                         cache=kv, cache_pos=pos)
+                mix = 0.5 * (attn_out + mix)
+        else:
+            if ssm_c is not None:
+                convs.append(ssm_c["conv"][i])
+            mix, _ = attn_block(cfg, pi, h, positions=positions,
+                                layer_window=cfg.window if kind == "local"
+                                else 0, cache=kv, cache_pos=pos)
+        x = x + mix
+        if cross_params is not None:
+            pc = layer_slice(cross_params, i)
+            ck, cv = cross_c["k"][i], cross_c["v"][i]
+            hc = rms_or_ln(cfg, x, pc)
+            c_out, _ = attn_block(cfg, pc, hc, positions=positions,
+                                  cache=(ck, cv), cache_pos=pos,
+                                  cross_kv=(ck.to(hc.dtype), cv.to(hc.dtype)))
+            x = x + c_out
+        if not (kind == "ssm" and not cfg.d_ff):
+            h2 = apply_norm(cfg.norm, x, pi, "ln2")
+            mo = _moe_stage(cfg, recipe, pi, h2, decode=True)[0] if moe \
+                else _mlp_decode(cfg, pi, h2)
+            x = x + mo
+    return x, (torch.stack(convs) if ssm_c is not None else None)
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos):
+    """One decode step.  tokens (B, 1) int; pos: a scalar (one shared
+    position, the fixed-batch path) or a (B,) tensor of per-request
+    positions (cache rows [0, pos_b) hold the history).  The cache (from
+    ``init_cache``) is updated in place but for the SSM conv histories,
+    which are replaced.  Returns (logits (B, 1, V), the cache)."""
+    x = _embed_tokens(cfg, params, tokens)
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
+    kinds, nd = layer_kinds(cfg), _n_dense(cfg)
+    new_cache = dict(cache)
+    if nd:
+        x, _ = _decode_stack(cfg, recipe, params["dense_layers"], kinds[:nd],
+                             False, x, positions, pos,
+                             cache.get("dense_attn"), None)
+    ssm_c = cache.get("main_ssm")
+    x, convs = _decode_stack(cfg, recipe, params["layers"], kinds[nd:],
+                             cfg.moe, x, positions, pos,
+                             cache.get("main_attn"), ssm_c,
+                             cache.get("cross"), params.get("cross_layers"))
+    if convs is not None:
+        new_cache["main_ssm"] = {"state": ssm_c["state"], "conv": convs}
+    logits = _lm_logits(cfg, params, _final_norm(cfg, params, x))
+    return logits, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,11 @@ def make_train_step(cfg: ArchConfig, recipe: Recipe, opt: adamw.AdamWConfig,
             p.grad = None
         loss, metrics = forward(cfg, recipe, params, batch)
         loss.backward()
-        grads = adamw.tree_map(lambda p: p.grad, params)
+        # a leaf the forward never reads (mamba2's ln2: its layers have no
+        # MLP) gets jax.grad's zero gradient
+        grads = adamw.tree_map(
+            lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+            params)
         lr_scale = schedules.warmup_cosine(
             state["opt"]["step"], total_steps=total_steps,
             warmup_steps=warmup_steps)

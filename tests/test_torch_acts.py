@@ -23,6 +23,8 @@ Pallas route in interpret mode, and its masked recipe against the
 reference's masked Pallas route and bit for bit against the port's
 padded route (a non-SwiGLU FFN runs no fused epilogue: #5 GEMM-1, the
 activation, #1)."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+import functools
 from collections import Counter
 
 import jax
@@ -195,7 +197,7 @@ def test_expert_ffn_matches_reference(act, name):
     for event (fp8_flow: the entry quantize, ``act_quant``, the island
     quantize, ``dact_quant``, the Dgrad-1 epilogue; EXPECTED_FFN casts)."""
     inputs = _ffn_inputs(act)
-    ref, jled = _ref_ffn(jrecipes.get_recipe(name), act, inputs)
+    ref, jled = _ref_default("ffn", name, act)
     got, led = _port_ffn(recipes.get_recipe(name), act, inputs)
     _hold(got, ref, MAX_REL[name, act], (name, act))
     assert _events(led) == _events(jled)
@@ -298,6 +300,16 @@ def _port_dense(recipe, act, inputs):
     return [_np32(t) for t in (y, x.grad, w13.grad, w2.grad)], led
 
 
+@functools.cache
+def _ref_default(kind, name, act):
+    """The reference's XLA-route expert FFN (kind "ffn", on _ffn_inputs)
+    or dense MLP ("dense", on _dense_inputs) of recipe `name`, computed
+    once a module: the parity cases and the XLA-operand cases share it."""
+    if kind == "ffn":
+        return _ref_ffn(jrecipes.get_recipe(name), act, _ffn_inputs(act))
+    return _ref_dense(jrecipes.get_recipe(name), act, _dense_inputs(act))
+
+
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("act", ACTS)
 def test_dense_mlp_matches_reference(act, name):
@@ -305,7 +317,7 @@ def test_dense_mlp_matches_reference(act, name):
     ledger event for event, and the masked recipe (no expert plan: the
     padded kernels) the padded one bit for bit."""
     inputs = _dense_inputs(act)
-    ref, jled = _ref_dense(jrecipes.get_recipe(name), act, inputs)
+    ref, jled = _ref_default("dense", name, act)
     got, led = _port_dense(recipes.get_recipe(name), act, inputs)
     assert got[0].shape == (T, D)
     _hold(got, ref, MAX_REL[name, act], (name, act, "dense"))
@@ -342,11 +354,11 @@ def test_baselines_with_xla_route_operands(act, name, kind, monkeypatch):
             "emc,enc->emn", bf16_operand(qa), bf16_operand(qb)).to(out_dtype))
     if kind == "ffn":
         inputs = _ffn_inputs(act)
-        ref, _ = _ref_ffn(jrecipes.get_recipe(name), act, inputs)
+        ref, _ = _ref_default("ffn", name, act)
         got, _ = _port_ffn(recipes.get_recipe(name), act, inputs)
     else:
         inputs = _dense_inputs(act)
-        ref, _ = _ref_dense(jrecipes.get_recipe(name), act, inputs)
+        ref, _ = _ref_default("dense", name, act)
         got, _ = _port_dense(recipes.get_recipe(name), act, inputs)
     for what, a, b in zip(("y", "gx", "wg13", "wg2"), got, ref):
         assert _cos(a, b) >= 0.99999, (what, _cos(a, b))

@@ -21,6 +21,7 @@ move the expert gradients to cosine ~0.997.  Then 20 train steps of
 deepseek_v2_lite fp8_flow within 1% of the reference's loss at every
 step (tests/test_torch_train_steps.py's bar, on one thread), and the
 masked recipe's losses the padded recipe's bit for bit."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import dataclasses
 import sys
 from collections import Counter

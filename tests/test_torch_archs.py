@@ -14,6 +14,7 @@ the shared experts' FP8 ``dense_mlp``.  The port serves like route A.
 Bar, as there: cosine >= 0.999 and the same argmax at every
 teacher-forced step against both routes, on a token seed with no router
 near-tie (``NEAR_TIE``); the prefill cast ledger equals route A's."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import contextlib
 
 import jax

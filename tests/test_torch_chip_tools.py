@@ -1,5 +1,6 @@
 """chip_smoke.py's own tools that need no card: the SASS path counter
 behind #8's issue-time estimate, on a listing shaped like cuobjdump's."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import sys
 from pathlib import Path
 

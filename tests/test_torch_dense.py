@@ -13,6 +13,7 @@ holds the expert FFN: there the output and every gradient are the
 reference's bits.  The cast ledger matches event for event (less the
 XLA route's unfused inner quantizes), and the masked recipe (no
 ``masked_m`` here: the padded kernels) is the padded one bit for bit."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import dataclasses
 
 import jax

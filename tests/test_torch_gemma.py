@@ -21,6 +21,7 @@ serving alike (``repro/models/lm.py:632-639, :1110-1111``).  gemma3_4b at
 8 layers therefore serves every layer local in the reference, and so must
 the port: its served logits match the reference's and every attention
 call runs with the window."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import contextlib
 import dataclasses
 

@@ -1387,3 +1387,108 @@ def test_geglu_engine_on_card(card, arch):
         "masked_grouped_gemm_swiglu_quant"] == 0 for n in launches), launches
     assert launches["padded"]["grouped_gemm_fp8"] > 0
     assert launches["padded"]["quantize_rowwise"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["ssd", "train", "decode"])
+def test_ssd_and_mamba2_block_on_card_match_cpu(card, form):
+    """ssd_chunked (mamba2's full-width head shape: 80 heads of 64, state
+    128, chunk 256 over 1024 tokens) and hymba's reduced() mixer in its
+    training and decode forms, in f32, on the card against the CPU: plain
+    PyTorch on both (no kernel of the port), within 1e-4 of the largest
+    value."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm
+    r = np.random.default_rng(6)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((r.normal(size=shape) * scale
+                                 ).astype(np.float32))
+
+    if form == "ssd":
+        b, S, H, P, N = 1, 1024, 80, 64, 128
+        args = (f32(b, S, H, P), f32(b, S, H, scale=0.1).abs(),
+                -f32(H).abs(), f32(b, S, N, scale=0.1),
+                f32(b, S, N, scale=0.1))
+        fn = lambda *a: ssm.ssd_chunked(*a, chunk=256)   # noqa: E731
+    else:
+        cfg = get_arch("hymba_15b").reduced()
+        di, N, H, D = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.d_model
+        p = {"in_proj": f32(D, 2 * di + 2 * N + H, scale=0.05),
+             "conv_w": f32(cfg.ssm_conv, di + 2 * N, scale=0.2),
+             "A_log": torch.log(torch.linspace(1.0, 16.0, H)),
+             "D": torch.ones(H), "dt_bias": f32(H, scale=0.1),
+             "norm_s": f32(di, scale=0.1),
+             "out_proj": f32(di, D, scale=0.05)}
+        S = 64 if form == "train" else 1
+        kw = {} if form == "train" else dict(
+            state=f32(2, H, cfg.ssm_headdim, N),
+            conv_state=f32(2, cfg.ssm_conv - 1, di + 2 * N), decode=True)
+        args = (p, f32(2, S, D))
+
+        def fn(p, x, **k):
+            return ssm.mamba2_block(cfg, p, x, **kw, **k)
+
+    def to(a, d):
+        if isinstance(a, dict):
+            return {k: to(v, d) for k, v in a.items()}
+        if isinstance(a, tuple):
+            return tuple(to(v, d) for v in a)
+        return a.to(d) if torch.is_tensor(a) else a
+
+    if form != "ssd":
+        kw = to(kw, card)
+        got = fn(*to(args, card))
+        kw = to(kw, "cpu")
+        want = fn(*args)
+    else:
+        got, want = fn(*to(args, card)), fn(*args)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.is_cuda
+        a = a.cpu()
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2_27b", "hymba_15b",
+                                  "seamless_m4t_v2", "llava_next_34b"])
+def test_decode_step_on_card_matches_cpu(card, arch):
+    """A reduced() config's decode_step from init_cache over 4 tokens at
+    scalar positions (fp8_flow; seamless's cross cache left at zero),
+    from the same params on the card and on the CPU: logits cosine >=
+    0.999 a step, every cache leaf cosine >= 0.999 with the same dtypes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.models import lm
+    from repro_torch.weights import params_to
+    cfg, recipe = get_arch(arch).reduced(), get_recipe("fp8_flow")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 2, 1)))
+    out = {}
+    for d in (card, torch.device("cpu")):
+        p, cache, logits = params_to(params, d), lm.init_cache(
+            cfg, 2, 16, device=d), []
+        for pos in range(4):
+            lg, cache = lm.decode_step(cfg, recipe, p, cache, toks[pos].to(d),
+                                       pos)
+            logits.append(lg.float().cpu())
+        out[d.type] = logits, {(k, n): v.cpu() for k, dd in cache.items()
+                               for n, v in dd.items()}
+
+    def cos(a, b):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        if a.norm() == 0 and b.norm() == 0:
+            return 1.0
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    (lg_c, c_c), (lg_h, c_h) = out["cuda"], out["cpu"]
+    assert all(cos(a, b) >= 0.999 for a, b in zip(lg_c, lg_h))
+    assert c_c.keys() == c_h.keys()
+    for k in c_h:
+        assert c_c[k].dtype == c_h[k].dtype, k
+        assert cos(c_c[k].float(), c_h[k].float()) >= 0.999, k

@@ -1,6 +1,7 @@
 """repro_torch stands alone: every module (and the chip scripts) imports
 without jax or the JAX package, weights cross over with their bits, and
 asking for CUDA without a card raises instead of falling back."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import os
 import subprocess
 import sys
@@ -27,9 +28,11 @@ for name in names:
     importlib.import_module(name)
 configs = {f"repro_torch.configs.{a}" for a in (
     "qwen3_moe_235b", "qwen15_05b", "deepseek_v2_lite", "deepseek_v3_671b",
-    "starcoder2_15b", "gemma3_4b", "gemma2_9b", "grok1_314b")}
+    "starcoder2_15b", "gemma3_4b", "gemma2_9b", "grok1_314b",
+    "llava_next_34b", "seamless_m4t_v2", "mamba2_27b", "hymba_15b")}
+configs |= {"repro_torch.models.ssm", "repro_torch.serve.serve_step"}
 assert configs <= set(names), sorted(configs - set(names))
-import chip_profile, chip_smoke
+import chip_depths, chip_profile, chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

@@ -13,6 +13,7 @@ libraries differ, and there at most one e4m3 code.
 
 The launches of the hand-written CUDA kernels are held against the twins
 on the card in tests/test_torch_gpu.py (no jax there)."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

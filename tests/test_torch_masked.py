@@ -22,6 +22,7 @@ reference on the CPU, and against the port's own padded path.
   against the reference's route B with the masked recipe (cosine >= 0.999
   and equal argmax, token seed 2, as tests/test_torch_serve.py).
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import contextlib
 from collections import Counter
 

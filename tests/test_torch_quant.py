@@ -2,6 +2,7 @@
 the same numpy inputs (random, amax exactly po2*448, |exp| >= 13, zero
 tiles, saturation), and the port's scale is the exact smallest power of
 two on the inputs near a po2 boundary where f32 log2 can miss."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import math
 
 import jax.numpy as jnp

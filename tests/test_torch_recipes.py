@@ -14,6 +14,8 @@ rounds a linear scale to bf16 (exact only for po2), and rounds the SwiGLU
 product to bf16 where fp8_flow's fused kernel quantizes the f32 product;
 the port's GEMMs promote with the f32 scales, as the reference's Pallas
 kernels do (held here too, in interpret mode, on linear-scale operands)."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,6 +224,13 @@ def _port_ffn(name, inputs):
     return [_np32(t) for t in (y, x.grad, w13.grad, w2.grad)], led
 
 
+@functools.cache
+def _ref_default(name):
+    """_ref_ffn of recipe `name` on _ffn_inputs(), computed once a module:
+    the parity and the XLA-operand cases share it."""
+    return _ref_ffn(name, _ffn_inputs())
+
+
 # max |port - reference| / max |reference| over (y, gx, wg13, wg2), per
 # recipe, on _ffn_inputs(0).  Measured: bf16 0 (the port's bf16 products
 # round once from f32 sums, as XLA's dot does: bit for bit), blockwise
@@ -237,7 +246,7 @@ FFN_MAX_REL = {"bf16": 1e-5, "blockwise": 0.05, "naive_fp8": 0.05,
 @pytest.mark.parametrize("name", NAMES)
 def test_expert_ffn_matches_reference(name):
     inputs = _ffn_inputs()
-    ref, jled = _ref_ffn(name, inputs)
+    ref, jled = _ref_default(name)
     got, led = _port_ffn(name, inputs)
     for what, a, b in zip(("y", "gx", "wg13", "wg2"), got, ref):
         assert a.shape == b.shape and np.isfinite(a).all()
@@ -270,7 +279,7 @@ def test_expert_ffn_with_xla_route_operands(name, monkeypatch):
         torch.float32), masked_m=None: torch.einsum(
             "emc,enc->emn", bf16_operand(qa), bf16_operand(qb)).to(out_dtype))
     inputs = _ffn_inputs()
-    ref, _ = _ref_ffn(name, inputs)
+    ref, _ = _ref_default(name)
     got, _ = _port_ffn(name, inputs)
     for what, a, b in zip(("y", "gx", "wg13", "wg2"), got, ref):
         assert _cos(a, b) >= 0.99999, (name, what, _cos(a, b))
@@ -319,17 +328,19 @@ def test_moe_block_matches_reference(name):
     assert led.activation_casts() == EXPECTED_MOE[name]
 
 
-def _port_grads(name, inputs):
-    return _port_ffn(name, inputs)[0][1:]
+@functools.cache
+def _port_grads(name, seed=0):
+    """The port's (gx, wg13, wg2) of recipe `name` on _ffn_inputs(seed),
+    computed once a module (seed 0 is shared by the two tests below)."""
+    return _port_ffn(name, _ffn_inputs(seed))[0][1:]
 
 
 def test_recipe_grads_track_bf16():
     """tests/test_recipes.py::test_recipe_grads_track_bf16 (swiglu) on the
     port: every FP8 recipe's gradients within cosine 0.97 of bf16's."""
-    inputs = _ffn_inputs()
-    gb = _port_grads("bf16", inputs)
+    gb = _port_grads("bf16")
     for name in ["blockwise", "naive_fp8", "fp8_flow"]:
-        g = _port_grads(name, inputs)
+        g = _port_grads(name)
         cosines = [_cos(a, b) for a, b in zip(g, gb)]
         assert min(cosines) > 0.97, (name, cosines)
 
@@ -340,11 +351,10 @@ def test_flow_not_worse_than_naive():
     0.005 of cosine) in at least 4 of 5 seeds."""
     votes = 0
     for seed in range(5):
-        inputs = _ffn_inputs(seed)
-        gb = _port_grads("bf16", inputs)
-        cf = min(_cos(a, b) for a, b in zip(_port_grads("fp8_flow", inputs),
+        gb = _port_grads("bf16", seed)
+        cf = min(_cos(a, b) for a, b in zip(_port_grads("fp8_flow", seed),
                                             gb))
-        cn = min(_cos(a, b) for a, b in zip(_port_grads("naive_fp8", inputs),
+        cn = min(_cos(a, b) for a, b in zip(_port_grads("naive_fp8", seed),
                                             gb))
         votes += int(cf >= cn - 0.005)
     assert votes >= 4

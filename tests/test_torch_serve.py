@@ -11,6 +11,7 @@ A and B agree to logits cosine ~0.99995 (max abs ~0.01); the port's
 SwiGLU follows the Pallas kernel (no bf16 round before the quantize), so
 against A the match is a tolerance, not bits.  Bar: cosine >= 0.999 and
 the same argmax at every teacher-forced step, against both."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import contextlib
 
 import jax

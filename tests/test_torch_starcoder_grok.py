@@ -9,6 +9,7 @@ GeGLU, #1; no fused epilogue) serves the padded recipe's logits bit for
 bit, and grok's block kind, a GeGLU MoE block, matches the reference's in
 every recipe.  The four configs equal the reference's; the last four
 still raise."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -64,20 +65,19 @@ def test_masked_recipe_serves_the_padded_logits(served):
 
 
 @pytest.mark.parametrize("arch", ["starcoder2_15b", "gemma3_4b", "gemma2_9b",
-                                  "grok1_314b"])
+                                  "grok1_314b", "llava_next_34b",
+                                  "seamless_m4t_v2", "mamba2_27b",
+                                  "hymba_15b"])
 def test_config_is_the_reference_config(arch):
-    """The four configs are registered and equal the reference's, field
-    for field."""
+    """The configs are registered and equal the reference's, field for
+    field, with the same derived SSM sizes and parameter count (full and
+    reduced)."""
     assert arch in ARCH_IDS
-    assert vars(get_arch(arch)) == vars(jget_arch(arch))
-
-
-@pytest.mark.parametrize("arch", ["llava_next_34b", "seamless_m4t_v2",
-                                  "mamba2_27b", "hymba_15b"])
-def test_configs_left_still_raise(arch):
-    """The frontend, encoder-decoder and SSM configs wait for their slice."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        get_arch(arch)
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    assert vars(cfg) == vars(jcfg)
+    for c, j in ((cfg, jcfg), (cfg.reduced(), jcfg.reduced())):
+        assert (c.d_inner, c.ssm_heads, c.n_params()) == \
+            (j.d_inner, j.ssm_heads, j.n_params())
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -10,6 +10,7 @@ differ on a fraction of a percent of lanes); the cross entropy and AdamW
 to f32 rounding (rtol 1e-5 / 1e-6: reduction order), the bf16 dlogits to
 one bf16 rounding (rtol 1e-2); tokens, schedules and the ledger exactly.  The 20-step whole-run comparison is in
 tests/test_torch_train_steps.py."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import dataclasses
 import os
 import subprocess
@@ -223,9 +224,12 @@ def test_unported_training_options_raise():
 
 
 def test_train_launcher_refuses_unported_arch():
+    """Every config is ported; the launcher refuses the one its batches
+    cannot feed: seamless_m4t_v2's encoder needs an input make_batch does
+    not make (the reference launcher raises KeyError there)."""
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        main(["--arch", "mamba2_27b", "--reduced", "--device", "cpu",
+    with pytest.raises(ValueError, match="enc_input"):
+        main(["--arch", "seamless_m4t_v2", "--reduced", "--device", "cpu",
               "--steps", "1"])
 
 

@@ -16,6 +16,7 @@ step ~14 on, and the port's loss alone moves by up to 0.95% (bf16) and
 order of PyTorch's CPU reductions).  The cases of the new recipes fix
 that order with one thread (``_one_thread``), so their verdict does not
 depend on the machine's core count."""
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 import contextlib
 
 import jax
