@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """How deep each config trains on one card: peak device memory of one
-full-width train step at each depth asked for.
+full-width train step at each depth asked for, under the f32 optimizer
+state and the FP8-split one (``StatePolicy()``).
 
     python3 chip_depths.py                       # the defaults below
-    python3 chip_depths.py mamba2_27b:48,56 llava_next_34b:2,3
+    python3 chip_depths.py mamba2_27b:48,56 llava_next_34b:2,3:split
 
-For each ARCH:DEPTHS argument, smallest depth first: the state, step and
-batch of chip_smoke.py's train path (``make_train``: AdamW, fp8_flow,
-random bf16 params from seed 0, chip_smoke's batch for that config with
-its stub prefix or encoder input), one step, then one JSON line with the
-state and peak GiB and the step's seconds, or ``"oom"`` where the card
-ran out.  Needs one NVIDIA GPU; imports nothing of JAX.
+For each ARCH:DEPTHS[:STATE] argument (STATE f32 or split; both when
+left out), smallest depth first: the state, step and batch of
+chip_smoke.py's train path (``make_train``: AdamW with that state,
+fp8_flow, random bf16 params from seed 0, chip_smoke's batch for that
+config with its stub prefix or encoder input), one step, then one JSON
+line with the state and peak GiB and the step's seconds, or ``"oom"``
+where the card ran out.  Needs one NVIDIA GPU; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -23,20 +25,31 @@ import torch
 
 import chip_smoke
 
-DEFAULTS = {"mamba2_27b": (32, 48, 56, 64), "hymba_15b": (16, 32),
-            "seamless_m4t_v2": (12, 24), "llava_next_34b": (1, 2, 3)}
+# the depths of each config, by optimizer state: around the f32 state's
+# known limits (PERF.md section 4) and the split state's predicted ones
+DEFAULTS = {
+    "qwen3_moe_235b": {"f32": (1, 2), "split": (2, 3)},
+    "deepseek_v2_lite": {"f32": (6, 8, 10), "split": (12, 14, 16)},
+    "mamba2_27b": {"f32": (52, 56), "split": (56, 60, 64)},
+    "llava_next_34b": {"f32": (4, 5), "split": (5, 6, 7)},
+}
+STATES = ("f32", "split")
 
 
-def peak(arch: str, n_layers: int) -> dict:
-    tag = next(t for t, a in chip_smoke.ARCH_TAGS.items() if a == arch)
+def peak(arch: str, n_layers: int, state_kind: str = "f32") -> dict:
+    # chip_smoke's path label of the config (qwen3_moe_235b's is "train")
+    label = next((f"{t}_train" for t, a in chip_smoke.ARCH_TAGS.items()
+                  if a == arch), "train")
     cfg = chip_smoke.arch_config(arch, n_layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    out = {"arch": arch, "n_layers": n_layers}
+    out = {"arch": arch, "n_layers": n_layers, "opt_state": state_kind}
     state = step = batch = None
     try:
-        state, step, batch = chip_smoke.make_train(cfg, torch.device("cuda"),
-                                                   f"{tag}_train")
+        from repro_torch.dist.opt_state import StatePolicy
+        state, step, batch = chip_smoke.make_train(
+            cfg, torch.device("cuda"), label,
+            StatePolicy() if state_kind == "split" else None)
         torch.cuda.synchronize()
         out["state_gib"] = torch.cuda.memory_allocated() / 2**30
         t0 = time.perf_counter()
@@ -65,13 +78,17 @@ def main(argv) -> int:
         0).total_memory / 2**30}))
     from repro_torch.kernels import build
     build.build()
-    asks = dict(DEFAULTS)
+    asks = [(a, k, d) for a, by in DEFAULTS.items() for k, d in by.items()]
     if argv:
-        asks = {a: tuple(int(n) for n in d.split(","))
-                for a, d in (x.split(":") for x in argv)}
-    for arch, depths in asks.items():
+        asks = []
+        for x in argv:
+            arch, depths, *kind = x.split(":")
+            for k in kind or STATES:
+                asks.append((arch, k, tuple(int(n) for n in
+                                            depths.split(","))))
+    for arch, kind, depths in asks:
         for n in sorted(depths):
-            row = peak(arch, n)
+            row = peak(arch, n, kind)
             print(json.dumps(row), flush=True)
             if row.get("oom"):
                 break

@@ -59,6 +59,7 @@ GROUPS = (("masked_grouped_gemm_swiglu_quant",
           ("quantize_rowwise", ("quantize_rowwise_kernel",)),
           ("fused_permute_pad", ("permute_pad_kernel",)),
           ("fused_swiglu_quant", ("swiglu_quant_kernel",)),
+          ("adamw_update", ("adamw_update_kernel",)),
           ("cublas_gemm", ("gemm", "Gemm", "nvjet", "cutlass", "xmma")))
 
 

@@ -153,8 +153,34 @@ Phases (any failure raises and the script exits non-zero):
      and four decode steps' logits, and fp8_flow training as phase 7
      (seamless's fp8_flow gradients at the six-layer bar 0.998, its bf16
      and hymba's bf16 at 0.999);
-  9. the {"kernels": [...]} summary line (the eleven kernels and #1's
-     linear mode, with the new shapes' rows), then the result line.
+ 22. the fused AdamW update (csrc/adamw_update.cu, not a TPU kernel: the
+     reference's optimizer is XLA) against its twin at qwen3_moe_235b's
+     (128, 4096, 3072) expert leaf, the f32 state and the FP8-split state
+     (e4m3 m, bf16 v, f16 master with po2 row scales), one chunk and the
+     whole leaf: every byte of m, v, the master, the scales and the
+     parameter equal; timed with the bound (bytes) and, for f32,
+     torch._fused_adamw_ as the library yardstick;
+ 23. qwen3_moe_235b at full width with StatePolicy() through
+     train.loop.run, guard armed: 2 layers (which the f32 state cannot
+     hold) and 1 layer beside the f32 state's 1 layer on the same
+     batches; ms a step, tokens/s, peak GiB, losses, 2 casts a MoE layer,
+     no guard event;
+ 24. grok1_314b at full width, 1 layer, StatePolicy(), the same way: its
+     first training on the card;
+ 25. the runtime on the card: qwen15_05b whole, StatePolicy(), guard
+     armed, async checkpoints every 2 steps, a NaN injected into the
+     entry quantizes at step 3 (flagged nonfinite, skipped, every
+     parameter and state byte's SHA-256 unchanged), a restart from the
+     step-4 checkpoint (restored bit for bit, losses within 1e-5 of the
+     uninterrupted run's), one grad_accum=2 step, the JSONL telemetry
+     read back;
+ 26. GPU path vs CPU path at reduced() size with StatePolicy(), as phase
+     7, for qwen3_moe_235b and qwen15_05b;
+  9. the {"kernels": [...]} summary line (the eleven kernels, #1's
+     linear mode and the AdamW update, with the new shapes' rows), then
+     the result line.
+Every train path's optimizer update runs through the AdamW kernel, which
+is its twin bit for bit, so the losses of phases 6-21 keep their bits.
 It imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -1366,19 +1392,20 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms):
 # ---------------------------------------------------------------------------
 # Phase 6: the train path at full width.
 # ---------------------------------------------------------------------------
-def make_train(cfg, dev, label="train"):
+def make_train(cfg, dev, label="train", state_policy=None):
     """The train path's state (random bf16 params from seed 0, AdamW at the
-    reference's defaults with lr=1e-3), step function (the reference
-    make_train_step's default schedule: 100 warmup steps of a cosine over
-    100k) and its one fixed batch (make_batch step 0, B=2, S=1024).  With
-    no warmup, lr 1e-3 overshoots at this width: the loss falls at the
-    second step and rises from the third (PERF.md, section 6)."""
+    reference's defaults with lr=1e-3, the f32 state or `state_policy`),
+    step function (the reference make_train_step's default schedule: 100
+    warmup steps of a cosine over 100k) and its one fixed batch
+    (make_batch step 0, B=2, S=1024).  With no warmup, lr 1e-3 overshoots
+    at this width: the loss falls at the second step and rises from the
+    third (PERF.md, section 6)."""
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
 
-    opt = AdamWConfig(lr=1e-3)
+    opt = AdamWConfig(lr=1e-3, state_policy=state_policy)
     state = init_train_state(cfg, opt, seed=0, device=dev)
     step = make_train_step(cfg, recipe_for(label), opt)
     B, S = TRAIN_SHAPES.get(label.partition("_")[0], (TRAIN_B, TRAIN_S))
@@ -1833,7 +1860,8 @@ def moved_tokens(calls, ref_calls):
     return gaps
 
 
-def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
+def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b",
+                     split_state=False):
     """From the same params and batch on the card and on the CPU: every
     leaf's gradient (the expert weights' through the hand-written FP8
     backward), then two train steps, the second's loss depending on the
@@ -1845,8 +1873,12 @@ def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
     gradients must be nonzero.  A token the card routes to other experts
     than the CPU must sit at a router near-tie (ROUTE_TIE); when one
     does, the gradients are compared on a third run, the card routed as
-    the CPU routed (the unrouted cosines are printed beside them)."""
+    the CPU routed (the unrouted cosines are printed beside them).  With
+    split_state both sides keep the FP8-split optimizer state
+    (StatePolicy()): the second step's loss reads the first's update
+    through the AdamW kernel's e4m3 / f16 re-encode on the card."""
     from repro_torch.data.pipeline import DataConfig, make_batch_np
+    from repro_torch.dist.opt_state import StatePolicy
     from repro_torch.models.lm import forward, init_params
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_step import (init_train_state,
@@ -1855,7 +1887,8 @@ def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
 
     cfg = reduced_config(arch)
     recipe = recipe_for(label)
-    opt = AdamWConfig(lr=1e-3)
+    opt = AdamWConfig(lr=1e-3,
+                      state_policy=StatePolicy() if split_state else None)
     batch_np = make_batch_np(DataConfig(vocab=cfg.vocab, seq_len=64,
                                         global_batch=8), 0)
     batch_np.update(stub_inputs_np(cfg, 8, 64))
@@ -1900,7 +1933,8 @@ def gpu_vs_cpu_train(dev, label="train", arch="qwen3_moe_235b"):
         cos = {path: cosine(grads["cuda_routed"][path], grads["cpu"][path])
                for path in grads["cpu"]}
     print(json.dumps({"gpu_vs_cpu_train": dict(
-        config=f"{arch}.reduced()", path=label, loss=[lg, lc],
+        config=f"{arch}.reduced()", path=label,
+        opt_state="StatePolicy()" if split_state else "f32", loss=[lg, lc],
         grad_norm=[gg, gc], rel_loss=rel_loss, rel_grad_norm=rel_gn,
         step2_loss=[lg2, lc2], rel_step2_loss=rel_loss2,
         tokens_routed_apart=len(moved), their_router_gaps=moved,
@@ -1945,7 +1979,16 @@ PATH_KERNELS.update({
     "hy_train": PATH_KERNELS["qwen15_train"], "hy_bf16_train": (),
     "sm_serve": ACT_MLP_KERNELS["serve"], "sm_train": ACT_MLP_KERNELS["train"],
     "lv_serve": PATH_KERNELS["qwen15_serve"],
-    "lv_train": PATH_KERNELS["qwen15_train"]})
+    "lv_train": PATH_KERNELS["qwen15_train"],
+    # grok's GeGLU experts: the activation as plain passes, then #1
+    "grok_train": ("quantize_rowwise", "fused_permute_pad",
+                   "grouped_gemm_fp8", "grouped_gemm_fp8_quant_out",
+                   "fp8_transpose", "grouped_gemm_nt_fp8")})
+# every train step's optimizer update is the AdamW kernel, one launch a
+# chunk of a leaf (the bf16 recipe's too)
+for _path in PATH_KERNELS:
+    if _path.endswith("train"):
+        PATH_KERNELS[_path] += ("adamw_update",)
 # the serve path: SERVE_B requests, SERVE_PROMPT-token prompts fed through
 # the serve step at positions 0.., then SERVE_NEW greedy tokens; the
 # encoder-decoder's input has SERVE_ENC rows (its cross cache holds as
@@ -2147,6 +2190,375 @@ def gpu_vs_cpu_serve_step(dev, arch):
           "< 0.999")
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-26: the training runtime.  The FP8-split optimizer state on
+# the fused AdamW update kernel, the guardrails, the loop, checkpoints and
+# gradient accumulation.
+# ---------------------------------------------------------------------------
+# qwen3_moe_235b's expert leaf we13 (E, D, 2F): the largest leaf its train
+# step updates
+ADAMW_LEAF = (128, 4096, 3072)
+# bytes an element the update moves (each input read once, each output
+# written once): f32 state reads the bf16 gradient, m, v and the master
+# and writes them and the bf16 parameter; the split state the same in
+# e4m3 / bf16 / f16, and the two po2 scales of each 128-element row
+ADAMW_BYTES = {"f32": 2 + 12 + 12 + 2, "split": 2 + 5 + 5 + 2}
+ADAMW_ROW_BYTES = {"f32": 0, "split": 16}
+# f32 operations an element: the clip, adamw_math's 13 and the decode and
+# encode multiplies (counted alike for both modes)
+ADAMW_OPS = 16
+
+
+def adamw_leaf_state(dev, n, mode, gen):
+    """p, g (bf16), m, v and the master of an n-element leaf from random
+    draws: f32, or the split state (e4m3 m, bf16 v, f16 master)."""
+    from repro_torch.dist import opt_state as ost
+
+    def draw(scale, dtype=torch.float32):
+        t = torch.empty(n, dtype=dtype, device=dev)
+        step = 1 << 25
+        for i in range(0, n, step):
+            k = min(step, n - i)
+            t[i:i + k] = torch.randn(k, generator=gen, device=dev) * scale
+        return t
+
+    p, g = draw(1.0, torch.bfloat16), draw(1e-2, torch.bfloat16)
+    m, v = draw(1e-3), draw(1e-2)
+    v.square_()
+    if mode == "split":
+        m, v = ost.encode("e4m3", m), ost.encode("bf16", v)
+        return p, g, m, v, ost.encode("f16", p)
+    return p, g, m, v, p.to(torch.float32)
+
+
+def leaf_update(fn, cfg, lr, b1c, b2c, g, clip, m, v, w, p):
+    """`fn` (the kernel's wrapper or its twin) over a leaf a chunk at a
+    time, as optim.adamw.apply_updates calls it."""
+    from repro_torch.device import CHUNK_ELEMS
+    from repro_torch.optim.adamw import _state_chunk
+    n = p.numel()
+    for s in range(0, n, CHUNK_ELEMS):
+        k = min(CHUNK_ELEMS, n - s)
+        fn(cfg, lr, b1c, b2c, g[s:s + k], clip, _state_chunk(m, s, k),
+           _state_chunk(v, s, k), _state_chunk(w, s, k), p[s:s + k])
+
+
+def state_views(*leaves):
+    """The bytes of state leaves (QTensors' payloads and scales) as uint8."""
+    from repro_torch.core.quant import QTensor
+    out = []
+    for x in leaves:
+        for t in ((x.data, x.scale) if isinstance(x, QTensor) else (x,)):
+            out.append(t.reshape(-1).view(torch.uint8))
+    return out
+
+
+def clone_state(x):
+    from repro_torch.core.quant import QTensor
+    if isinstance(x, QTensor):
+        return QTensor(x.data.clone(), x.scale.clone(), x.tile)
+    return x.clone()
+
+
+def adamw_kernel_checks(peaks, dev):
+    """The AdamW kernel against its twin at qwen3's expert leaf, f32 and
+    split state, one chunk and the whole leaf: every byte of m, v, the
+    master, the scales and the parameter equal.  Timed as the other
+    kernels; the f32 mode beside torch._fused_adamw_ on the same f32
+    master, moments and an f32 copy of the gradient (a yardstick: its
+    weight decay multiplies the parameter before the step)."""
+    from repro_torch.device import CHUNK_ELEMS
+    from repro_torch.kernels.adamw_update import (adamw_update_cuda,
+                                                  adamw_update_plain)
+    from repro_torch.optim.adamw import AdamWConfig, bias_corrections
+
+    record = KernelRows(peaks)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cfg = AdamWConfig(lr=1e-3)
+    lr, (b1c, b2c) = 1e-3, bias_corrections(cfg, 3)
+    clip = torch.tensor(0.5, device=dev)
+    N = int(np.prod(ADAMW_LEAF))
+    for extent, n in (("leaf", N), ("chunk", CHUNK_ELEMS)):
+        for mode in ("f32", "split"):
+            p, g, m, v, w = adamw_leaf_state(dev, n, mode, gen)
+            twin = [clone_state(x) for x in (p, m, v, w)]
+            leaf_update(adamw_update_cuda, cfg, lr, b1c, b2c, g, clip, m,
+                        v, w, p)
+            leaf_update(adamw_update_plain, cfg, lr, b1c, b2c, g, clip,
+                        *twin[1:], twin[0])
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(
+                state_views(p, m, v, w), state_views(*twin))]
+            check(all(same), f"adamw_update {mode} {extent}: the kernel's "
+                  f"bytes are not its twin's (p, m, v, master[, scales]): "
+                  f"{same}")
+            lib = None
+            if mode == "f32":
+                # the twin's buffers, now free, as the library's state
+                g32 = g.to(torch.float32)
+                steps = [torch.tensor(3.0, device=dev)]
+
+                def lib():
+                    torch._fused_adamw_(
+                        [twin[3]], [g32], [twin[1]], [twin[2]], [], steps,
+                        lr=lr, beta1=cfg.b1, beta2=cfg.b2,
+                        weight_decay=cfg.weight_decay, eps=cfg.eps,
+                        amsgrad=False, maximize=False)
+            rows = -(-n // 128)
+            record("adamw_update",
+                   f"{mode} {extent} {ADAMW_LEAF if extent == 'leaf' else n}",
+                   lambda: leaf_update(adamw_update_cuda, cfg, lr, b1c, b2c,
+                                       g, clip, m, v, w, p),
+                   lambda: leaf_update(adamw_update_plain, cfg, lr, b1c,
+                                       b2c, g, clip, *twin[1:], twin[0]),
+                   lib, n * ADAMW_BYTES[mode] + rows * ADAMW_ROW_BYTES[mode],
+                   n * ADAMW_OPS, peaks["f32"], 0.0,
+                   dict(mode=mode, elements=n, bitwise=True,
+                        launches=-(-n // CHUNK_ELEMS)),
+                   plain_target_ms=1.0)
+            del p, g, m, v, w, twin, lib
+            torch.cuda.empty_cache()
+    return record.rows
+
+
+def runtime_train_path(cfg, dev, label, path="train", split_state=True):
+    """TRAIN_STEPS steps of `cfg` (fp8_flow, full width) through
+    train.loop.run: AdamW lr 1e-3 with StatePolicy() or the f32 state,
+    the reference's default schedule, guard armed, make_batch's batches of
+    TRAIN_B x TRAIN_S at steps 0..; no guard event may fire, and exactly
+    the kernels of `path` launch.  Returns (launches, losses, peak GiB)."""
+    from repro_torch import kernels
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.obs.sink import MemorySink, Telemetry
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.train.guards import GuardPlan, GuardPolicy
+    from repro_torch.train.loop import run as run_loop
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt = AdamWConfig(lr=1e-3,
+                      state_policy=StatePolicy() if split_state else None)
+    guard = GuardPlan()
+    state = init_train_state(cfg, opt, seed=0, device=dev, guard=guard)
+    step = make_train_step(cfg, get_recipe("fp8_flow"), opt, guard=guard)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    sink = MemorySink()
+    pol = GuardPolicy()
+    kernels.reset_launches()
+    state, hist = run_loop(
+        step, state, DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                global_batch=TRAIN_B),
+        n_steps=TRAIN_STEPS, guard_policy=pol,
+        telemetry=Telemetry(sinks=(sink,)), log_fn=lambda *a: None)
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    ledger = sink.of_kind("cast_ledger")[0]
+    want = casts_per_step(cfg, "fp8_flow")
+    steps = sink.of_kind("step")
+    warm = [h["device_ms"] for h in hist[1:]]
+    print(json.dumps({label: dict(
+        config=f"{cfg.name} n_layers={cfg.n_layers} full width",
+        opt_state="StatePolicy()" if split_state else "f32",
+        params=sum(p.numel() for p in tree_leaves(state["params"])),
+        batch=[TRAIN_B, TRAIN_S], steps=TRAIN_STEPS, losses=losses,
+        grad_norms=[r["grad_norm"] for r in steps],
+        guard_flags=[r["guard_flags"] for r in steps],
+        quant_sites=steps[-1].get("quant_sites"),
+        device_ms=[h["device_ms"] for h in hist],
+        fetch_ms=[h["fetch_ms"] for h in hist], init_s=init_s,
+        ms_per_step_warm=statistics.mean(warm),
+        tokens_per_s_warm=TRAIN_B * TRAIN_S * 1e3 / statistics.mean(warm),
+        activation_casts_per_step=ledger["activation_casts"],
+        state_gib=state_gib, max_memory_allocated_gib=peak_gib,
+        launches=launches)}))
+    check(all(np.isfinite(losses)), f"{label}: a non-finite loss {losses}")
+    check(not pol.events, f"{label}: guard events {pol.events}")
+    check(ledger["activation_casts"] == want,
+          f"{label}: {ledger['activation_casts']} activation casts a step, "
+          f"expected {want}")
+    check_launches(path, launches)
+    del state, step
+    torch.cuda.empty_cache()
+    return launches, losses, peak_gib
+
+
+def tree_sha256(tree) -> str:
+    """SHA-256 over every tensor byte of a state tree, in checkpoint
+    order (the host step counter is not a tensor)."""
+    from repro_torch.checkpoint.checkpointing import _flatten
+    h = hashlib.sha256()
+    for path, x in _flatten(tree):
+        if torch.is_tensor(x):
+            h.update(path.encode())
+            h.update(x.detach().reshape(-1).contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+RUNTIME_STEPS, NAN_STEP, CKPT_EVERY = 8, 3, 2
+
+
+def runtime_phase(cfg, dev, label="runtime"):
+    """The runtime on the card: `cfg` (qwen15_05b whole) with StatePolicy()
+    and the guard through loop.run for RUNTIME_STEPS steps, async
+    checkpoints every CKPT_EVERY steps and JSONL telemetry into a
+    temporary directory, a NaN injected into the entry quantizes at
+    NAN_STEP: flagged nonfinite, skipped, every tensor byte unchanged
+    (SHA-256).  Then a fresh state from another seed restarts from the
+    step-4 checkpoint alone: restored bit for bit, and its losses within
+    1e-5 relative of the uninterrupted run's.  Then one grad_accum=2 step.
+    Returns the launches of the uninterrupted run."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import checkpointing
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.obs.sink import JsonlSink, Telemetry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import fault_injection as fi
+    from repro_torch.train import guards
+    from repro_torch.train.loop import run as run_loop
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    opt = AdamWConfig(lr=1e-3, state_policy=StatePolicy())
+    guard = guards.GuardPlan()
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B)
+    fplan = fi.FaultPlan((fi.Fault("nan_activation", NAN_STEP, "q_entry"),))
+    quiet = dict(log_fn=lambda *a: None, log_every=1000)
+
+    def spied(step, hashes, at):
+        """`step`, hashing the state before call i in `at` and after."""
+        calls = [0]
+
+        def fn(state, batch):
+            i = calls[0]
+            calls[0] += 1
+            if i in at:
+                hashes[("before", i)] = tree_sha256(state)
+            out = step(state, batch)
+            if i in at:
+                hashes[("after", i)] = tree_sha256(out[0])
+            return out
+        return fn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, crashed = os.path.join(tmp, "ckpt"), os.path.join(tmp, "crash")
+        jsonl = os.path.join(tmp, "run.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, opt, seed=0, device=dev, guard=guard)
+        step = make_train_step(cfg, get_recipe("fp8_flow"), opt, guard=guard)
+        hashes = {}
+        pol = guards.GuardPolicy()
+        tel = Telemetry(sinks=(JsonlSink(jsonl),))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, full = run_loop(fplan.wrap(spied(step, hashes,
+                                                (NAN_STEP, 4))),
+                               state, data, n_steps=RUNTIME_STEPS,
+                               ckpt_dir=ckpt, ckpt_every=CKPT_EVERY,
+                               guard_policy=pol, fault_plan=fplan,
+                               telemetry=tel, **quiet)
+        run_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        tel.close()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        saved = checkpointing.completed_steps(ckpt)
+        ckpt_bytes = {s: dir_bytes(os.path.join(ckpt, f"step_{s}"))
+                      for s in saved}
+        records = [json.loads(line) for line in open(jsonl)]
+        del state, step
+        torch.cuda.empty_cache()
+        # a run that crashed after its step-4 checkpoint landed
+        os.makedirs(crashed)
+        shutil.copytree(os.path.join(ckpt, "step_4"),
+                        os.path.join(crashed, "step_4"))
+        state = init_train_state(cfg, opt, seed=1, device=dev, guard=guard)
+        step = make_train_step(cfg, get_recipe("fp8_flow"), opt, guard=guard)
+        rhash = {}
+        msgs = []
+        state, resumed = run_loop(spied(step, rhash, (0,)), state, data,
+                                  n_steps=RUNTIME_STEPS, ckpt_dir=crashed,
+                                  ckpt_every=100, log_every=1000,
+                                  log_fn=msgs.append)
+        del state, step
+        torch.cuda.empty_cache()
+    # one grad_accum=2 step: two microbatches of TRAIN_B // 2 sequences
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, get_recipe("fp8_flow"), opt, grad_accum=2)
+    batch = {k: v.reshape(2, TRAIN_B // 2, *v.shape[1:])
+             for k, v in make_batch(data, 0, device=dev).items()}
+    state, m = step(state, batch)
+    accum_loss = float(m["loss"])
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    losses = [h["loss"] for h in full]
+    events = [(e["step"], e["event"], e["flag_names"]) for e in pol.events]
+    resumed_losses = {h["step"]: h["loss"] for h in resumed}
+    rel = {s: abs(resumed_losses[s] - losses[s]) / abs(losses[s])
+           for s in resumed_losses}
+    kinds = [r["kind"] for r in records]
+    print(json.dumps({label: dict(
+        config=f"{cfg.name} n_layers={cfg.n_layers} full width",
+        opt_state="StatePolicy()", steps=RUNTIME_STEPS, losses=losses,
+        guard_events=events, run_s=run_s,
+        # steps NAN_STEP and 4 hash the state inside their device span
+        device_ms=[h["device_ms"] for h in full], hashed_steps=[NAN_STEP, 4],
+        fetch_ms=[h["fetch_ms"] for h in full],
+        max_memory_allocated_gib=peak_gib,
+        checkpoints=saved, checkpoint_bytes=ckpt_bytes,
+        sha256_nan_step={k: hashes[(k, NAN_STEP)][:16]
+                         for k in ("before", "after")},
+        sha256_step4=hashes[("after", 4)][:16],
+        sha256_restored=rhash[("before", 0)][:16],
+        resumed_losses=resumed_losses, resumed_rel_diff=rel,
+        grad_accum2_loss=accum_loss,
+        jsonl_records={k: kinds.count(k) for k in sorted(set(kinds))},
+        launches=launches)}))
+    check(events == [(NAN_STEP, "skip", "nonfinite_loss|nonfinite_grad"),
+                     (NAN_STEP + 1, "recovered", "none")],
+          f"{label}: guard events {events}")
+    check(not np.isfinite(losses[NAN_STEP]) and all(
+        np.isfinite(l) for i, l in enumerate(losses) if i != NAN_STEP),
+        f"{label}: losses {losses}")
+    check(hashes[("before", NAN_STEP)] == hashes[("after", NAN_STEP)],
+          f"{label}: the skipped step changed the state")
+    check(saved == [2, 4, 6], f"{label}: checkpoints {saved}")
+    check("[loop] restored checkpoint step=4" in msgs,
+          f"{label}: the restart did not restore step 4: {msgs}")
+    check(rhash[("before", 0)] == hashes[("after", 4)],
+          f"{label}: the restored state is not the step-4 state")
+    check(sorted(resumed_losses) == list(range(5, RUNTIME_STEPS)),
+          f"{label}: resumed steps {sorted(resumed_losses)}")
+    check(all(r <= 1e-5 for r in rel.values()),
+          f"{label}: resumed losses {resumed_losses} vs {losses}")
+    check(np.isfinite(accum_loss), f"{label}: grad_accum=2 loss")
+    check(kinds.count("step") == RUNTIME_STEPS and "guard" in kinds
+          and "cast_ledger" in kinds and kinds.count("ckpt_save") == 3,
+          f"{label}: JSONL records {kinds}")
+    check_launches("qwen15_train", launches)
+    return launches
+
+
+def dir_bytes(d) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2304,9 +2716,32 @@ def main() -> int:
     for arch in ("hymba_15b", "seamless_m4t_v2"):
         gpu_vs_cpu_train(dev, "bf16_train", arch)
 
-    from repro_torch.kernels import (fp8_transpose, fused_permute_pad,
-                                     fused_swiglu_quant, grouped_gemm_fp8,
-                                     grouped_gemm_nt_fp8,
+    # the training runtime (phases 22-26): the AdamW kernel alone; qwen3
+    # at 2 layers and grok at 1 on the FP8-split state, which the f32
+    # state cannot hold, and qwen3's 1 layer in both states on the same
+    # batches; the runtime around qwen15_05b; GPU vs CPU with the state
+    add_rows(timings, adamw_kernel_checks(PEAKS, dev))
+    launches["q3_split_train"], _, _ = runtime_train_path(
+        arch_config("qwen3_moe_235b", 2), dev, "q3_split_train_2l")
+    one = {}
+    for split in (True, False):
+        _, one[split], peak = runtime_train_path(
+            train_config(), dev, f"q3_{'split' if split else 'f32'}_train_1l",
+            split_state=split)
+    print(json.dumps({"q3_state_policies_1l": dict(
+        split_losses=one[True], f32_losses=one[False],
+        rel_diff=[abs(a - b) / abs(b) for a, b in zip(one[True],
+                                                       one[False])])}))
+    launches["grok_split_train"], _, _ = runtime_train_path(
+        arch_config("grok1_314b", 1), dev, "grok_split_train", "grok_train")
+    launches["qwen15_runtime"] = runtime_phase(arch_config("qwen15_05b"),
+                                               dev)
+    for arch in ("qwen3_moe_235b", "qwen15_05b"):
+        gpu_vs_cpu_train(dev, "train", arch, split_state=True)
+
+    from repro_torch.kernels import (adamw_update, fp8_transpose,
+                                     fused_permute_pad, fused_swiglu_quant,
+                                     grouped_gemm_fp8, grouped_gemm_nt_fp8,
                                      grouped_gemm_swiglu_quant, quantize)
     modules = {"quantize_rowwise": quantize,
                "fused_permute_pad": fused_permute_pad,
@@ -2319,7 +2754,8 @@ def main() -> int:
                "masked_grouped_gemm_fp8_quant_out": grouped_gemm_fp8,
                "masked_grouped_gemm_swiglu_quant": grouped_gemm_swiglu_quant,
                "masked_grouped_gemm_nt_fp8": grouped_gemm_nt_fp8,
-               "quantize_rowwise_linear": quantize}
+               "quantize_rowwise_linear": quantize,
+               "adamw_update": adamw_update}
     replaces = {
         "grouped_gemm_fp8_quant_out": grouped_gemm_fp8.REPLACES_QUANT_OUT,
         "masked_grouped_gemm_fp8": grouped_gemm_fp8.REPLACES_MASKED,
@@ -2347,7 +2783,8 @@ def main() -> int:
                 "max_abs_err", "mismatch_frac", "bf16_mismatch_frac",
                 "f32_max_rel_diff", "store_only_ms", "one_step_ms",
                 "f32_out_ms", "t_phases", "padded_ms", "live_tile_share",
-                "copy_ms", "launch_floor_ms", "issue", "po2_ms")}
+                "copy_ms", "launch_floor_ms", "issue", "po2_ms", "mode",
+                "elements", "bitwise", "launches")}
                 for r in timings[kname]]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

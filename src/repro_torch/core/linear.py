@@ -43,7 +43,9 @@ reference.  A QTensor crosses autograd as its (payload, scale) pair, and
 so does its cotangent: the FP8 input gradient of the FFN is an e4m3
 payload "gradient" plus an f32 scale "gradient".  Autograd cannot add two
 e4m3 gradients, so every FP8 intermediate has exactly one consumer, as in
-the reference.  ``save_h`` raises (ROADMAP.md, Queue 1, item 6).
+the reference.  ``Recipe(save_h=True)`` keeps fp8_flow's bf16 h for the
+backward instead of recomputing it (the same bits; the fused SwiGLU
+epilogue then does not apply, as in the reference).
 
 ``masked_m`` (E,) int32, each expert's live rows (``core.moe``'s expert
 plan, on the device), routes all five grouped GEMMs of the forward and
@@ -59,11 +61,13 @@ import torch
 from repro_torch.core import casts
 from repro_torch.core.fp8 import TILE
 from repro_torch.core.quant import (QTensor, _dequantize_nocount,
-                                    quantize_blockwise, row_tile)
+                                    quantize_blockwise, record_entry_stats,
+                                    row_tile)
 from repro_torch.core.recipes import Recipe
 from repro_torch.core.transpose import transpose_direct, transpose_naive
 from repro_torch.kernels import ops
 from repro_torch.kernels.grouped_gemm_nt_fp8 import OUT_DTYPES
+from repro_torch.runtime import fault_injection
 
 
 def _ggemm(recipe: Recipe, qx: QTensor, qw: QTensor, out_dtype=torch.bfloat16,
@@ -235,10 +239,12 @@ def _use_swiglu_epilogue(recipe: Recipe, act: str, masked_m) -> bool:
 def ffn_fwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qw13: QTensor,
                      qw2: QTensor, masked_m=None):
     """fp8_flow grouped FFN forward on an already-quantized input.
-    Returns (y bf16, (qx, qa, None)) like the reference (h is recomputed
-    in the backward: FP8 activation checkpointing).  SwiGLU runs the
+    Returns (y bf16, (qx, qa, h_saved)) like the reference: h_saved is the
+    bf16 h with ``recipe.save_h``, else None (h is recomputed in the
+    backward: FP8 activation checkpointing).  SwiGLU runs the
     fused SwiGLU + quantize; another activation is computed to bf16 and
     quantized row-wise by #1 (``act_quant``), as the reference does."""
+    h_saved = None
     if _use_swiglu_epilogue(recipe, act, masked_m):
         # GEMM-1 with the SwiGLU + quantize in its epilogue: the BF16
         # island lives only in registers (bitwise the unfused pair), and
@@ -255,17 +261,19 @@ def ffn_fwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qw13: QTensor,
             casts.record("fused_quantize", "act_quant", h.numel())
             qa = _q_row(recipe, _act_fwd(act, h), "act_quant",
                         kind="fused_quantize_inner")
+        h_saved = h if recipe.save_h else None
         del h
     y = _ggemm(recipe, qa, qw2, masked_m=masked_m)
-    return y, (qx, qa, None)
+    return y, (qx, qa, h_saved)
 
 
 def ffn_bwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qa: QTensor,
                      qw13: QTensor, qw2: QTensor, qg: QTensor,
                      wg13_dtype=torch.float32, wg2_dtype=torch.float32,
-                     masked_m=None):
+                     masked_m=None, h_saved=None):
     """fp8_flow grouped FFN backward given the ALREADY-QUANTIZED output
-    cotangent ``qg``.  Returns (gx QTensor, wg13, wg2): the input gradient
+    cotangent ``qg`` (and the forward's bf16 h when it was saved).
+    Returns (gx QTensor, wg13, wg2): the input gradient
     in FP8 (fused Dgrad-1 epilogue), the weight gradients in the requested
     dtypes, each rounded once from the f32 accumulator.  masked_m skips
     dead capacity groups in all five grouped GEMMs (the Dgrad rows beyond
@@ -276,10 +284,11 @@ def ffn_bwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qa: QTensor,
     # Wgrad-2 via scaling-aware DIRECT transposes -- zero casts
     wg2 = _ggemm_nt(recipe, transpose_direct(qa), transpose_direct(qg),
                     wg2_dtype, masked_m=masked_m)
-    # BF16 island: recompute h (FP8 activation checkpointing); the
-    # activation's backward needs the bf16 h, so the masked path recomputes
-    # it unfused
-    h = _ggemm(recipe, qx, qw13, masked_m=masked_m)
+    # BF16 island: recompute h (FP8 activation checkpointing) or reuse the
+    # saved one; the activation's backward needs the bf16 h, so the masked
+    # path recomputes it unfused
+    h = h_saved if h_saved is not None else _ggemm(recipe, qx, qw13,
+                                                   masked_m=masked_m)
     gh = _act_bwd(act, h, ga)
     del h, ga
     casts.record("fused_quantize", "dact_quant", gh.numel())
@@ -302,11 +311,10 @@ class _ExpertFFN(torch.autograd.Function):
     def forward(ctx, recipe, act, xd, xs, w13, w2, masked_m):
         ctx.ledger = casts.current()
         qw13, qw2 = _quant_weights(recipe, w13, w2)
-        y, (_, qa, _) = ffn_fwd_fp8_core(recipe, act,
-                                         QTensor(xd, xs, row_tile(3)), qw13,
-                                         qw2, masked_m)
+        y, (_, qa, h_saved) = ffn_fwd_fp8_core(
+            recipe, act, QTensor(xd, xs, row_tile(3)), qw13, qw2, masked_m)
         ctx.save_for_backward(xd, xs)
-        ctx.qa, ctx.qw13, ctx.qw2 = qa, qw13, qw2
+        ctx.qa, ctx.qw13, ctx.qw2, ctx.h = qa, qw13, qw2, h_saved
         ctx.recipe, ctx.act, ctx.masked_m = recipe, act, masked_m
         ctx.w_dtypes = (w13.dtype, w2.dtype)
         return y
@@ -321,8 +329,8 @@ class _ExpertFFN(torch.autograd.Function):
             gx, wg13, wg2 = ffn_bwd_fp8_core(
                 ctx.recipe, ctx.act, QTensor(xd, xs, row_tile(3)), ctx.qa,
                 ctx.qw13, ctx.qw2, qg, *ctx.w_dtypes,
-                masked_m=ctx.masked_m)
-        ctx.qa = ctx.qw13 = ctx.qw2 = ctx.masked_m = None
+                masked_m=ctx.masked_m, h_saved=ctx.h)
+        ctx.qa = ctx.qw13 = ctx.qw2 = ctx.masked_m = ctx.h = None
         return None, None, gx.data, gx.scale, wg13, wg2, None
 
 
@@ -496,6 +504,7 @@ class _QuantizeEntry(torch.autograd.Function):
         ctx.ledger = casts.current()
         ctx.x_dtype = x.dtype
         casts.record("quantize", "q_entry", x.numel())
+        x = fault_injection.apply("activation", "q_entry", x)
         K = x.shape[-1]
         q = ops.quantize_rowwise(x.reshape(-1, K))
         return (q.data.reshape(x.shape),
@@ -555,9 +564,8 @@ def dense_mlp(recipe: Recipe, act: str, x: torch.Tensor, w13, w2):
     nothing to outputs or gradients) and the result is sliced back.
     fp8_flow quantizes once at the entry and stays FP8 end to end; the
     baselines run their FFN on the bf16 input.  No ``masked_m``: every
-    recipe takes the padded kernels here.  The reference's guard-stats
-    hook on the entry (``record_entry_stats("q_entry_mlp")``) is not
-    ported (core/quant.py)."""
+    recipe takes the padded kernels here.  fp8_flow's entry records the
+    guard stats of site ``q_entry_mlp`` while a collector is armed."""
     T, D = x.shape
     Tp, Dp = -(-T // TILE) * TILE, -(-D // TILE) * TILE
     if Tp != T or Dp != D:
@@ -565,6 +573,9 @@ def dense_mlp(recipe: Recipe, act: str, x: torch.Tensor, w13, w2):
         w13 = torch.nn.functional.pad(w13, (0, 0, 0, Dp - D))
         w2 = torch.nn.functional.pad(w2, (0, Dp - D))
     x3 = x.reshape(1, Tp, Dp)
-    x_in = quantize_entry(recipe, x3) if recipe.name == "fp8_flow" \
-        else x3.to(torch.bfloat16)
+    if recipe.name == "fp8_flow":
+        x_in = quantize_entry(recipe, x3)
+        record_entry_stats("q_entry_mlp", x3, x_in)
+    else:
+        x_in = x3.to(torch.bfloat16)
     return expert_ffn(recipe, act, x_in, w13[None], w2[None])[0, :T, :D]

@@ -33,9 +33,11 @@ from repro_torch.core import casts
 from repro_torch.core.fp8 import TILE
 from repro_torch.core.linear import (dequantize_exit, expert_ffn,
                                      quantize_entry)
-from repro_torch.core.quant import QTensor, _dequantize_nocount, row_tile
+from repro_torch.core.quant import (QTensor, _dequantize_nocount,
+                                    record_entry_stats, row_tile)
 from repro_torch.core.recipes import Recipe
 from repro_torch.kernels import ops
+from repro_torch.runtime import fault_injection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +199,7 @@ class _DispatchQuantize(torch.autograd.Function):
         ctx.save_for_backward(row_map)
         ctx.T, ctx.x_dtype = x.shape[0], x.dtype
         casts.record("quantize", "q_entry", x.numel())
+        x = fault_injection.apply("activation", "q_entry", x)
         q = ops.fused_permute_pad(ops.quantize_rowwise(x), row_map)
         return q.data, q.scale
 
@@ -227,6 +230,7 @@ class _FP8DispatchNaive(torch.autograd.Function):
         ctx.save_for_backward(row_map)
         ctx.T, ctx.x_dtype = x.shape[0], x.dtype
         casts.record("quantize", "q_entry", x.numel())
+        x = fault_injection.apply("activation", "q_entry", x)
         q = ops.fused_permute_pad(ops.quantize_rowwise(x, recipe.scale_mode),
                                   row_map)
         return dequantize_exit(recipe, q)
@@ -270,6 +274,7 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
 
     if recipe.name == "fp8_flow":
         recv_in = dispatch_quantize(recipe, x, row_map_send)
+        record_entry_stats("q_entry_moe", x, scale_mode=recipe.scale_mode)
     elif recipe.name == "naive_fp8":
         recv_in = fp8_dispatch_naive(recipe, x, row_map_send)
     else:                                   # bf16 / blockwise: bf16 rows

@@ -4,8 +4,9 @@ Counterpart of ``repro.core.quant``'s quantizers: per-tile scales over
 128 contiguous elements (paper Eq. 2), po2 by default or linear
 (``scale_mode="linear"``, s = amax / 448: the conventional recipe of the
 ``blockwise`` and ``naive_fp8`` baselines), the same normative tile
-convention, and the cast-ledger records.  The training-only pieces (the
-quant-stats collector and the checkpoint tags) are not ported.
+convention, the cast-ledger records and the guardrails' quant-stats
+collector (below).  The remat checkpoint tags (``tag_qtensor``) come
+with ``train/memory.py`` (ROADMAP.md, Queue 1, item 1).
 
 Tile-metadata convention (as in the reference):
 
@@ -18,17 +19,30 @@ These are the plain PyTorch quantizers, used for weights, KV pages and
 ``double_quant_error``.  The activation quantizes on the MoE path run
 through the hand-written kernel in ``repro_torch.kernels`` (same
 function, same bits).
+
+The FP8 health stats of the numerics guardrails (``train/guards.py``)
+are collected here, as in the reference: while a collector is armed
+(``collect_stats()``), the entry quantize sites record a (N_SITES, 2) f32
+matrix whose row is [saturation fraction, underflow-flush fraction] of
+their tensor, max-merged across records.  PyTorch runs eagerly, so the
+records are plain tensors on the device and need none of the reference's
+threading through scans and shard_maps; the sites record outside the
+autograd Functions (``core/linear.dense_mlp``, ``core/moe.moe_block``),
+plain reductions that run only while armed.  The ``dp_wire`` row stays
+zero until the DP wire is ported (ROADMAP.md, Queue 1, item 7).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import casts
-from repro_torch.core.fp8 import (E4M3, TILE, cast_to, linear_scale,
-                                  po2_scale)
+from repro_torch.core.fp8 import (E4M3, E4M3_MAX, TILE, cast_to,
+                                  linear_scale, po2_scale)
 from repro_torch.device import CHUNK_ELEMS
 
 
@@ -184,3 +198,106 @@ def _dequantize_nocount(q: QTensor, dtype=torch.float32) -> torch.Tensor:
                          q.scale.to(torch.bfloat16), q.tile, torch.mul)
     return _tiled_op(q.data.to(torch.float32), q.scale, q.tile,
                      torch.mul).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# FP8 health stats for the numerics guardrails (train/guards.py).
+# ---------------------------------------------------------------------------
+STATS_LEN = 2                      # [sat_frac, flush_frac], max-merged
+# Instrumented quantize sites, one row of the collected matrix each.
+STAT_SITES = ("q_entry_mlp",       # dense-MLP / shared-expert entry quantize
+              "q_entry_moe",       # MoE dispatch entry quantize
+              "dp_wire")           # DP gradient-wire bucket quantize
+N_SITES = len(STAT_SITES)
+_SITE_ROW = {t: i for i, t in enumerate(STAT_SITES)}
+STATS_TAGS = frozenset(_SITE_ROW)
+
+_QSTATS: contextvars.ContextVar[Optional["QuantStatsCollector"]] = \
+    contextvars.ContextVar("quant_stats", default=None)
+
+
+class QuantStatsCollector:
+    def __init__(self):
+        self.vals: List[torch.Tensor] = []
+
+
+def stats_armed() -> bool:
+    return _QSTATS.get() is not None
+
+
+def zero_stats(device="cpu") -> torch.Tensor:
+    return torch.zeros((N_SITES, STATS_LEN), dtype=torch.float32,
+                       device=device)
+
+
+def site_maxima(stats: torch.Tensor) -> torch.Tensor:
+    """(N_SITES, STATS_LEN) -> (STATS_LEN,) max over sites: the scalar
+    [sat_frac, flush_frac] pair the guard thresholds compare against."""
+    return stats.to(torch.float32).amax(dim=0)
+
+
+def record_stat_pair(tag: str, sat_frac, flush_frac) -> None:
+    col = _QSTATS.get()
+    if col is not None:
+        pair = torch.stack([torch.as_tensor(sat_frac, dtype=torch.float32),
+                            torch.as_tensor(flush_frac,
+                                            dtype=torch.float32)])
+        row = zero_stats(pair.device)
+        row[_SITE_ROW[tag]] = pair
+        col.vals.append(row)
+
+
+def drain_stats(device="cpu") -> torch.Tensor:
+    """Max-merge and clear the collected stats (zeros if none)."""
+    col = _QSTATS.get()
+    if col is None or not col.vals:
+        return zero_stats(device)
+    out = col.vals[0]
+    for v in col.vals[1:]:
+        out = torch.maximum(out, v)
+    col.vals.clear()
+    return out
+
+
+@contextlib.contextmanager
+def collect_stats():
+    col = QuantStatsCollector()
+    tok = _QSTATS.set(col)
+    try:
+        yield col
+    finally:
+        _QSTATS.reset(tok)
+
+
+def _maybe_record_stats(tag: str, xf, data, fmax: float) -> None:
+    """sat = pre-clip overflow fraction; flush = nonzero inputs whose fp8
+    encoding flushed to zero.  `xf` is the already-scaled tensor, `data`
+    its fp8 payload."""
+    if _QSTATS.get() is None or tag not in STATS_TAGS:
+        return
+    xa = xf.to(torch.float32).abs()
+    # a mean as XLA computes jnp.mean here: the count times the f32
+    # reciprocal of the size (torch's CPU mean divides instead)
+    inv = 1.0 / xa.numel()
+    sat = (xa > fmax).to(torch.float32).sum() * inv
+    flush = ((data.to(torch.float32) == 0) & (xa > 0)).to(
+        torch.float32).sum() * inv
+    record_stat_pair(tag, sat, flush)
+
+
+@torch.no_grad()
+def record_entry_stats(tag: str, x: torch.Tensor,
+                       q: Optional[QTensor] = None,
+                       scale_mode: str = "po2") -> None:
+    """Record sat/flush for a forward entry quantize from its call site.
+    With `q` laid out as x (quantize_entry's return) its payload and
+    scales are reused; without (the MoE dispatch returns a permuted,
+    padded QTensor) the row-wise scales and payload are recomputed, only
+    while a collector is armed."""
+    if _QSTATS.get() is None or tag not in STATS_TAGS:
+        return
+    tile = row_tile(x.ndim)
+    scale = compute_scale(x, tile, scale_mode) if q is None else q.scale
+    xf = _tiled_op(x.to(torch.float32), scale, tile, torch.div)
+    data = q.data if q is not None else cast_to(xf)
+    _maybe_record_stats(tag, xf, data, E4M3_MAX)

@@ -30,7 +30,8 @@ class Recipe:
     # 'po2' enables the scaling-aware transpose; 'linear' is the
     # conventional amax scale of the baselines (double quantization error)
     scale_mode: str = "po2"
-    # the reference's option that the port does not run yet; True raises
+    # keep GEMM-1's bf16 output h for the backward (activation checkpointing
+    # off) instead of recomputing it from the saved FP8 input (fp8_flow)
     save_h: bool = False
     # Route the expert grouped GEMMs through the MASKED layout: per-expert
     # live row counts from the expert plan skip dead 128-row capacity
@@ -53,10 +54,6 @@ class Recipe:
             raise NotImplementedError(
                 "fp8_flow with linear scales: the scaling-aware transpose "
                 "needs po2 scales")
-        if self.save_h:
-            raise NotImplementedError(
-                "save_h=True (keep the bf16 h for the backward) is not ported "
-                "yet; the port recomputes h (ROADMAP.md, Queue 1, item 6)")
 
     @property
     def is_fp8(self) -> bool:

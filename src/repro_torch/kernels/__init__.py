@@ -9,7 +9,9 @@ launches the kernel (or raises), a CPU tensor takes the twin.
 ``LAUNCHES`` counts kernel launches: each ``*_cuda`` function adds one where
 it launches and nowhere else, so a run can show that its main path went
 through the kernels.  A kernel's modes that a recipe selects (the linear
-scales of the quantize) count apart from its default.
+scales of the quantize) count apart from its default.  ``adamw_update``
+(the optimizer's fused update) replaces no TPU kernel: the reference's
+AdamW is XLA.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ KERNELS = ("quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8",
            "grouped_gemm_fp8_quant_out", "masked_grouped_gemm_fp8",
            "masked_grouped_gemm_fp8_quant_out",
            "masked_grouped_gemm_swiglu_quant", "masked_grouped_gemm_nt_fp8",
-           "quantize_rowwise_linear")
+           "quantize_rowwise_linear", "adamw_update")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 

@@ -27,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of each library's one exported launcher: (name, argtypes)
 SIGNATURES = {
     "quantize": ("repro_quantize_rowwise", (_P, _I, _I, _P, _P, _I, _I, _P)),
@@ -43,6 +45,9 @@ SIGNATURES = {
     "grouped_gemm_swiglu_quant": ("repro_grouped_gemm_swiglu_quant",
                                   (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _P)),
+    "adamw_update": ("repro_adamw_update",
+                     (_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P,
+                      _I, _P, _I, _L) + (_F,) * 9 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import QTensor, row_tile
+from repro_torch.kernels.adamw_update import (adamw_update_cuda,
+                                              adamw_update_plain)
 from repro_torch.kernels.fp8_transpose import (fp8_transpose_cuda,
                                                fp8_transpose_plain)
 from repro_torch.kernels.fused_permute_pad import (fused_permute_pad_cuda,
@@ -165,3 +167,13 @@ def grouped_gemm_swiglu_quant_masked(qx: QTensor, qw13: QTensor,
                          "stored (E, K, 2F)")
     data, scale = fn(qx.data, qx.scale, w, sw, masked_m.to(torch.int32))
     return QTensor(data, scale, row_tile(3))
+
+
+def adamw_update(cfg, lr: float, b1c: float, b2c: float, g: torch.Tensor,
+                 clip: torch.Tensor, m, v, master, p: torch.Tensor,
+                 flags=None, skip_mask: int = 0) -> None:
+    """The AdamW update of one chunk of one leaf, in place (state chunks in
+    the encodings of ``dist/opt_state.py``; ``master`` None without master
+    weights).  Nothing is written where ``flags & skip_mask`` != 0."""
+    fn = adamw_update_cuda if _on_card(p) else adamw_update_plain
+    fn(cfg, lr, b1c, b2c, g, clip, m, v, master, p, flags, skip_mask)

@@ -1,37 +1,55 @@
-"""Training launcher: the train step of any recipe on one device.
+"""Training launcher: the train loop of any recipe on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v2_lite \\
       --reduced --device cuda [--recipe {bf16,blockwise,naive_fp8,fp8_flow}] \\
-      [--steps 20] [--seq-len 256] [--global-batch 8]
+      [--steps 20] [--seq-len 256] [--global-batch 8] [--ckpt-dir DIR] \\
+      [--grad-accum N] [--guard [--guard-spike-factor F] \\
+      [--guard-rollback-after K] [--guard-demote-steps N]] [--elastic] \\
+      [--obs-jsonl PATH] [--obs-prom PATH]
 
-The flags are the reference launcher's (``repro.launch.train``) that the
-single-device port runs, plus ``--device`` (``cuda``: the hand-written
-kernels; ``cpu``: their plain twins).  Checkpointing, the DP wire,
-guardrails, rematerialization policies, gradient accumulation and
-telemetry are not ported yet (ROADMAP.md, Queue 1, items 6-9).
+The flags are the reference launcher's (``repro.launch.train``) that one
+device runs, plus ``--device`` (``cuda``: the hand-written kernels;
+``cpu``: their plain twins).  The steps run through ``train.loop.run``:
+
+- ``--ckpt-dir``: async checkpoints every 50 steps, restart from the
+  newest complete one.
+- ``--grad-accum N``: N microbatches a step, their gradients summed in f32.
+- ``--guard``: the numerics guardrails (``train/guards.py``): the in-step
+  anomaly bitmask, and the skip -> rollback -> bf16-demote ladder with a
+  bf16 fallback step.
+- ``--elastic``: the host-health bookkeeping of ``ElasticTrainer`` (one
+  data shard on one device).
+- ``--obs-jsonl`` / ``--obs-prom``: structured telemetry as JSONL, and a
+  Prometheus text snapshot of the registry at exit.
+
+``--dist-wire`` other than ``off`` raises (the FP8 DP wire and ZeRO-1:
+ROADMAP.md, Queue 1, item 7), and so does ``--remat-policy`` (the port
+keeps what autograd saves, whatever ``ArchConfig.remat_policy`` says,
+until ``train/memory.py`` is ported: Queue 1, item 1).  The optimizer is
+the reference launcher's ``AdamWConfig(lr=...)``: f32 state, 16 bytes a
+parameter with the bf16 weights and gradients; ``AdamWConfig(
+state_policy=StatePolicy())`` (the FP8-split state, ~9 bytes) is reached
+through ``repro_torch.train.train_step``, as ``chip_smoke.py`` does.
+
 ``--arch`` takes every config (``repro_torch.configs.ARCH_IDS``); the
 default is the paper's convergence model, deepseek_v2_lite, as in the
 reference.  The batches are make_batch's tokens, as the reference
 launcher's: llava_next_34b trains without its vision prefix, and
 seamless_m4t_v2 (an encoder-decoder, whose batch needs an encoder input)
 raises, where the reference raises KeyError.  Without ``--reduced`` the
-full config is built: of these, one card trains only qwen15_05b and
-hymba_15b at full depth (AdamW holds 16 bytes a parameter).  At full
-width and a cut depth one 80 GB card trains deepseek_v2_lite (4 layers),
-starcoder2_15b (4), gemma3_4b (12: two whole local:global groups),
-gemma2_9b (8), mamba2_27b, seamless_m4t_v2 and llava_next_34b at the
-depths ``chip_smoke.py`` records (PERF.md section 4); one layer of
-qwen3_moe_235b; no layer of deepseek_v3_671b or grok1_314b (one grok
-layer's state is 79 GB: it waits for the FP8-split optimizer state or
-multi-GPU, ROADMAP.md Queue 1).
+full config is built: at 16 bytes a parameter one card trains only
+qwen15_05b and hymba_15b at full depth; the depths of the cut runs are in
+PERF.md section 4.
 """
 import argparse
-import time
 
 from repro_torch.configs import get_arch
 from repro_torch.core.recipes import RECIPES, get_recipe
-from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.data.pipeline import DataConfig
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.fault_tolerance import ElasticTrainer
+from repro_torch.train.guards import GuardPlan, GuardPolicy
+from repro_torch.train.loop import run as run_loop
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 
@@ -43,10 +61,57 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--elastic", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain twins)")
+    ap.add_argument("--dist-wire", default="off",
+                    choices=["off", "fp8", "bf16", "f32"],
+                    help="explicit DP gradient wire + ZeRO-1 (not ported: "
+                         "only 'off' runs)")
+    ap.add_argument("--remat-policy", default=None,
+                    choices=["none", "full", "fp8_resident", "pair"],
+                    help="activation-residency plan (not ported: raises)")
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="microbatches per step, gradients summed in f32")
+    ap.add_argument("--guard", action="store_true",
+                    help="arm the numerics guardrails (train/guards.py): "
+                         "in-step anomaly bitmask + skip/rollback/demote "
+                         "recovery ladder with a bf16 fallback step")
+    ap.add_argument("--guard-spike-factor", type=float, default=4.0,
+                    help="grad-norm spike threshold as a multiple of the "
+                         "carried EMA")
+    ap.add_argument("--guard-rollback-after", type=int, default=3,
+                    help="consecutive anomalous steps before restoring the "
+                         "last valid checkpoint")
+    ap.add_argument("--guard-demote-steps", type=int, default=8,
+                    help="length of the bf16 fallback window entered after "
+                         "persistent anomalies")
+    ap.add_argument("--obs-jsonl", default=None, metavar="PATH",
+                    help="write structured telemetry (typed loop events, "
+                         "per-step samples with per-site FP8 sat/flush, "
+                         "cast-ledger snapshots) as JSONL")
+    ap.add_argument("--obs-prom", default=None, metavar="PATH",
+                    help="write a Prometheus text-exposition snapshot of "
+                         "the metrics registry at exit")
     args = ap.parse_args(argv)
+
+    if args.dist_wire != "off":
+        raise NotImplementedError(
+            "--dist-wire: the FP8 DP gradient wire and ZeRO-1 are not ported "
+            "yet (ROADMAP.md, Queue 1, item 7)")
+    if args.remat_policy is not None:
+        raise NotImplementedError(
+            "--remat-policy: the activation-residency plan (train/memory.py "
+            "MemoryPlan) is not ported yet; the port keeps what autograd "
+            "saves (ROADMAP.md, Queue 1, item 1)")
+    from repro_torch.obs.sink import JsonlSink, Telemetry, null_telemetry
+    if args.obs_jsonl is not None or args.obs_prom is not None:
+        sinks = (JsonlSink(args.obs_jsonl),) if args.obs_jsonl else ()
+        tel = Telemetry(sinks=sinks)
+    else:
+        tel = null_telemetry()
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -61,24 +126,57 @@ def main(argv=None):
             "batches")
     recipe = get_recipe(args.recipe)
     opt = AdamWConfig(lr=args.lr)
-    state = init_train_state(cfg, opt, seed=0, device=args.device)
-    step_fn = make_train_step(cfg, recipe, opt, total_steps=args.steps,
-                              warmup_steps=max(args.steps // 10, 1))
-    data = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
-                      global_batch=args.global_batch)
+    guard = GuardPlan(spike_factor=args.guard_spike_factor) \
+        if args.guard else None
     print(f"[train] {args.arch} ({cfg.n_params() / 1e9:.2f}B params) "
           f"recipe={recipe.name} device={args.device}")
-    losses = []
-    for step in range(args.steps):
-        batch = make_batch(data, step, device=args.device)
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])        # one host sync a step
-        dt = time.perf_counter() - t0
-        losses.append(loss)
-        print(f"[train] step {step} loss {loss:.4f} grad_norm "
-              f"{float(metrics['grad_norm']):.4f} {dt * 1e3:.0f} ms")
+    state = init_train_state(cfg, opt, seed=0, device=args.device,
+                             guard=guard)
+    warmup = max(args.steps // 10, 1)
+    step = make_train_step(cfg, recipe, opt, grad_accum=args.grad_accum,
+                           total_steps=args.steps, warmup_steps=warmup,
+                           guard=guard)
+    policy = fallback = None
+    if guard is not None:
+        policy = GuardPolicy(rollback_after=args.guard_rollback_after,
+                             demote_steps=args.guard_demote_steps)
+        # graceful degradation target: the same arch and optimizer under
+        # the bf16 recipe (no quantize sites), still guarded so the ladder
+        # keeps observing while demoted
+        if recipe.name != "bf16":
+            fallback = make_train_step(
+                cfg, get_recipe("bf16"), opt, grad_accum=args.grad_accum,
+                total_steps=args.steps, warmup_steps=warmup, guard=guard)
+        print(f"[train] guardrails armed: spike_factor="
+              f"{args.guard_spike_factor} rollback_after="
+              f"{args.guard_rollback_after} demote_steps="
+              f"{args.guard_demote_steps}")
+    data = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                      global_batch=args.global_batch)
+    elastic = ElasticTrainer(n_data_shards=1) if args.elastic else None
+    state, hist = run_loop(step, state, data, n_steps=args.steps,
+                           grad_accum=args.grad_accum,
+                           ckpt_dir=args.ckpt_dir, elastic=elastic,
+                           guard_policy=policy, fallback_step=fallback,
+                           telemetry=tel, log_every=1)
+    if not hist:
+        print(f"[train] done: nothing to run (restored past step "
+              f"{args.steps - 1})")
+        return []
+    losses = [h["loss"] for h in hist]
     print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    dev_ms = [h["device_ms"] for h in hist]
+    fetch_ms = [h["fetch_ms"] for h in hist]
+    print(f"[train] timing: device {sum(dev_ms)/len(dev_ms):.1f}ms/step, "
+          f"host fetch {sum(fetch_ms)/len(fetch_ms):.1f}ms/step "
+          f"({len(hist)} steps)")
+    if args.obs_prom is not None:
+        tel.write_prometheus(args.obs_prom)
+        print(f"[train] wrote metrics snapshot to {args.obs_prom}")
+    if args.obs_jsonl is not None:
+        tel.emit_registry()
+        tel.close()
+        print(f"[train] wrote telemetry to {args.obs_jsonl}")
     return losses
 
 

@@ -1,13 +1,28 @@
-"""AdamW with FP32 master weights and a global-norm clip.
+"""AdamW with master weights, optional low-precision state, global-norm
+clip.
 
-Counterpart of ``repro.optim.adamw`` without the FP8-split state
-(``state_policy`` raises; ROADMAP.md, Queue 1, item 3).  ``adamw_math``
-is the one copy of the update arithmetic.  Moments and master weights
-are f32, the one path: the reference's bf16-moment and no-master options
-come with that state.  The update runs in place under
-``no_grad``, one slice of each leaf at a time: at full width an f32 copy of
-the (128, 4096, 3072) expert leaf alone is 6.4 GB, so neither the global
-norm nor the update ever widens a whole leaf.
+Counterpart of ``repro.optim.adamw``.  Each piece of the state is
+dtype-configurable two ways, as there:
+  moment_dtype    f32 or bf16 moments, leaf-shaped
+  state_policy    ``dist.opt_state.StatePolicy``: the FP8-split state
+                  (e4m3 m, bf16 v, po2-scaled f16 master behind QTensor)
+                  for large leaves; small or 1-D leaves keep f32
+and ``master_weights=False`` updates from the bf16 parameter itself.
+
+``adamw_math`` is the one copy of the update arithmetic.  The update runs
+in place under ``no_grad`` (the reference returns new trees), one chunk of
+``CHUNK_ELEMS`` elements of each leaf at a time: a multiple of 128, so
+chunks cut an encoded leaf on its row boundaries.  Each chunk is one call
+of ``kernels.ops.adamw_update``: the fused kernel on the card
+(``csrc/adamw_update.cu``), its plain twin (decode, ``adamw_math``,
+``encode_like``) on the CPU.  The global norm is still plain passes a
+chunk at a time (ROADMAP.md, speed item 1).  At full width neither ever
+widens a whole leaf: an f32 copy of qwen3's (128, 4096, 3072) expert leaf
+alone is 6.4 GB.
+
+``apply_updates(..., skip=flags)`` takes the guard's anomaly bits as a
+device scalar: where ``flags & skip_mask`` is nonzero the update writes
+nothing, decided on the device with no host sync.
 """
 from __future__ import annotations
 
@@ -17,7 +32,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.quant import QTensor
 from repro_torch.device import CHUNK_ELEMS
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,13 +45,10 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    moment_dtype: Any = torch.float32      # bf16 at >100B scale
+    master_weights: bool = True
+    # FP8-split state (dist.opt_state.StatePolicy); None = plain state
     state_policy: Optional[Any] = None
-
-    def __post_init__(self):
-        if self.state_policy is not None:
-            raise NotImplementedError(
-                "the FP8-split optimizer state is not ported yet (ROADMAP.md, "
-                "Queue 1, item 3)")
 
 
 def tree_leaves(tree):
@@ -57,6 +71,17 @@ def _chunks(t: torch.Tensor):
         yield flat[i:i + CHUNK_ELEMS]
 
 
+def _state_chunk(enc, start: int, n: int):
+    """Elements [start, start + n) of a state leaf (start a multiple of
+    128): a flat slice, or the QTensor rows that hold them."""
+    if enc is None:
+        return None
+    if isinstance(enc, QTensor):
+        r0, r1 = start // 128, -(-(start + n) // 128)
+        return QTensor(enc.data[r0:r1], enc.scale[r0:r1], enc.tile)
+    return enc.reshape(-1)[start:start + n]
+
+
 def adamw_math(cfg: AdamWConfig, g32, m32, v32, base32, lr, b1c, b2c):
     """The single copy of the update math (f32 in, f32 out).  `g32` arrives
     pre-clipped."""
@@ -70,16 +95,37 @@ def adamw_math(cfg: AdamWConfig, g32, m32, v32, base32, lr, b1c, b2c):
 
 
 def init_state(cfg: AdamWConfig, params):
-    """f32 moments and f32 master weights for every leaf."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return {
+    """Zero moments and the master weights, in the configured encodings."""
+    pol = cfg.state_policy
+    if pol is None:
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=cfg.moment_dtype,
+                               device=p.device)
+        state = {"step": 0, "m": tree_map(zeros, params),
+                 "v": tree_map(zeros, params)}
+        if cfg.master_weights:
+            state["master"] = tree_map(
+                lambda p: p.detach().to(torch.float32, copy=True), params)
+        return state
+
+    from repro_torch.dist import opt_state as ost
+
+    def kind(p, k):
+        return k if pol.applies(p) else "f32"
+
+    state = {
         "step": 0,
-        "m": tree_map(zeros, params),
-        "v": tree_map(zeros, params),
-        "master": tree_map(
-            lambda p: p.detach().to(torch.float32, copy=True), params),
+        "m": tree_map(lambda p: ost.zeros_encoded(kind(p, pol.m), p),
+                      params),
+        "v": tree_map(lambda p: ost.zeros_encoded(kind(p, pol.v), p),
+                      params),
     }
+    if cfg.master_weights:
+        # a policy leaf encodes straight from the bf16 param (po2 division
+        # is exact there): no f32 copy of the tree
+        state["master"] = tree_map(
+            lambda p: ost.encode(kind(p, pol.master), p.detach()), params)
+    return state
 
 
 @torch.no_grad()
@@ -106,28 +152,42 @@ def bias_corrections(cfg: AdamWConfig, step: int):
             float(f(1.0) - f(cfg.b2) ** f(step)))
 
 
+def _state_leaves(state, key, n):
+    return tree_leaves(state[key]) if key in state else [None] * n
+
+
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
+def apply_updates(cfg: AdamWConfig, params, grads, state, lr_scale=1.0, *,
+                  gnorm: Optional[torch.Tensor] = None,
+                  skip: Optional[torch.Tensor] = None,
+                  skip_mask: int = 0):
     """Update params and state IN PLACE (the reference returns new trees);
-    returns the metrics.  Every leaf must have a gradient."""
+    returns the metrics.  Every leaf must have a gradient (bf16, or f32
+    sums).  `gnorm`: the global norm if the caller already took it.
+    `skip`: int32 device flags; the update writes nothing where
+    ``skip & skip_mask`` is nonzero (the host step counter still moves:
+    the caller winds it back after its fetch)."""
     g_leaves = tree_leaves(grads)
     if any(g is None for g in g_leaves):
         raise ValueError("apply_updates: a parameter has no gradient")
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = clip_factor(cfg, gnorm)
     b1c, b2c = bias_corrections(cfg, step)
     lr = float(np.float32(cfg.lr) * np.float32(lr_scale))
-    leaves = zip(tree_leaves(params), g_leaves, tree_leaves(state["m"]),
-                 tree_leaves(state["v"]), tree_leaves(state["master"]))
+    p_leaves = tree_leaves(params)
+    n = len(p_leaves)
+    leaves = zip(p_leaves, g_leaves, _state_leaves(state, "m", n),
+                 _state_leaves(state, "v", n),
+                 _state_leaves(state, "master", n))
     for p, g, m, v, master in leaves:
-        for pc, gc, mc, vc, wc in zip(_chunks(p), _chunks(g), _chunks(m),
-                                      _chunks(v), _chunks(master)):
-            new_w, m_new, v_new = adamw_math(cfg, gc.to(torch.float32) * clip,
-                                             mc, vc, wc, lr, b1c, b2c)
-            mc.copy_(m_new)
-            vc.copy_(v_new)
-            wc.copy_(new_w)
-            pc.copy_(new_w)
+        pf, gf = p.detach().reshape(-1), g.reshape(-1)
+        for s in range(0, pf.numel(), CHUNK_ELEMS):
+            k = min(CHUNK_ELEMS, pf.numel() - s)
+            ops.adamw_update(cfg, lr, b1c, b2c, gf[s:s + k], clip,
+                             _state_chunk(m, s, k), _state_chunk(v, s, k),
+                             _state_chunk(master, s, k), pf[s:s + k],
+                             flags=skip, skip_mask=skip_mask)
     state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}

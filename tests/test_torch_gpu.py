@@ -1071,12 +1071,13 @@ def test_grouped_gemm_nt_on_linear_scales_on_card(card, e, m, n, c,
                                rtol=2e-2, atol=2e-2)
 
 
+# every recipe's train step ends in the AdamW update kernel
 BASELINE_TRAIN_KERNELS = {
-    "bf16": (),
+    "bf16": ("adamw_update",),
     "blockwise": ("quantize_rowwise_linear", "grouped_gemm_fp8",
-                  "grouped_gemm_nt_fp8"),
+                  "grouped_gemm_nt_fp8", "adamw_update"),
     "naive_fp8": ("quantize_rowwise_linear", "fused_permute_pad",
-                  "grouped_gemm_fp8", "grouped_gemm_nt_fp8")}
+                  "grouped_gemm_fp8", "grouped_gemm_nt_fp8", "adamw_update")}
 
 
 @pytest.mark.gpu
@@ -1492,3 +1493,100 @@ def test_decode_step_on_card_matches_cpu(card, arch):
     for k in c_h:
         assert c_c[k].dtype == c_h[k].dtype, k
         assert cos(c_c[k].float(), c_h[k].float()) >= 0.999, k
+
+
+# ---------------------------------------------------------------------------
+# The fused AdamW update (csrc/adamw_update.cu) against its twin, bit for
+# bit: the f32 state, the FP8-split state, bf16 moments, no master
+# weights; bf16 and f32 gradients; a tail row; and skip-step.
+# ---------------------------------------------------------------------------
+OPT_MODES = ("f32", "split", "bf16_moments", "no_master")
+
+
+def _opt_state(card, n, mode, g_dtype, seed, p_dtype=torch.bfloat16):
+    from repro_torch.dist import opt_state as ost
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def r(scale=1.0):
+        return torch.randn(n, generator=gen, device=card) * scale
+
+    p = r().to(p_dtype)
+    g = r(1e-2).to(g_dtype)
+    m32, v32 = r(1e-3), r(1e-2).square()
+    if mode == "split":
+        m, v, w = (ost.encode("e4m3", m32), ost.encode("bf16", v32),
+                   ost.encode("f16", p))
+    elif mode == "bf16_moments":
+        m, v, w = m32.to(torch.bfloat16), v32.to(torch.bfloat16), p.float()
+    else:
+        m, v = m32, v32
+        w = None if mode == "no_master" else p.float()
+    return p, g, m, v, w
+
+
+def _opt_bytes(*leaves):
+    out = []
+    for x in leaves:
+        if x is None:
+            continue
+        for t in ((x.data, x.scale) if isinstance(x, QTensor) else (x,)):
+            out.append(t.reshape(-1).view(torch.uint8).clone())
+    return out
+
+
+def _opt_clone(x):
+    if x is None:
+        return None
+    if isinstance(x, QTensor):
+        return QTensor(x.data.clone(), x.scale.clone(), x.tile)
+    return x.clone()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [128 * 1000, 128 * 1000 + 37, 1])
+@pytest.mark.parametrize("mode", OPT_MODES)
+@pytest.mark.parametrize("g_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("p_dtype", ["bfloat16", "float32"])
+def test_adamw_update_kernel_on_card(card, n, mode, g_dtype, p_dtype):
+    from repro_torch import kernels
+    from repro_torch.kernels.adamw_update import (adamw_update_cuda,
+                                                  adamw_update_plain)
+    from repro_torch.optim.adamw import AdamWConfig, bias_corrections
+    cfg = AdamWConfig(lr=1e-3)
+    p, g, m, v, w = _opt_state(card, n, mode, getattr(torch, g_dtype), n,
+                               getattr(torch, p_dtype))
+    b1c, b2c = bias_corrections(cfg, 3)
+    clip = torch.tensor(0.75, device=card)
+    twin = [_opt_clone(x) for x in (p, m, v, w)]
+    kernels.reset_launches()
+    adamw_update_cuda(cfg, 1e-3, b1c, b2c, g, clip, m, v, w, p)
+    assert kernels.LAUNCHES["adamw_update"] == 1
+    adamw_update_plain(cfg, 1e-3, b1c, b2c, g, clip, twin[1], twin[2],
+                       twin[3], twin[0])
+    for a, b in zip(_opt_bytes(p, m, v, w), _opt_bytes(*twin)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["f32", "split"])
+def test_adamw_update_kernel_skips_on_flags(card, mode):
+    """flags & skip_mask != 0: every byte stays; a soft bit outside the
+    mask updates as without flags."""
+    from repro_torch.kernels.adamw_update import adamw_update_cuda
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = AdamWConfig()
+    n = 128 * 50 + 5
+    p, g, m, v, w = _opt_state(card, n, mode, torch.bfloat16, 3)
+    before = _opt_bytes(p, m, v, w)
+    clip = torch.tensor(1.0, device=card)
+    flags = torch.tensor(2, dtype=torch.int32, device=card)
+    adamw_update_cuda(cfg, 3e-4, 0.1, 0.05, g, clip, m, v, w, p, flags, 7)
+    for a, b in zip(before, _opt_bytes(p, m, v, w)):
+        assert torch.equal(a, b)
+    ref = [_opt_clone(x) for x in (p, m, v, w)]
+    adamw_update_cuda(cfg, 3e-4, 0.1, 0.05, g, clip, *ref[1:], ref[0])
+    flags.fill_(8)
+    adamw_update_cuda(cfg, 3e-4, 0.1, 0.05, g, clip, m, v, w, p, flags, 7)
+    for a, b in zip(_opt_bytes(p, m, v, w), _opt_bytes(*ref)):
+        assert torch.equal(a, b)
+    assert not torch.equal(_opt_bytes(p)[0], before[0])

@@ -31,6 +31,10 @@ configs = {f"repro_torch.configs.{a}" for a in (
     "starcoder2_15b", "gemma3_4b", "gemma2_9b", "grok1_314b",
     "llava_next_34b", "seamless_m4t_v2", "mamba2_27b", "hymba_15b")}
 configs |= {"repro_torch.models.ssm", "repro_torch.serve.serve_step"}
+configs |= {f"repro_torch.{m}" for m in (
+    "dist.opt_state", "kernels.adamw_update", "train.guards", "train.loop",
+    "runtime.fault_injection", "runtime.fault_tolerance",
+    "checkpoint.checkpointing", "obs.metrics", "obs.sink")}
 assert configs <= set(names), sorted(configs - set(names))
 import chip_depths, chip_profile, chip_smoke
 bad = sorted(m for m in sys.modules

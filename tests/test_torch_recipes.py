@@ -103,8 +103,6 @@ def test_get_recipe_presets_match_reference(name):
 def test_what_still_raises():
     with pytest.raises(NotImplementedError, match="po2"):
         recipes.get_recipe("fp8_flow", scale_mode="linear")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        recipes.get_recipe("blockwise", save_h=True)
     with pytest.raises(ValueError):
         recipes.get_recipe("fp16")
 

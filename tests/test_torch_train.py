@@ -12,9 +12,11 @@ one bf16 rounding (rtol 1e-2); tokens, schedules and the ledger exactly.  The 20
 tests/test_torch_train_steps.py."""
 import torch_threads  # noqa: F401  (first: one intra-op thread)
 import dataclasses
+import json
 import os
 import subprocess
 import sys
+import tempfile
 from collections import Counter
 from pathlib import Path
 
@@ -210,17 +212,34 @@ def test_warmup_cosine_matches_reference(step):
 
 
 def test_unported_training_options_raise():
+    """`dist` still raises, naming its Queue 1 item; the guard, gradient
+    accumulation, save_h and the FP8-split state now build and run a
+    step (tests/test_torch_guards.py, test_torch_runtime.py and
+    test_torch_opt_state.py hold them to the reference)."""
     from repro_torch.configs import get_arch
-    cfg = get_arch("qwen3_moe_235b").reduced()
-    opt = adamw.AdamWConfig()
+    from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.train.guards import GuardPlan
+    from repro_torch.train.train_step import init_train_state
+    cfg = get_arch("qwen15_05b").reduced()
     recipe = get_recipe("fp8_flow")
-    for kw in ({"dist": object()}, {"guard": object()}, {"grad_accum": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            make_train_step(cfg, recipe, opt, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Recipe(save_h=True)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        adamw.AdamWConfig(state_policy=object())
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        make_train_step(cfg, recipe, adamw.AdamWConfig(), dist=object())
+    from repro_torch.launch.train import main
+    for flags, item in ((["--dist-wire", "fp8"], "item 7"),
+                        (["--remat-policy", "fp8_resident"], "item 1")):
+        with pytest.raises(NotImplementedError, match=item):
+            main(["--reduced", "--device", "cpu", *flags])
+    opt = adamw.AdamWConfig(state_policy=StatePolicy(min_size=4096))
+    guard = GuardPlan()
+    state = init_train_state(cfg, opt, device="cpu", guard=guard)
+    step = make_train_step(cfg, Recipe(save_h=True), opt, grad_accum=2,
+                           guard=guard)
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=4), 0, device="cpu")
+    batch = {k: v.reshape(2, 2, *v.shape[1:]) for k, v in batch.items()}
+    state, m = step(state, batch)
+    assert np.isfinite(float(m["loss"])) and int(m["guard_flags"]) == 0
+    assert state["opt"]["step"] == 1
 
 
 def test_train_launcher_refuses_unported_arch():
@@ -234,7 +253,10 @@ def test_train_launcher_refuses_unported_arch():
 
 
 def test_train_launcher_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one OpenMP thread, as tests/torch_threads.py gives this process: the
+    # launcher's step takes ~24x as long on the default pool beside busy
+    # workers
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
          "--device", "cpu", "--steps", "2", "--seq-len", "64",
@@ -242,3 +264,17 @@ def test_train_launcher_runs_on_cpu():
         text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "[train] done" in out.stdout
+    # the runtime's flags: checkpoints, the guard, accumulation, telemetry
+    with tempfile.TemporaryDirectory() as d:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+             "--device", "cpu", "--steps", "3", "--seq-len", "64",
+             "--global-batch", "4", "--ckpt-dir", f"{d}/ckpt", "--guard",
+             "--grad-accum", "2", "--obs-jsonl", f"{d}/run.jsonl"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert "[train] guardrails armed" in out.stdout
+        assert "[train] done" in out.stdout
+        kinds = [json.loads(line)["kind"]
+                 for line in open(f"{d}/run.jsonl")]
+        assert kinds.count("step") == 3 and kinds[-1] == "registry"
