@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """How deep each config trains on one card: peak device memory of one
 full-width train step at each depth asked for, under the f32 optimizer
-state and the FP8-split one (``StatePolicy()``).
+state and the FP8-split one (``StatePolicy()``), and under each
+activation-residency policy (``ArchConfig.remat_policy``,
+train/memory.py).
 
     python3 chip_depths.py                       # the defaults below
-    python3 chip_depths.py mamba2_27b:48,56 llava_next_34b:2,3:split
+    python3 chip_depths.py mamba2_27b:48,56 llava_next_34b:5,6,7:f32:fp8_resident
 
-For each ARCH:DEPTHS[:STATE] argument (STATE f32 or split; both when
+For each ARCH:DEPTHS[:STATE[:POLICY]] argument (STATE f32 or split, both
+when left out; POLICY none, full, fp8_resident or pair, every one when
 left out), smallest depth first: the state, step and batch of
 chip_smoke.py's train path (``make_train``: AdamW with that state,
 fp8_flow, random bf16 params from seed 0, chip_smoke's batch for that
 config with its stub prefix or encoder input), one step, then one JSON
-line with the state and peak GiB and the step's seconds, or ``"oom"``
-where the card ran out.  Needs one NVIDIA GPU; imports nothing of JAX.
+line with the state, the policy and peak GiB and the step's seconds, or
+``"oom"`` where the card ran out.  Needs one NVIDIA GPU; imports nothing
+of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -25,25 +30,31 @@ import torch
 
 import chip_smoke
 
-# the depths of each config, by optimizer state: around the f32 state's
-# known limits (PERF.md section 4) and the split state's predicted ones
+# the depths of each config, by optimizer state, around the known limits
+# (PERF.md section 4) and the predicted ones; the remat policies each
+# config is measured under (qwen3_moe_235b: the default only)
 DEFAULTS = {
     "qwen3_moe_235b": {"f32": (1, 2), "split": (2, 3)},
-    "deepseek_v2_lite": {"f32": (6, 8, 10), "split": (12, 14, 16)},
-    "mamba2_27b": {"f32": (52, 56), "split": (56, 60, 64)},
-    "llava_next_34b": {"f32": (4, 5), "split": (5, 6, 7)},
+    "deepseek_v2_lite": {"f32": (8, 9), "split": (12, 14, 15)},
+    "mamba2_27b": {"f32": (52, 56, 64), "split": (64,)},
+    "llava_next_34b": {"f32": (6, 7, 8), "split": (11, 12, 13, 14)},
 }
+POLICIES_OF = {"qwen3_moe_235b": ("full",)}
 STATES = ("f32", "split")
+POLICIES = chip_smoke.REMAT_POLICIES
 
 
-def peak(arch: str, n_layers: int, state_kind: str = "f32") -> dict:
+def peak(arch: str, n_layers: int, state_kind: str = "f32",
+         policy: str = "full") -> dict:
     # chip_smoke's path label of the config (qwen3_moe_235b's is "train")
     label = next((f"{t}_train" for t, a in chip_smoke.ARCH_TAGS.items()
                   if a == arch), "train")
-    cfg = chip_smoke.arch_config(arch, n_layers)
+    cfg = dataclasses.replace(chip_smoke.arch_config(arch, n_layers),
+                              remat_policy=policy)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    out = {"arch": arch, "n_layers": n_layers, "opt_state": state_kind}
+    out = {"arch": arch, "n_layers": n_layers, "opt_state": state_kind,
+           "remat_policy": policy}
     state = step = batch = None
     try:
         from repro_torch.dist.opt_state import StatePolicy
@@ -78,17 +89,21 @@ def main(argv) -> int:
         0).total_memory / 2**30}))
     from repro_torch.kernels import build
     build.build()
-    asks = [(a, k, d) for a, by in DEFAULTS.items() for k, d in by.items()]
+    asks = [(a, k, pol, d) for a, by in DEFAULTS.items()
+            for k, d in by.items() for pol in POLICIES_OF.get(a, POLICIES)]
     if argv:
         asks = []
         for x in argv:
-            arch, depths, *kind = x.split(":")
-            for k in kind or STATES:
-                asks.append((arch, k, tuple(int(n) for n in
-                                            depths.split(","))))
-    for arch, kind, depths in asks:
+            arch, depths, *rest = x.split(":")
+            kinds = rest[:1] or STATES
+            policies = rest[1:2] or POLICIES
+            for k in kinds:
+                for pol in policies:
+                    asks.append((arch, k, pol, tuple(
+                        int(n) for n in depths.split(","))))
+    for arch, kind, policy, depths in asks:
         for n in sorted(depths):
-            row = peak(arch, n, kind)
+            row = peak(arch, n, kind, policy)
             print(json.dumps(row), flush=True)
             if row.get("oom"):
                 break

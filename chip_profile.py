@@ -20,8 +20,10 @@ steps, three profiled steps.  Then the same two passes of deepseek_v2_lite
 (chip_smoke.py's phases 10-11): the serve pass at full depth (27 layers)
 and the train step at depth 4 (1 dense + 3 MoE layers), padded; and
 qwen15_05b's train step (24 dense layers).  Then grok1_314b's serve pass
-(chip_smoke.py phase 14: 4 layers of 8 GeGLU experts, W8) and
-gemma2_9b's train step (phase 16: 8 local:global GeGLU layers).  Each
+(chip_smoke.py phase 14: 4 layers of 8 GeGLU experts, W8),
+gemma2_9b's train step (phase 16: 8 local:global GeGLU layers) and
+llava_next_34b's (phase 29: its 2880-row prefix and 192 tokens, at
+chip_smoke's depth, remat policy fp8_resident).  Each
 pass prints one JSON line: the wall
 seconds of the plain and the profiled run, the device's busy time (kernel
 self time under the profiler), its busy and idle shares of the plain
@@ -31,11 +33,16 @@ kernels, cuBLAS GEMMs, everything else) and `quant_weights`: the device
 time of the blockwise quantizes of bf16 weights inside the expert FFN
 (``core.linear._quant_weights``, under a profiler range: in serving the
 dense layers' and shared experts' weights at every prefill, W8 covering
-only the routed experts), then a JSON line with the top kernels.
+only the routed experts), `spans_ms`: the device time inside the
+flash-attention Function's forward and backward (``flash_fwd``,
+``flash_bwd``) and inside each checkpoint block's recompute
+(``remat/<policy>/recompute``: the forward work the remat policy adds to
+a step), then a JSON line with the top kernels.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import sys
@@ -117,6 +124,13 @@ def device_total_ms(prof, key) -> float:
     return 0.0
 
 
+# profiler ranges of the port whose device time each pass reports apart:
+# the flash-attention Function's two directions (models/layers.py) and a
+# checkpoint block's recompute (train/memory.py, one range a policy)
+SPANS = ("flash_fwd", "flash_bwd") + tuple(
+    f"remat/{p}/recompute" for p in chip_smoke.REMAT_POLICIES)
+
+
 def profile_pass(label, run, unit):
     """Time one warmed call of `run` unprofiled, then profile another; `run`
     returns how many `unit`s it ran.  Prints the pass's JSON lines."""
@@ -137,7 +151,7 @@ def profile_pass(label, run, unit):
     # kernels: it is not a kernel
     kernels = [e for e in prof.key_averages() if device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key != "quant_weights"]
+               and e.key != "quant_weights" and e.key not in SPANS]
     by_group = {}
     for e in kernels:
         g = group_of(e.key)
@@ -152,6 +166,8 @@ def profile_pass(label, run, unit):
         device_busy_share=busy_ms / (plain_wall * 1e3),
         device_idle_share=1 - busy_ms / (plain_wall * 1e3),
         quant_weights_ms=device_total_ms(prof, "quant_weights"),
+        spans_ms={k: device_total_ms(prof, k) for k in SPANS
+                  if device_total_ms(prof, k)},
         groups={g: dict(ms=v[0], share=v[0] / busy_ms, launches=v[1])
                 for g, v in sorted(by_group.items(),
                                    key=lambda kv: -kv[1][0])})}))
@@ -199,7 +215,10 @@ def main() -> int:
         "deepseek_v2_lite", chip_smoke.DSV2_TRAIN_LAYERS)),
         ("qwen15_train", chip_smoke.arch_config("qwen15_05b")),
         ("g2_train", chip_smoke.arch_config(
-            "gemma2_9b", chip_smoke.TRAIN_LAYERS["g2"]))]
+            "gemma2_9b", chip_smoke.TRAIN_LAYERS["g2"])),
+        ("lv_train", dataclasses.replace(chip_smoke.arch_config(
+            "llava_next_34b", chip_smoke.NEW_TRAIN_LAYERS["lv"]),
+            remat_policy=chip_smoke.TRAIN_POLICY["lv"]))]
     for label, cfg in passes:
         if only and label not in only:
             continue

@@ -54,7 +54,10 @@ Phases (any failure raises and the script exits non-zero):
      make_train_step's default 100-step warmup), one fixed batch of
      2 x 1024 tokens for 4 steps: finite and falling loss, 2 activation
      casts per MoE layer per step, every kernel of the path launched and
-     no other; tokens/s, ms a step and peak device memory;
+     no other; tokens/s, ms a step and peak device memory; its losses
+     TRAIN_LOSSES, and the same run with autograd through the plain
+     attention loop swapped in for the flash VJP (plain_attention)
+     PLAIN_TRAIN_LOSSES, the losses from before the flash VJP;
      6b. the padded run's state freed, the same from the same seed with
      the masked recipe: every step's loss the padded run's bit for bit,
      through #5, #6, #7 and #11 and never #3, #4, #8 or #10; its first
@@ -82,8 +85,9 @@ Phases (any failure raises and the script exits non-zero):
      within 1e-3 relative (a token the card routes to other experts than
      the CPU must sit at a router near-tie, and the gradients are then
      compared with the card routed as the CPU routed, when one did);
-     qwen3_moe_235b's served tokens and fp8_flow losses are held to PR
-     18's bits;
+     qwen3_moe_235b's served tokens and fp8_flow losses are held to
+     their pinned bits (TRAIN_LOSSES and PLAIN_TRAIN_LOSSES for the
+     losses);
  10. the configs with dense layers and shared experts at full width:
      deepseek_v2_lite served at full depth (27 layers) with the padded
      and then the masked recipe (the same tokens), qwen15_05b served
@@ -145,10 +149,10 @@ Phases (any failure raises and the script exits non-zero):
  19. their kernels at the shapes those paths give them, as phase 11:
      hymba's, seamless's (decoder and encoder) and llava's prefill MLPs
      (llava's GEMM-1 at 6144 x 7168 x 40960) and their train steps;
- 20. the four trained as phase 6 in fp8_flow at full width (mamba2 52 of
-     64 layers, hymba and seamless whole, llava 4 of 60 at batch 1 with
-     its prefix) and hymba in bf16: losses falling, 2 casts a dense MLP a
-     step (the encoder's too), exactly their kernels;
+ 20. the four trained as phase 6 in fp8_flow at full width (mamba2 whole,
+     hymba and seamless whole, llava at NEW_TRAIN_LAYERS of 60 at batch 1
+     with its prefix) and hymba in bf16: losses falling, 2 casts a dense
+     MLP a step (the encoder's too), exactly their kernels;
  21. GPU path vs CPU path at reduced() size for the four: make_prefill
      and four decode steps' logits, and fp8_flow training as phase 7
      (seamless's fp8_flow gradients at the six-layer bar 0.998, its bf16
@@ -176,17 +180,39 @@ Phases (any failure raises and the script exits non-zero):
      read back;
  26. GPU path vs CPU path at reduced() size with StatePolicy(), as phase
      7, for qwen3_moe_235b and qwen15_05b;
+ 27. the activation-residency plan (train/memory.py): deepseek_v2_lite
+     at depth 4 trained as phase 12 (fp8_flow, the f32 state) under each
+     remat policy (none, full, fp8_resident, pair) on the same batch:
+     every policy's losses 'none''s bit for bit, 14 casts a step each,
+     exactly its kernels; ms a step, peak GiB, and one MoE layer's kept
+     bytes (memory_allocated after its forward less before, the tensors
+     by the reference's buckets: fp8_resident keeps no wide bf16) beside
+     layer_saved_bytes_model;
+ 28. the flash-attention VJP at llava_next_34b's full-width attention (1 x
+     3072 rows, 56 heads): the Function's gradients against autograd
+     through the plain loop with f32 inputs (within FLASH_REL 1e-5, the
+     CPU test's bar, set from the card's 7.4e-6 at this shape), and with
+     bf16 inputs each way's bytes kept for the backward,
+     one backward's ms and peak bytes;
+ 29. the depths the plan buys, trained in phase 20: mamba2_27b whole (64
+     layers) under the f32 state with the default 'full', llava_next_34b
+     at the deepest depth chip_depths.py found under the f32 state with
+     'fp8_resident' (NEW_TRAIN_LAYERS, TRAIN_POLICY);
   9. the {"kernels": [...]} summary line (the eleven kernels, #1's
      linear mode and the AdamW update, with the new shapes' rows), then
      the result line.
 Every train path's optimizer update runs through the AdamW kernel, which
 is its twin bit for bit, so the losses of phases 6-21 keep their bits.
+Every train path runs its config's remat policy ('full' unless
+TRAIN_POLICY says otherwise): its checkpoint blocks recompute the
+forward inside the backward, which records no cast.
 It imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import re
@@ -1438,15 +1464,36 @@ def expert_grad_zero_fraction(cfg, recipe, params, batch):
 
 
 # qwen3_moe_235b's fp8_flow losses on the train path (depth 1, seed 0, the
-# fixed batch) as PR 18 measured them, to the six decimals PERF.md keeps
-TRAIN_LOSSES = {"train": (12.851900, 12.590693, 11.596179, 8.347960)}
+# fixed batch), to the six decimals PERF.md keeps, with the attention
+# gradients of the reference's flash VJP.  The witness that only the
+# attention's backward moved them: with autograd through the plain loop
+# (flash_attention_plain) swapped back in, the same path must still give
+# the losses it gave before the flash VJP, PLAIN_TRAIN_LOSSES.
+TRAIN_LOSSES = {"train": (12.851900, 12.591271, 11.596126, 8.346811)}
+PLAIN_TRAIN_LOSSES = (12.851900, 12.590693, 11.596179, 8.347960)
 
 
-def train_path(cfg, dev, label="train", padded_losses=None):
+@contextlib.contextmanager
+def plain_attention():
+    """Every train path's attention differentiated by autograd through the
+    plain loop (flash_attention_plain) instead of the flash VJP."""
+    from repro_torch.models import layers, lm
+    fn = layers.flash_attention
+    layers.flash_attention = lm.flash_attention = layers.flash_attention_plain
+    try:
+        yield
+    finally:
+        layers.flash_attention = lm.flash_attention = fn
+
+
+def train_path(cfg, dev, label="train", padded_losses=None, name=None,
+               record=None, want_losses=None):
     """TRAIN_STEPS steps on the fixed batch with the recipe of `label`,
     from the same seed; the masked recipe's every loss must be
-    padded_losses' bit for bit.  Returns (launches, losses, the first
-    step's plan or None)."""
+    padded_losses' bit for bit, and the losses `want_losses` (default
+    TRAIN_LOSSES[label], where it has one) to six decimals.  The JSON line
+    is keyed `name` (default `label`); `record`, a dict, gets its fields.
+    Returns (launches, losses, the first step's plan or None)."""
     from repro_torch import kernels
     from repro_torch.core import casts
     from repro_torch.optim.adamw import tree_leaves
@@ -1487,17 +1534,17 @@ def train_path(cfg, dev, label="train", padded_losses=None):
     if masked:
         check(losses == padded_losses, f"masked train losses {losses} are "
               f"not the padded run's {padded_losses} bit for bit")
-    if label in TRAIN_LOSSES:
-        check(all(abs(a - b) <= 5e-7 for a, b in zip(losses,
-                                                      TRAIN_LOSSES[label])),
-              f"{label}: losses {losses}, not {TRAIN_LOSSES[label]} as "
+    want_losses = want_losses or TRAIN_LOSSES.get(label)
+    if want_losses:
+        check(all(abs(a - b) <= 5e-7 for a, b in zip(losses, want_losses)),
+              f"{name or label}: losses {losses}, not {want_losses} as "
               "before")
     B, S = batch["tokens"].shape
     tokens = B * S
     warm = step_s[1:]
-    print(json.dumps({label: dict(
+    row = dict(
         config=f"{cfg.name} n_layers={cfg.n_layers} full width",
-        recipe=recipe.name,
+        recipe=recipe.name, remat_policy=cfg.remat_policy,
         params=sum(p.numel() for p in tree_leaves(state["params"])),
         batch=[B, S], stub_rows={k: batch[k].shape[1] for k in (
             "prefix", "enc_input") if k in batch},
@@ -1510,7 +1557,10 @@ def train_path(cfg, dev, label="train", padded_losses=None):
         max_memory_allocated_gib=peak_gib, launches=launches,
         launches_per_step_per_layer={
             k: v / (TRAIN_STEPS * cfg.n_layers) for k, v in launches.items()
-        })}))
+        })
+    print(json.dumps({name or label: row}))
+    if record is not None:
+        record.update(row)
     del state, step, batch, m
     torch.cuda.empty_cache()
     # a dense config's masked recipe has no expert plan
@@ -1820,22 +1870,34 @@ def routed(ids_by_call=None):
     next probability) on the host; with ids_by_call, each call routes to
     the given ids (in call order) instead of its own top-k.  The port's
     own router runs (core/moe.py::router_topk): only its torch.topk is
-    replaced, for the call's length, by a gather of the given ids."""
+    replaced, for the call's length, by a gather of the given ids.  A
+    router (known by its weight) called again, as a checkpoint block's
+    recompute calls it inside the backward (train/memory.py), routes as
+    its first call did and is not recorded again."""
     from repro_torch.core import moe
     orig, topk, calls = moe.router_topk, torch.topk, []
     forced = None if ids_by_call is None else iter(ids_by_call)
+    first_ids = {}
+
+    def routed_to(want, x, w_router, top_k):
+        torch.topk = lambda probs, k, dim=-1: (probs.gather(-1, want), want)
+        try:
+            return orig(x, w_router, top_k)
+        finally:
+            torch.topk = topk
 
     def router_topk(x, w_router, top_k):
+        key = w_router.data_ptr()
+        if key in first_ids:                       # a recompute
+            if forced is None:
+                return orig(x, w_router, top_k)
+            return routed_to(first_ids[key], x, w_router, top_k)
         if forced is None:
             p, ids, aux = orig(x, w_router, top_k)
         else:
-            want = next(forced).to(x.device)
-            torch.topk = lambda probs, k, dim=-1: (
-                probs.gather(-1, want), want)
-            try:
-                p, ids, aux = orig(x, w_router, top_k)
-            finally:
-                torch.topk = topk
+            p, ids, aux = routed_to(next(forced).to(x.device), x, w_router,
+                                    top_k)
+        first_ids[key] = ids.detach()
         probs = torch.softmax(x.detach().float() @ w_router.detach().float(),
                               dim=-1)
         top = topk(probs, top_k + 1, dim=-1).values
@@ -2002,12 +2064,18 @@ STUB_SCALE = 0.5
 # train batches other than TRAIN_B x TRAIN_S: llava at batch 1 with its
 # prefix (1 x (2880 + 192) rows)
 TRAIN_SHAPES = {"lv": (1, LLAVA_TOKENS)}
-# depths trained, each config's deepest with ~6 GiB of the card's 79.18
-# GiB to spare (chip_depths.py, one fp8_flow step: mamba2_27b 52 layers
-# 73.31 GiB, 54 76.07, 56 out of memory; llava_next_34b 4 layers 72.92;
-# hymba_15b and seamless_m4t_v2 whole, 56.45 and 52.95; PERF.md section
-# 4); every one serves whole
-NEW_TRAIN_LAYERS = {"m2": 52, "hy": 32, "sm": 24, "lv": 4}
+# depths trained (chip_depths.py, one fp8_flow step, f32 state, of the
+# card's 79.18 GiB; PERF.md section 4): mamba2_27b whole under 'full'
+# (43.59 GiB; 52 layers 73.34 and 56 out of memory under 'none');
+# llava_next_34b 6 layers under 'fp8_resident' (66.12 GiB): 7 is the
+# deepest single step (74.98 GiB under every policy, 8 run out with 70.26
+# GiB of state) but leaves too little for the allocator's fragmentation
+# after earlier work in one process (a 7-layer step after two other
+# train passes ran out, chip_profile.py); hymba_15b and seamless_m4t_v2
+# whole; every one serves whole
+NEW_TRAIN_LAYERS = {"m2": 64, "hy": 32, "sm": 24, "lv": 6}
+# each config's remat policy where it is not the default 'full' (phase 29)
+TRAIN_POLICY = {"lv": "fp8_resident"}
 # seamless_m4t_v2's reduced() encoder sits under both decoder layers'
 # cross-attention, four FP8 MLPs deep: its fp8_flow gradients on the two
 # devices meet at the six-layer bar of the CPU tests (DEEP_GRAD_COSINE in
@@ -2553,6 +2621,153 @@ def runtime_phase(cfg, dev, label="runtime"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-29: the activation-residency plan and the flash-attention VJP.
+# ---------------------------------------------------------------------------
+REMAT_POLICIES = ("none", "full", "fp8_resident", "pair")
+# the flash VJP against autograd through the plain loop, f32 inputs:
+# max |vjp - plain| / max |plain| (the two sum in other orders; dk and dv
+# sum 3072 x 7 products a lane at llava's shape, where the H100 reads
+# 7.4e-6): the CPU test's bar
+FLASH_REL = 1e-5
+
+
+def layer_kept_bytes(cfg, policy, dev, B=TRAIN_B, S=TRAIN_S):
+    """One layer's forward under `policy` on the card (the first MoE layer,
+    or the first layer; fp8_flow; random bf16 params from seed 0 and a
+    random (B, S, D) input): the bytes it leaves allocated for the
+    backward (memory_allocated after less before: what autograd saved
+    outside a checkpoint, the block's stash), those tensors in the
+    reference's buckets (train/memory.py), and layer_saved_bytes_model."""
+    from repro_torch.models.lm import first_layer, init_params
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.memory import (MemoryPlan, classify_residuals,
+                                          layer_loss, layer_saved_bytes_model,
+                                          saved_residuals)
+    recipe = recipe_for("train")
+    params = init_params(cfg, seed=0, device=dev)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_()
+    kind, moe, p = first_layer(cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+         * STUB_SCALE).to(torch.bfloat16).requires_grad_()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    res = saved_residuals(MemoryPlan(policy),
+                          layer_loss(cfg, recipe, kind, moe), p, x)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    out = dict(kept_bytes=kept,
+               buckets=classify_residuals(res, B * S * cfg.d_model),
+               model_bytes=layer_saved_bytes_model(cfg, B * S, policy))
+    del res, params, p, x
+    gc.collect()             # a checkpoint frame's cycle holds the layer
+    torch.cuda.empty_cache()
+    return out
+
+
+def policy_phase(dev, arch="deepseek_v2_lite", n_layers=DSV2_TRAIN_LAYERS,
+                 label="dsv2_train"):
+    """Phase 27: `arch` at full width and depth n_layers trained as phase
+    6 (fp8_flow, the f32 state, the fixed batch, TRAIN_STEPS steps) under
+    each remat policy: every policy's losses 'none''s bit for bit, its
+    casts a step, exactly its kernels; ms a step, peak GiB and one
+    layer's kept bytes beside the model's, 'fp8_resident' keeping no wide
+    bf16 tensor.  Returns the launches of the 'full' run (the config's
+    default)."""
+    base = arch_config(arch)
+    layer_cfg = arch_config(arch, base.n_dense_layers + 1 if base.moe else 1)
+    rows, launches, losses = {}, {}, {}
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(arch_config(arch, n_layers),
+                                  remat_policy=policy)
+        row = {}
+        launches[policy], losses[policy], _ = train_path(
+            cfg, dev, label, name=f"{label}[{policy}]", record=row)
+        rows[policy] = dict(
+            ms_per_step_warm=row["ms_per_step_warm"],
+            tokens_per_s_warm=row["tokens_per_s_warm"],
+            max_memory_allocated_gib=row["max_memory_allocated_gib"],
+            activation_casts_per_step=row["activation_casts_per_step"],
+            losses=losses[policy],
+            layer=layer_kept_bytes(layer_cfg, policy, dev))
+    print(json.dumps({"remat_policies": dict(
+        config=f"{arch} n_layers={n_layers} full width, fp8_flow, f32 state",
+        batch=[TRAIN_B, TRAIN_S], by_policy=rows)}))
+    for policy in REMAT_POLICIES:
+        check(losses[policy] == losses["none"],
+              f"{arch} under {policy}: losses {losses[policy]}, not "
+              f"'none''s {losses['none']} bit for bit")
+    kept = rows["fp8_resident"]["layer"]["buckets"]
+    check(kept["wide_bf16"] == 0 and kept["fp8"] > 0,
+          f"fp8_resident keeps a wide bf16 tensor or no e4m3: {kept}")
+    return launches["full"]
+
+
+def flash_vjp_phase(dev, arch="llava_next_34b"):
+    """Phase 28: the flash-attention VJP at `arch`'s full-width attention
+    (1 x (prefix + LLAVA_TOKENS) rows, causal, its heads): with f32
+    inputs, the output and dq, dk, dv of the Function against autograd
+    through the plain loop, max |vjp - plain| / max |plain| within the CPU
+    test's FLASH_REL (tests/test_torch_flash_vjp.py); with bf16 inputs
+    (the train path's), each way's bytes kept for the backward, and one
+    backward's ms and peak bytes above what was allocated before it."""
+    from repro_torch.models.layers import (flash_attention,
+                                           flash_attention_plain)
+    cfg = arch_config(arch)
+    S = cfg.frontend_len + LLAVA_TOKENS
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pos = torch.arange(S, device=dev)
+    base = [torch.randn(shape, generator=gen, device=dev) for shape in (
+        (1, S, H, hd), (1, S, KV, hd), (1, S, KV, hd), (1, S, H, hd))]
+
+    def leaf(t, dtype):
+        return t.to(dtype, copy=True).requires_grad_()
+    ways = (("vjp", flash_attention), ("plain", flash_attention_plain))
+
+    def run(fn, dtype, timed=False):
+        q, k, v = (leaf(t, dtype) for t in base[:3])
+        g = base[3].to(dtype)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        out = fn(q, k, v, q_pos=pos, kv_pos=pos, causal=True)
+        torch.cuda.synchronize()
+        row = {"saved_bytes": torch.cuda.memory_allocated() - start
+               - out.numel() * out.element_size()}
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        out.backward(g)
+        t1.record()
+        torch.cuda.synchronize()
+        row.update(bwd_ms=t0.elapsed_time(t1),
+                   bwd_peak_bytes=torch.cuda.max_memory_allocated() - before)
+        return row, [out.detach(), q.grad, k.grad, v.grad]
+
+    got = {name: run(fn, torch.float32)[1] for name, fn in ways}
+    rel = {n: (float((a - b).abs().max()) / float(b.abs().max()))
+           for n, a, b in zip(("out", "dq", "dk", "dv"), got["vjp"],
+                              got["plain"])}
+    del got
+    torch.cuda.empty_cache()
+    rows = {}
+    for name, fn in ways:
+        run(fn, torch.bfloat16)                     # warm-up
+        rows[name] = run(fn, torch.bfloat16)[0]
+        torch.cuda.empty_cache()
+    print(json.dumps({"flash_vjp": dict(
+        config=f"{arch} attention: 1 x {S} rows, {H} heads, {KV} kv heads, "
+               f"head_dim {hd}, causal, block 256",
+        f32_max_rel_vs_plain=rel, bf16=rows)}))
+    check(all(r <= FLASH_REL for r in rel.values()),
+          f"flash VJP gradients off autograd's through the plain loop: {rel}")
+    check(rows["vjp"]["saved_bytes"] < rows["plain"]["saved_bytes"],
+          f"the flash VJP keeps no less than autograd: {rows}")
+
+
 def dir_bytes(d) -> int:
     import os
     return sum(os.path.getsize(os.path.join(r, f))
@@ -2608,6 +2823,9 @@ def main() -> int:
     tcfg = train_config()
     add_rows(timings, train_kernel_checks(tcfg, PEAKS, dev, floor_ms))
     launches["train"], losses, _ = train_path(tcfg, dev)
+    with plain_attention():
+        train_path(tcfg, dev, name="train_plain_attention",
+                   want_losses=PLAIN_TRAIN_LOSSES)
     launches["masked_train"], _, plan = train_path(
         tcfg, dev, "masked_train", padded_losses=losses)
     add_rows(timings, masked_train_kernel_checks(tcfg, PEAKS, dev, plan))
@@ -2705,7 +2923,8 @@ def main() -> int:
         add_rows(timings, arch_kernel_checks(c, tag, path, PEAKS, dev,
                                              floor_ms, T))
     for tag, n in NEW_TRAIN_LAYERS.items():
-        c = arch_config(ARCH_TAGS[tag], n)
+        c = dataclasses.replace(arch_config(ARCH_TAGS[tag], n),
+                                remat_policy=TRAIN_POLICY.get(tag, "full"))
         launches[f"{tag}_train"], _, _ = train_path(c, dev, f"{tag}_train")
     launches["hy_bf16_train"], _, _ = train_path(
         arch_config("hymba_15b", NEW_TRAIN_LAYERS["hy"]), dev,
@@ -2738,6 +2957,11 @@ def main() -> int:
                                                dev)
     for arch in ("qwen3_moe_235b", "qwen15_05b"):
         gpu_vs_cpu_train(dev, "train", arch, split_state=True)
+
+    # the activation-residency plan and the flash VJP (phases 27-28; phase
+    # 29's deeper mamba2_27b and llava_next_34b runs are phase 20's)
+    launches["dsv2_remat_train"] = policy_phase(dev)
+    flash_vjp_phase(dev)
 
     from repro_torch.kernels import (adamw_update, fp8_transpose,
                                      fused_permute_pad, fused_swiglu_quant,

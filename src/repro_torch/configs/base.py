@@ -58,11 +58,8 @@ class ArchConfig:
     fsdp: bool = False             # shard param dim0 over 'data' too
     attn_tp: bool = True           # TP attention (requires n_heads % tp == 0)
     grad_accum: int = 1            # microbatching (memory fit at train_4k)
-    # activation-residency policy (the reference's train/memory.py
-    # MemoryPlan): 'none' | 'full' | 'fp8_resident' | 'pair' (a bool
-    # normalizes to 'full'/'none').  The port reads it nowhere yet: it
-    # keeps what autograd saves, whatever the policy says, until MemoryPlan
-    # is ported (ROADMAP.md, Queue 1, item 1)
+    # activation-residency policy (train/memory.py MemoryPlan): 'none' |
+    # 'full' | 'fp8_resident' | 'pair' (a bool normalizes to 'full'/'none')
     remat_policy: str = "full"
     # long_500k applicability (sub-quadratic rule, DESIGN.md §6)
     subquadratic: bool = False

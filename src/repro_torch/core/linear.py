@@ -60,9 +60,10 @@ import torch
 
 from repro_torch.core import casts
 from repro_torch.core.fp8 import TILE
-from repro_torch.core.quant import (QTensor, _dequantize_nocount,
-                                    quantize_blockwise, record_entry_stats,
-                                    row_tile)
+from repro_torch.core.quant import (QTensor, _dequantize_nocount, kept,
+                                    kept_qtensor, quantize_blockwise,
+                                    record_entry_stats, row_tile,
+                                    tag_qtensor, tag_saveable)
 from repro_torch.core.recipes import Recipe
 from repro_torch.core.transpose import transpose_direct, transpose_naive
 from repro_torch.kernels import ops
@@ -236,34 +237,53 @@ def _use_swiglu_epilogue(recipe: Recipe, act: str, masked_m) -> bool:
             and masked_m is not None and not recipe.save_h)
 
 
+def _gemm2(out_tag, gemm):
+    """GEMM-2's output, tagged `out_tag` (moe_block's stage_expert_out;
+    None: untagged).  In a checkpoint block's recompute under a policy
+    that kept it, the kept tensor, and GEMM-2 is not launched
+    (train/memory.py)."""
+    y = kept(out_tag)
+    return tag_saveable(gemm(), out_tag) if y is None else y
+
+
 def ffn_fwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qw13: QTensor,
-                     qw2: QTensor, masked_m=None):
+                     qw2: QTensor, masked_m=None, out_tag=None):
     """fp8_flow grouped FFN forward on an already-quantized input.
     Returns (y bf16, (qx, qa, h_saved)) like the reference: h_saved is the
     bf16 h with ``recipe.save_h``, else None (h is recomputed in the
     backward: FP8 activation checkpointing).  SwiGLU runs the
     fused SwiGLU + quantize; another activation is computed to bf16 and
-    quantized row-wise by #1 (``act_quant``), as the reference does."""
+    quantized row-wise by #1 (``act_quant``), as the reference does.
+    qx, h and qa are tagged at the reference's sites; in a checkpoint
+    block's recompute a kept qa (or h) skips GEMM-1 (train/memory.py),
+    unless h must be saved, and a kept y (`out_tag`) GEMM-2."""
+    qx = tag_qtensor(qx, "fp8_qx")
     h_saved = None
-    if _use_swiglu_epilogue(recipe, act, masked_m):
+    qa = None if recipe.save_h else kept_qtensor("fp8_qa", row_tile(3))
+    if qa is None and _use_swiglu_epilogue(recipe, act, masked_m):
         # GEMM-1 with the SwiGLU + quantize in its epilogue: the BF16
         # island lives only in registers (bitwise the unfused pair), and
         # the ledger gets the unfused kernel's entry (h.numel() = E*C*2F)
         E, C = qx.data.shape[:2]
         casts.record("fused_quantize", "swiglu_quant",
                      E * C * qw13.data.shape[-1])
-        qa = ops.grouped_gemm_swiglu_quant_masked(qx, qw13, masked_m)
-    else:
-        h = _ggemm(recipe, qx, qw13, masked_m=masked_m)     # BF16 island
+        qa = tag_qtensor(ops.grouped_gemm_swiglu_quant_masked(
+            qx, qw13, masked_m), "fp8_qa")
+    elif qa is None:
+        h = kept("stage_ffn_h")
+        if h is None:
+            h = tag_saveable(_ggemm(recipe, qx, qw13, masked_m=masked_m),
+                             "stage_ffn_h")                 # BF16 island
         if act == "swiglu":
             qa = _fused_swiglu_quant(recipe, h)
         else:
             casts.record("fused_quantize", "act_quant", h.numel())
             qa = _q_row(recipe, _act_fwd(act, h), "act_quant",
                         kind="fused_quantize_inner")
+        qa = tag_qtensor(qa, "fp8_qa")
         h_saved = h if recipe.save_h else None
         del h
-    y = _ggemm(recipe, qa, qw2, masked_m=masked_m)
+    y = _gemm2(out_tag, lambda: _ggemm(recipe, qa, qw2, masked_m=masked_m))
     return y, (qx, qa, h_saved)
 
 
@@ -302,36 +322,61 @@ def ffn_bwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qa: QTensor,
     return gx, wg13, wg2
 
 
+def _save_q(ctx, *tensors):
+    """save_for_backward with each QTensor as its payload and scales (the
+    tiles kept on ctx): everything the backward needs goes through autograd's
+    saved tensors, so a checkpoint block (train/memory.py) drops and
+    rebuilds it."""
+    flat, ctx.q_tiles = [], []
+    for t in tensors:
+        if isinstance(t, QTensor):
+            flat += [t.data, t.scale]
+            ctx.q_tiles.append(t.tile)
+        else:
+            flat.append(t)
+            ctx.q_tiles.append(None)
+    ctx.save_for_backward(*flat)
+
+
+def _saved_q(ctx):
+    """The tensors and QTensors ``_save_q`` saved, in order."""
+    flat, out = iter(ctx.saved_tensors), []
+    for tile in ctx.q_tiles:
+        out.append(next(flat) if tile is None
+                   else QTensor(next(flat), next(flat), tile))
+    return out
+
+
 class _ExpertFFN(torch.autograd.Function):
     """expert_ffn's custom VJP.  The ledger active in the forward is kept on
     ctx and re-entered in the backward, which autograd may run on another
-    thread (casts.py)."""
+    thread (casts.py).  The residuals are saved tensors: qx, qa, the
+    quantized weights, h with ``save_h`` and masked_m (train/memory.py's
+    policies recompute the quantized weights, as the reference's do)."""
 
     @staticmethod
-    def forward(ctx, recipe, act, xd, xs, w13, w2, masked_m):
+    def forward(ctx, recipe, act, xd, xs, w13, w2, masked_m, out_tag):
         ctx.ledger = casts.current()
         qw13, qw2 = _quant_weights(recipe, w13, w2)
-        y, (_, qa, h_saved) = ffn_fwd_fp8_core(
-            recipe, act, QTensor(xd, xs, row_tile(3)), qw13, qw2, masked_m)
-        ctx.save_for_backward(xd, xs)
-        ctx.qa, ctx.qw13, ctx.qw2, ctx.h = qa, qw13, qw2, h_saved
-        ctx.recipe, ctx.act, ctx.masked_m = recipe, act, masked_m
+        y, (qx, qa, h_saved) = ffn_fwd_fp8_core(
+            recipe, act, QTensor(xd, xs, row_tile(3)), qw13, qw2, masked_m,
+            out_tag)
+        _save_q(ctx, qx, qa, qw13, qw2, h_saved, masked_m)
+        ctx.recipe, ctx.act = recipe, act
         ctx.w_dtypes = (w13.dtype, w2.dtype)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        xd, xs = ctx.saved_tensors
+        qx, qa, qw13, qw2, h_saved, masked_m = _saved_q(ctx)
         with casts.use(ctx.ledger):
             # ---- the single explicit backward cast: BF16 island -> FP8 ----
             qg = _q_row(ctx.recipe, gy.to(torch.bfloat16).contiguous(),
                         "q_bwd_island")
             gx, wg13, wg2 = ffn_bwd_fp8_core(
-                ctx.recipe, ctx.act, QTensor(xd, xs, row_tile(3)), ctx.qa,
-                ctx.qw13, ctx.qw2, qg, *ctx.w_dtypes,
-                masked_m=ctx.masked_m, h_saved=ctx.h)
-        ctx.qa = ctx.qw13 = ctx.qw2 = ctx.masked_m = ctx.h = None
-        return None, None, gx.data, gx.scale, wg13, wg2, None
+                ctx.recipe, ctx.act, qx, qa, qw13, qw2, qg, *ctx.w_dtypes,
+                masked_m=masked_m, h_saved=h_saved)
+        return None, None, gx.data, gx.scale, wg13, wg2, None, None
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -355,9 +400,14 @@ class _BF16FFN(torch.autograd.Function):
     """The bf16 recipe: no quantization; bf16 products, f32 Wgrads."""
 
     @staticmethod
-    def forward(ctx, recipe, act, x, w13, w2):
-        h = _bf16_matmul(x.to(torch.bfloat16), w13.to(torch.bfloat16))
-        y = _bf16_matmul(_act_fwd(act, h), w2.to(torch.bfloat16))
+    def forward(ctx, recipe, act, x, w13, w2, out_tag):
+        h = kept("stage_ffn_h")
+        if h is None:
+            h = tag_saveable(_bf16_matmul(x.to(torch.bfloat16),
+                                          w13.to(torch.bfloat16)),
+                             "stage_ffn_h")
+        y = _gemm2(out_tag, lambda: _bf16_matmul(_act_fwd(act, h),
+                                                 w2.to(torch.bfloat16)))
         ctx.save_for_backward(x, h, w13, w2)
         ctx.act = act
         return y
@@ -376,7 +426,7 @@ class _BF16FFN(torch.autograd.Function):
         gx = _bf16_matmul(gh, w13.to(torch.bfloat16).transpose(-1, -2))
         wg13 = torch.einsum("eck,ecf->ekf", x.to(torch.float32),
                             gh.to(torch.float32)).to(w13.dtype)
-        return None, None, gx.to(x.dtype), wg13, wg2
+        return None, None, gx.to(x.dtype), wg13, wg2, None
 
 
 class _BlockwiseFFN(torch.autograd.Function):
@@ -384,23 +434,25 @@ class _BlockwiseFFN(torch.autograd.Function):
     h are saved; every GEMM operand is quantized fresh (8 casts)."""
 
     @staticmethod
-    def forward(ctx, recipe, act, x, w13, w2):
+    def forward(ctx, recipe, act, x, w13, w2, out_tag):
         ctx.ledger = casts.current()
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         qx = _q_row(recipe, x, "q_gemm1_in")
-        h = _ggemm(recipe, qx, qw13)
+        h = kept("stage_ffn_h")
+        if h is None:
+            h = tag_saveable(_ggemm(recipe, qx, qw13), "stage_ffn_h")
         del qx
-        qa = _q_row(recipe, _act_fwd(act, h), "q_gemm2_in")
-        y = _ggemm(recipe, qa, qw2)
-        ctx.save_for_backward(x, h)
-        ctx.recipe, ctx.act, ctx.qw13, ctx.qw2 = recipe, act, qw13, qw2
+        y = _gemm2(out_tag, lambda: _ggemm(
+            recipe, _q_row(recipe, _act_fwd(act, h), "q_gemm2_in"), qw2))
+        _save_q(ctx, x, h, qw13, qw2)
+        ctx.recipe, ctx.act = recipe, act
         ctx.w_dtypes = (w13.dtype, w2.dtype)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, h = ctx.saved_tensors
-        r, qw13, qw2 = ctx.recipe, ctx.qw13, ctx.qw2
+        x, h, qw13, qw2 = _saved_q(ctx)
+        r = ctx.recipe
         wg13_dtype, wg2_dtype = ctx.w_dtypes
         with casts.use(ctx.ledger):
             gy = gy.to(torch.bfloat16).contiguous()
@@ -421,8 +473,7 @@ class _BlockwiseFFN(torch.autograd.Function):
             del gh
             qxT = _q_row(r, _t(x), "q_bwd_wgrad1_x")
             wg13 = _ggemm_nt(r, qxT, qghT, wg13_dtype)
-        ctx.qw13 = ctx.qw2 = None
-        return None, None, gx.to(x.dtype), wg13, wg2
+        return None, None, gx.to(x.dtype), wg13, wg2, None
 
 
 class _NaiveFFN(torch.autograd.Function):
@@ -431,22 +482,29 @@ class _NaiveFFN(torch.autograd.Function):
     -> requantize (the double quantization error; 10 casts)."""
 
     @staticmethod
-    def forward(ctx, recipe, act, x, w13, w2):
+    def forward(ctx, recipe, act, x, w13, w2, out_tag):
         ctx.ledger = casts.current()
         qw13, qw2 = _quant_weights(recipe, w13, w2)
-        qx = _q_row(recipe, x, "q_gemm1_in")
-        h = _ggemm(recipe, qx, qw13)
-        qa = _q_row(recipe, _act_fwd(act, h), "q_gemm2_in")
-        del h
-        y = _ggemm(recipe, qa, qw2)
-        ctx.recipe, ctx.act, ctx.qx, ctx.qa = recipe, act, qx, qa
-        ctx.qw13, ctx.qw2 = qw13, qw2
+        tile = row_tile(x.ndim)
+        qx = kept_qtensor("fp8_qx", tile)
+        if qx is None:
+            qx = tag_qtensor(_q_row(recipe, x, "q_gemm1_in"), "fp8_qx")
+        qa = kept_qtensor("fp8_qa", tile)
+        if qa is None:
+            h = _ggemm(recipe, qx, qw13)
+            qa = tag_qtensor(_q_row(recipe, _act_fwd(act, h), "q_gemm2_in"),
+                             "fp8_qa")
+            del h
+        y = _gemm2(out_tag, lambda: _ggemm(recipe, qa, qw2))
+        _save_q(ctx, qx, qa, qw13, qw2)
+        ctx.recipe, ctx.act = recipe, act
         ctx.x_dtype, ctx.w_dtypes = x.dtype, (w13.dtype, w2.dtype)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        r, qx, qa, qw13, qw2 = ctx.recipe, ctx.qx, ctx.qa, ctx.qw13, ctx.qw2
+        qx, qa, qw13, qw2 = _saved_q(ctx)
+        r = ctx.recipe
         wg13_dtype, wg2_dtype = ctx.w_dtypes
         with casts.use(ctx.ledger):
             gy = gy.to(torch.bfloat16).contiguous()
@@ -467,32 +525,35 @@ class _NaiveFFN(torch.autograd.Function):
             qghT = _q_row(r, _t(gh), "q_bwd_wgrad1_g")
             del gh
             wg13 = _ggemm_nt(r, qxT, qghT, wg13_dtype)
-        ctx.qx = ctx.qa = ctx.qw13 = ctx.qw2 = None
-        return None, None, gx.to(ctx.x_dtype), wg13, wg2
+        return None, None, gx.to(ctx.x_dtype), wg13, wg2, None
 
 
 _BASELINE_FFN = {"bf16": _BF16FFN, "blockwise": _BlockwiseFFN,
                  "naive_fp8": _NaiveFFN}
 
 
-def expert_ffn(recipe: Recipe, act: str, x_in, w13, w2, masked_m=None):
+def expert_ffn(recipe: Recipe, act: str, x_in, w13, w2, masked_m=None,
+               out_tag=None):
     """``expert_ffn`` at EP = 1 (the reference's psum axes are empty).
     fp8_flow: x_in is the row-tiled (E, C, D) QTensor; w13 (E, D, 2F) and
     w2 (E, F, D) are bf16 (differentiable) or W8-resident QTensors
     (serving); masked_m (E,) int32 on x_in's device selects the masked
     layout (None: padded).  The other recipes take the bf16 (E, C, D)
-    input and bf16 weights and ignore masked_m, as the reference does."""
+    input and bf16 weights and ignore masked_m, as the reference does.
+    `out_tag` names the output for the residency plan (``_gemm2``)."""
     if recipe.name != "fp8_flow":
         if isinstance(w13, QTensor) or isinstance(w2, QTensor):
             raise ValueError(f"{recipe.name}: W8-resident weights are "
                              "fp8_flow only")
-        return _BASELINE_FFN[recipe.name].apply(recipe, act, x_in, w13, w2)
+        return _BASELINE_FFN[recipe.name].apply(recipe, act, x_in, w13, w2,
+                                                out_tag)
     if isinstance(w13, QTensor) or isinstance(w2, QTensor):
         qw13, qw2 = _quant_weights(recipe, w13, w2)
-        y, _ = ffn_fwd_fp8_core(recipe, act, x_in, qw13, qw2, masked_m)
+        y, _ = ffn_fwd_fp8_core(recipe, act, x_in, qw13, qw2, masked_m,
+                                out_tag)
         return y
     return _ExpertFFN.apply(recipe, act, x_in.data, x_in.scale, w13, w2,
-                            masked_m)
+                            masked_m, out_tag)
 
 
 class _QuantizeEntry(torch.autograd.Function):

@@ -292,7 +292,8 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
     else:
         ffn_in = _take_rows(recv_in, row_map_exp).reshape(E_loc, C_exp, D)
     masked_m = _masked_m_or_none(recipe, row_map_exp, E_loc, C_exp)
-    y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m)
+    y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m,
+                       out_tag="stage_expert_out")
 
     p_exp = _take_rows(p_flat[:, None], row_map_exp).reshape(E_loc, C_exp)
     y_exp = y_exp * p_exp[..., None].to(y_exp.dtype)

@@ -5,8 +5,9 @@ Counterpart of ``repro.core.quant``'s quantizers: per-tile scales over
 (``scale_mode="linear"``, s = amax / 448: the conventional recipe of the
 ``blockwise`` and ``naive_fp8`` baselines), the same normative tile
 convention, the cast-ledger records and the guardrails' quant-stats
-collector (below).  The remat checkpoint tags (``tag_qtensor``) come
-with ``train/memory.py`` (ROADMAP.md, Queue 1, item 1).
+collector (below), and the names under which the activation-residency
+plan (``train/memory.py``) keeps a tensor (``tag_saveable``,
+``tag_qtensor``).
 
 Tile-metadata convention (as in the reference):
 
@@ -201,6 +202,74 @@ def _dequantize_nocount(q: QTensor, dtype=torch.float32) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Names for the activation-residency plan (train/memory.py).  A policy
+# keeps the tensors tagged with its names across the forward/backward
+# boundary: 'full' the BF16 stage boundaries, 'fp8_resident' only the
+# QTensor stage outputs.  The reference names them for jax.checkpoint's
+# save_only_these_names; the port's plan keeps them in a per-block stash
+# (the tags' producers run eagerly, so a tensor is kept as it was made:
+# no precision pin is needed for a kept and a recomputed tensor to agree).
+# In the block's recompute the tag hands back the kept tensor, and
+# ``kept`` / ``kept_qtensor`` let a producer skip its work altogether.
+# ---------------------------------------------------------------------------
+FP8_SAVE_NAMES = ("fp8_qx_data", "fp8_qx_scale",      # dispatched FFN input
+                  "fp8_qa_data", "fp8_qa_scale")      # post-activation GEMM2 in
+BF16_STAGE_NAMES = ("stage_attn_out",                 # attn residual-out
+                    "stage_ffn_in",                   # post-ln2 FFN input
+                    "stage_ffn_h",                    # the bf16 island h
+                    "stage_expert_out")               # expert out (combine in)
+
+# the active checkpoint block's stash (train/memory.py), None outside one
+_RESIDENCY: contextvars.ContextVar = contextvars.ContextVar("residency",
+                                                           default=None)
+
+
+def tag_saveable(x, name: str):
+    """Name a tensor for the residency policies (None passes).  Outside a
+    plan's block, or where the block's policy does not keep `name`, x
+    itself; in the block's forward x is kept; in its recompute the kept
+    tensor comes back in x's place (the same bits)."""
+    st = _RESIDENCY.get()
+    if x is None or st is None:
+        return x
+    return st.keep(name, x)
+
+
+def tag_qtensor(q: "QTensor", name: str) -> "QTensor":
+    """Tag a QTensor's payload and scales as '<name>_data' / '<name>_scale'
+    (the e4m3 payload is kept as it is: 1 byte an element)."""
+    if _RESIDENCY.get() is None:
+        return q
+    return QTensor(tag_saveable(q.data, f"{name}_data"),
+                   tag_saveable(q.scale, f"{name}_scale"), q.tile)
+
+
+@contextlib.contextmanager
+def residency(stash):
+    """Make `stash` (train/memory.py) the active block's for the block."""
+    tok = _RESIDENCY.set(stash)
+    try:
+        yield stash
+    finally:
+        _RESIDENCY.reset(tok)
+
+
+def kept(name: str):
+    """In a block's recompute, the next tensor its forward kept under
+    `name` (the producer then skips its work); None otherwise."""
+    st = _RESIDENCY.get()
+    return None if st is None else st.replay(name)
+
+
+def kept_qtensor(name: str, tile) -> Optional["QTensor"]:
+    """``kept`` for a QTensor tagged by ``tag_qtensor``."""
+    data = kept(f"{name}_data")
+    if data is None:
+        return None
+    return QTensor(data, kept(f"{name}_scale"), tile)
+
+
+# ---------------------------------------------------------------------------
 # FP8 health stats for the numerics guardrails (train/guards.py).
 # ---------------------------------------------------------------------------
 STATS_LEN = 2                      # [sat_frac, flush_frac], max-merged
@@ -265,6 +334,17 @@ def collect_stats():
     tok = _QSTATS.set(col)
     try:
         yield col
+    finally:
+        _QSTATS.reset(tok)
+
+
+@contextlib.contextmanager
+def stats_muted():
+    """No site records inside the block (a checkpoint block's recompute:
+    its forward recorded already)."""
+    tok = _QSTATS.set(None)
+    try:
+        yield
     finally:
         _QSTATS.reset(tok)
 

@@ -5,6 +5,7 @@
       [--steps 20] [--seq-len 256] [--global-batch 8] [--ckpt-dir DIR] \\
       [--grad-accum N] [--guard [--guard-spike-factor F] \\
       [--guard-rollback-after K] [--guard-demote-steps N]] [--elastic] \\
+      [--remat-policy {none,full,fp8_resident,pair}] \\
       [--obs-jsonl PATH] [--obs-prom PATH]
 
 The flags are the reference launcher's (``repro.launch.train``) that one
@@ -19,13 +20,13 @@ device runs, plus ``--device`` (``cuda``: the hand-written kernels;
   bf16 fallback step.
 - ``--elastic``: the host-health bookkeeping of ``ElasticTrainer`` (one
   data shard on one device).
+- ``--remat-policy``: the activation-residency plan (``train/memory.py``)
+  in place of the config's (``full``).
 - ``--obs-jsonl`` / ``--obs-prom``: structured telemetry as JSONL, and a
   Prometheus text snapshot of the registry at exit.
 
 ``--dist-wire`` other than ``off`` raises (the FP8 DP wire and ZeRO-1:
-ROADMAP.md, Queue 1, item 7), and so does ``--remat-policy`` (the port
-keeps what autograd saves, whatever ``ArchConfig.remat_policy`` says,
-until ``train/memory.py`` is ported: Queue 1, item 1).  The optimizer is
+ROADMAP.md, Queue 1, item 7).  The optimizer is
 the reference launcher's ``AdamWConfig(lr=...)``: f32 state, 16 bytes a
 parameter with the bf16 weights and gradients; ``AdamWConfig(
 state_policy=StatePolicy())`` (the FP8-split state, ~9 bytes) is reached
@@ -42,6 +43,7 @@ qwen15_05b and hymba_15b at full depth; the depths of the cut runs are in
 PERF.md section 4.
 """
 import argparse
+import dataclasses
 
 from repro_torch.configs import get_arch
 from repro_torch.core.recipes import RECIPES, get_recipe
@@ -72,7 +74,12 @@ def main(argv=None):
                          "only 'off' runs)")
     ap.add_argument("--remat-policy", default=None,
                     choices=["none", "full", "fp8_resident", "pair"],
-                    help="activation-residency plan (not ported: raises)")
+                    help="activation-residency plan (default: the config's, "
+                         "full): none keeps what autograd saves; full keeps "
+                         "the bf16 stage outputs and recomputes the rest of "
+                         "each layer; fp8_resident keeps only the FFN's FP8 "
+                         "qx/qa; pair keeps one input every two layers and "
+                         "recomputes everything")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per step, gradients summed in f32")
     ap.add_argument("--guard", action="store_true",
@@ -101,11 +108,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--dist-wire: the FP8 DP gradient wire and ZeRO-1 are not ported "
             "yet (ROADMAP.md, Queue 1, item 7)")
-    if args.remat_policy is not None:
-        raise NotImplementedError(
-            "--remat-policy: the activation-residency plan (train/memory.py "
-            "MemoryPlan) is not ported yet; the port keeps what autograd "
-            "saves (ROADMAP.md, Queue 1, item 1)")
     from repro_torch.obs.sink import JsonlSink, Telemetry, null_telemetry
     if args.obs_jsonl is not None or args.obs_prom is not None:
         sinks = (JsonlSink(args.obs_jsonl),) if args.obs_jsonl else ()
@@ -116,6 +118,8 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.remat_policy is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=args.remat_policy)
     if cfg.encdec:
         # the reference launcher's make_batch has no encoder input either:
         # its forward raises KeyError('enc_input') on the first step
@@ -129,7 +133,8 @@ def main(argv=None):
     guard = GuardPlan(spike_factor=args.guard_spike_factor) \
         if args.guard else None
     print(f"[train] {args.arch} ({cfg.n_params() / 1e9:.2f}B params) "
-          f"recipe={recipe.name} device={args.device}")
+          f"recipe={recipe.name} remat={cfg.remat_policy} "
+          f"device={args.device}")
     state = init_train_state(cfg, opt, seed=0, device=args.device,
                              guard=guard)
     warmup = max(args.steps // 10, 1)

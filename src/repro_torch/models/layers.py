@@ -4,12 +4,16 @@ RoPE, the QKV projection, blocked (flash-style) prefill attention
 attention at a per-request or shared position, and the attention block
 over a dense decode cache.
 
-Counterpart of the forward subset of ``repro.models.layers``, in plain
-PyTorch ops with the reference's layouts (q (B, S, H, hd), k/v
-(B, S, KV, hd)) and arithmetic: f32 softmax, the softmax scale folded
-into q for prefill, -1e30 masking.  Training differentiates these with
-autograd: the reference's hand-written flash-attention VJP is XLA code,
-not a Pallas kernel, and a hand-written backward is a later slice's.  Attention stays bf16 in every recipe
+Counterpart of ``repro.models.layers``, in plain PyTorch ops with the
+reference's layouts (q (B, S, H, hd), k/v (B, S, KV, hd)) and
+arithmetic: f32 softmax, the softmax scale folded into q for prefill,
+-1e30 masking.  ``flash_attention`` is an autograd Function with the
+reference's hand-written VJP (``_flash_fwd`` / ``_flash_bwd``, XLA code
+there, not a Pallas kernel): it saves q, k, v, the positions, the f32
+output and the log-sum-exp, and its backward recomputes each KV block's
+probabilities from them, so nothing of size Sq x Skv outlives the
+forward.  ``flash_attention_plain`` is the same forward differentiated by
+autograd, its twin in the tests.  Attention stays bf16 in every recipe
 (the paper's FP8 scope is the MoE stage).  ``scaled_dot_product_attention``
 is not used: it is a library kernel.
 """
@@ -74,18 +78,17 @@ def _mask(q_pos, kv_pos, causal: bool, window: int):
     return mask
 
 
-def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
-                    softcap=0.0, block_k=256):
-    """q (B, Sq, H, hd); k, v (B, Skv, KV, hd); q_pos (Sq,), kv_pos (Skv,).
-    Online softmax over KV blocks of block_k rows (GQA by head grouping)."""
+def _flash_fwd(q, k, v, q_pos, kv_pos, causal: bool, window: int,
+               softcap: float, block_k: int):
+    """The blocked online softmax: q (B, Sq, H, hd); k, v (B, Skv, KV,
+    hd); GQA by head grouping.  Returns the f32 output (B, Sq, KV, G, hd)
+    and the log-sum-exp (B, Sq, KV, G)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     qf = (q.to(torch.float32) * _softmax_scale(hd, q.device)).reshape(
         B, Sq, KV, G, hd)
-    bk = min(block_k, Skv)
-    if Skv % bk:
-        raise ValueError(f"kv length {Skv} is not a multiple of block {bk}")
+    bk = _block(Skv, block_k)
     m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
@@ -104,7 +107,102 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bqkgc,bckh->bqkgh", p, vblk)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    lc = torch.clamp(l, min=1e-30)
+    return acc / lc[..., None], m + torch.log(lc)
+
+
+def _block(Skv: int, block_k: int) -> int:
+    bk = min(block_k, Skv)
+    if Skv % bk:
+        raise ValueError(f"kv length {Skv} is not a multiple of block {bk}")
+    return bk
+
+
+def _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, g, causal: bool,
+               window: int, softcap: float, block_k: int):
+    """The reference's flash VJP (``repro/models/layers.py:_flash_bwd``):
+    per KV block, p = exp(s - lse) from the saved log-sum-exp, dv = p^T g,
+    dp = g v^T, ds = p (dp - rowsum(g * out)) (through the softcap's
+    1 - t^2), dk = ds^T (q * scale), and dq = ds k summed over the blocks,
+    scaled once at the end.  Returns dq, dk, dv in the inputs' dtypes."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = _softmax_scale(hd, q.device)
+    qf = (q.to(torch.float32) * scale).reshape(B, Sq, KV, G, hd)
+    gf = g.to(torch.float32).reshape(B, Sq, KV, G, hd)
+    bk = _block(Skv, block_k)
+    d_row = torch.sum(gf * out, dim=-1)                   # (B,Sq,KV,G)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for b0 in range(0, Skv, bk):
+        kblk = k[:, b0:b0 + bk].to(torch.float32)
+        vblk = v[:, b0:b0 + bk].to(torch.float32)
+        s = torch.einsum("bqkgh,bckh->bqkgc", qf, kblk)
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        mask = _mask(q_pos, kv_pos[b0:b0 + bk], causal, window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                 # (B,Sq,KV,G,c)
+        del s
+        dv[:, b0:b0 + bk] = torch.einsum("bqkgc,bqkgh->bckh", p, gf).to(
+            v.dtype)
+        dp = torch.einsum("bqkgh,bckh->bqkgc", gf, vblk)
+        ds = p * (dp - d_row[..., None])                  # d s_capped
+        del p, dp
+        if softcap:
+            ds = ds * (1.0 - t * t)                       # through tanh
+        # the scale is folded into qf: dk = ds^T qf directly, dq needs
+        # ds k times the scale (at the end)
+        dq += torch.einsum("bqkgc,bckh->bqkgh", ds, kblk)
+        dk[:, b0:b0 + bk] = torch.einsum("bqkgc,bqkgh->bckh", ds, qf).to(
+            k.dtype)
+    dq = dq * scale
+    return dq.reshape(B, Sq, H, hd).to(q.dtype), dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """flash_attention's custom VJP (the reference's ``_flash``); each
+    direction runs under a profiler range (``flash_fwd``, ``flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap,
+                block_k):
+        with torch.profiler.record_function("flash_fwd"):
+            out, lse = _flash_fwd(q, k, v, q_pos, kv_pos, causal, window,
+                                  softcap, block_k)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.spec = (causal, window, softcap, block_k)
+        B, Sq, H, hd = q.shape
+        return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        with torch.profiler.record_function("flash_bwd"):
+            dq, dk, dv = _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, g,
+                                    *ctx.spec)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
+                    softcap=0.0, block_k=256):
+    """q (B, Sq, H, hd); k, v (B, Skv, KV, hd); q_pos (Sq,), kv_pos (Skv,).
+    Online softmax over KV blocks of block_k rows (GQA by head grouping),
+    with the reference's hand-written VJP."""
+    return _Flash.apply(q, k, v, q_pos, kv_pos, causal, window, softcap,
+                        block_k)
+
+
+def flash_attention_plain(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
+                          softcap=0.0, block_k=256):
+    """flash_attention's forward differentiated by autograd (every KV
+    block's scores and probabilities saved): the twin its VJP is held to."""
+    out, _ = _flash_fwd(q, k, v, q_pos, kv_pos, causal, window, softcap,
+                        block_k)
+    B, Sq, H, hd = q.shape
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 

@@ -35,12 +35,14 @@ indexed store into the cache tensors.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linear import _bf16_matmul, _gelu_f32, dense_mlp
 from repro_torch.core.moe import MoEConfig, moe_block, moe_block_decode
-from repro_torch.core.quant import QTensor
+from repro_torch.core.quant import QTensor, tag_saveable
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import CHUNK_ELEMS, resolve_device
 from repro_torch.models.layers import (apply_norm, attn_block,
@@ -50,6 +52,7 @@ from repro_torch.models.ssm import mamba2_block
 from repro_torch.serve.paged_kv import (SCRATCH_PAGE, page_read,
                                         page_write_rows)
 from repro_torch.serve.w8 import w8_merge_gate
+from repro_torch.train.memory import MemoryPlan
 
 
 def layer_kinds(cfg: ArchConfig):
@@ -311,13 +314,12 @@ def _train_layer_slices(stack_params, n: int):
 
 
 def stage_ln_attn(cfg, p, x, positions, window: int, causal: bool = True):
-    """Pre-norm + attention + residual add (autograd differentiates the
-    flash forward; the reference's hand-written flash VJP is XLA, not
-    Pallas, and comes with a later slice)."""
+    """Pre-norm + attention + residual add; the stage output is tagged for
+    the 'full' policy (train/memory.py)."""
     h = apply_norm(cfg.norm, x, p, "ln1")
     out, _ = attn_block(cfg, p, h, positions=positions, layer_window=window,
                         causal=causal)
-    return x + out
+    return tag_saveable(x + out, "stage_attn_out")
 
 
 def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True):
@@ -338,25 +340,56 @@ def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True):
     else:
         x = stage_ln_attn(cfg, p, x, positions,
                           cfg.window if kind == "local" else 0, causal)
-    h2 = apply_norm(cfg.norm, x, p, "ln2")
+    h2 = tag_saveable(apply_norm(cfg.norm, x, p, "ln2"), "stage_ffn_in")
     if moe_layer:
         mo, aux = _moe_stage(cfg, recipe, p, h2)
         return x + mo, aux
     return x + _mlp_stage(cfg, recipe, p, h2), None
 
 
+def _run_blocks(cfg, layer_fns, x):
+    """Run the layers in the checkpoint blocks of the config's MemoryPlan
+    (train/memory.py: one layer a block, two under 'pair'; 'none' wraps
+    nothing), the reference's unrolled driver.  layer_fns[i](x) -> (x,
+    aux or None).  Returns (x, the auxes summed in layer order, so every
+    policy adds them alike)."""
+    plan = MemoryPlan.from_config(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for fns in plan.blocks_of(layer_fns):
+        def block(xc, _fns=fns):
+            auxes = []
+            for fn in _fns:
+                xc, a = fn(xc)
+                auxes.append(a)
+            return xc, tuple(auxes)
+        x, auxes = plan.wrap(block)(x)
+        for a in auxes:
+            if a is not None:
+                aux = aux + a
+    return x, aux
+
+
 def _run_stack(cfg, recipe, stack_params, pattern, n_layers, moe, x,
                positions, causal=True):
-    """The reference's scanned stack as a Python loop over layer slices;
-    returns (x, the summed aux losses)."""
+    """The reference's stack as a loop over layer slices in checkpoint
+    blocks; returns (x, the summed aux losses)."""
     pattern = _pattern_or_fallback(pattern, n_layers)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, p in enumerate(_train_layer_slices(stack_params, n_layers)):
-        x, a = _sub_layer(cfg, recipe, pattern[i % len(pattern)], moe, p, x,
-                          positions, causal)
-        if a is not None:
-            aux = aux + a
-    return x, aux
+    fns = [functools.partial(_sub_layer, cfg, recipe,
+                             pattern[i % len(pattern)], moe, p,
+                             positions=positions, causal=causal)
+           for i, p in enumerate(_train_layer_slices(stack_params,
+                                                     n_layers))]
+    return _run_blocks(cfg, fns, x)
+
+
+def first_layer(cfg, params):
+    """(kind, moe_layer, params) of the main stack's first layer: the
+    first MoE layer, or a dense arch's first layer (the layer the residual
+    accounting of train/memory.py measures), sliced as training slices
+    it."""
+    n = cfg.n_layers - _n_dense(cfg)
+    return (_pattern_or_fallback(cfg.pattern, n)[0], cfg.moe,
+            _train_layer_slices(params["layers"], n)[0])
 
 
 def rms_or_ln(cfg, x, p_cross):
@@ -391,19 +424,20 @@ def _run_encdec_decoder(cfg, recipe, params, x, positions, enc):
     and MLP, then cross-attention to its projection of `enc`, added to
     the residual."""
     n = cfg.n_layers
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p_self, p_cross in zip(_train_layer_slices(params["layers"], n),
-                               _train_layer_slices(params["cross_layers"],
-                                                   n)):
+
+    def layer(p_self, p_cross, x):
         x, a = _sub_layer(cfg, recipe, "global", cfg.moe, p_self, x,
                           positions)
         h = rms_or_ln(cfg, x, p_cross)
         c_out, _ = attn_block(cfg, p_cross, h, positions=positions,
                               cross_kv=_project_cross_kv(cfg, p_cross, enc))
-        x = x + c_out
-        if a is not None:
-            aux = aux + a
-    return x, aux
+        return x + c_out, a
+
+    fns = [functools.partial(layer, p_self, p_cross)
+           for p_self, p_cross in zip(
+               _train_layer_slices(params["layers"], n),
+               _train_layer_slices(params["cross_layers"], n))]
+    return _run_blocks(cfg, fns, x)
 
 
 class _Xent(torch.autograd.Function):

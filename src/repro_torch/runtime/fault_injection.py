@@ -78,6 +78,12 @@ def activate(fault: Optional[Fault]):
         _ACTIVE.reset(tok)
 
 
+def armed() -> Optional[Fault]:
+    """The fault armed in this context (None if none): a checkpoint block
+    re-arms it in its recompute (train/memory.py)."""
+    return _ACTIVE.get()
+
+
 def apply(point: str, tag: str, x: torch.Tensor) -> torch.Tensor:
     """Hook call sites: returns `x` poisoned (a new tensor) iff the armed
     fault targets this (point, tag); `x` itself otherwise."""

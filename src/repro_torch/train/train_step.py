@@ -12,6 +12,12 @@ microbatch's gradient is added into f32 sums and the sums are divided by
 `grad_accum`, as the reference does (4 B a parameter more); the loss and
 forward metrics are the microbatches' means.
 
+The activation-residency plan is the config's (``cfg.remat_policy``,
+``train/memory.py``): the model's stack drivers checkpoint their layer
+blocks by it, so each microbatch's backward recomputes what the policy
+does not keep, and the recompute records no cast and no quant stat.
+Every policy gives the same losses, gradients and guard flags.
+
 ``guard=GuardPlan``: the FP8 quantize-site stats are collected
 (``core.quant.collect_stats``), ``guards.evaluate`` folds the step's
 health into ``guard_flags`` after the global norm, and the update writes

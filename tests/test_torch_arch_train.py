@@ -7,13 +7,15 @@ of 8 x 64 tokens.
 
 The reference is its whole-model forward on a 1x1 mesh, differentiated
 with jax.value_and_grad under jit: the XLA route, the only one its train
-step can take on this jax (ROADMAP.md, Queue 3), with remat off, as the
-port runs.  Bars: the loss within 1e-3 relative; the cast ledger by
-(kind, tag) the reference's (traced for differentiation, the reference
-records each forward event twice, so a forward-only trace of it is
-subtracted); every token the two route to other experts has a router
-near-tie (``ROUTE_TIE``; tests/test_torch_serve.py's rule: torch and XLA
-round bf16 differently, and a few of 512 tokens sit that close); and,
+step can take on this jax (ROADMAP.md, Queue 3), with remat off; the
+port runs its config's plan ('full'), whose losses and gradients are
+'none''s bit for bit (tests/test_torch_remat.py).  Bars: the loss within
+1e-3 relative; the cast ledger by (kind, tag) the reference's (traced
+for differentiation, the reference records each forward event twice,
+so a forward-only trace of it is subtracted); every token the two route
+to other experts has a router near-tie (``ROUTE_TIE``;
+tests/test_torch_serve.py's rule: torch and XLA round bf16 differently,
+and a few of 512 tokens sit that close); and,
 with the port routed as the reference routed (its expert ids fed in),
 every leaf's gradient cosine >= 0.999 (as chip_smoke.py's GPU-vs-CPU
 check; a leaf zero on both sides agrees).  Unforced, those few tokens
@@ -202,12 +204,19 @@ def test_fp8_flow_activation_casts_per_layer_kind(arch):
 
 
 def test_twenty_steps_deepseek_v2_lite_track_the_reference_loss():
-    """20 steps of fp8_flow within 1% of the reference at every step (one
-    thread); the masked recipe's 20 losses the padded recipe's bit for
-    bit."""
-    padded, params_np = _track_the_reference_loss(
-        "fp8_flow", _one_thread, arch="deepseek_v2_lite")
-    masked = _port_losses(
+    """20 steps of fp8_flow within 1% of the reference at every step, or
+    its own spread (one thread; tests/test_torch_train_steps.py); the
+    masked recipe's 20 losses the padded recipe's bit for bit."""
+    padded, params_np, _ = _track_the_reference_loss(
+        "fp8_flow", "own", _one_thread, arch="deepseek_v2_lite")
+    masked, _ = _port_losses(
         get_recipe("fp8_flow", masked_experts=True, swiglu_epilogue=True),
         params_np, "deepseek_v2_lite", _one_thread)
     assert masked == padded
+
+
+def test_twenty_steps_deepseek_v2_lite_routed_as_the_reference():
+    """The same 20 steps routed at every step as the reference routed:
+    within 1% of its loss at every step."""
+    _track_the_reference_loss("fp8_flow", "reference's", _one_thread,
+                              arch="deepseek_v2_lite")

@@ -215,7 +215,9 @@ def test_unported_training_options_raise():
     """`dist` still raises, naming its Queue 1 item; the guard, gradient
     accumulation, save_h and the FP8-split state now build and run a
     step (tests/test_torch_guards.py, test_torch_runtime.py and
-    test_torch_opt_state.py hold them to the reference)."""
+    test_torch_opt_state.py hold them to the reference), and so does the
+    launcher under each `--remat-policy` (tests/test_torch_remat.py holds
+    the policies to the reference)."""
     from repro_torch.configs import get_arch
     from repro_torch.dist.opt_state import StatePolicy
     from repro_torch.train.guards import GuardPlan
@@ -225,10 +227,14 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
         make_train_step(cfg, recipe, adamw.AdamWConfig(), dist=object())
     from repro_torch.launch.train import main
-    for flags, item in ((["--dist-wire", "fp8"], "item 7"),
-                        (["--remat-policy", "fp8_resident"], "item 1")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(["--reduced", "--device", "cpu", *flags])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        main(["--reduced", "--device", "cpu", "--dist-wire", "fp8"])
+    losses = {policy: main(["--reduced", "--device", "cpu",
+                            "--remat-policy", policy, "--steps", "1",
+                            "--seq-len", "32", "--global-batch", "2"])
+              for policy in ("none", "full", "fp8_resident", "pair")}
+    assert all(len(v) == 1 and np.isfinite(v[0]) for v in losses.values())
+    assert len({v[0] for v in losses.values()}) == 1, losses
     opt = adamw.AdamWConfig(state_policy=StatePolicy(min_size=4096))
     guard = GuardPlan()
     state = init_train_state(cfg, opt, device="cpu", guard=guard)
