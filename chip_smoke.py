@@ -198,6 +198,25 @@ Phases (any failure raises and the script exits non-zero):
      layers) under the f32 state with the default 'full', llava_next_34b
      at the deepest depth chip_depths.py found under the f32 state with
      'fp8_resident' (NEW_TRAIN_LAYERS, TRAIN_POLICY);
+ 30. the radix prefix cache at full width: qwen3_moe_235b at depth 4
+     (one random tree for phases 30-31), W8 experts, FP8 KV, page and
+     prefill chunk 8, serving prefix_trace (4 tenants' shared prefixes,
+     a whole repeat, a mid-edge divergence, two unrelated prompts) with
+     the cache off, on, and on over PRESSURE_PAGES pages: the same tokens
+     bit for bit in all three, PREFIX_HITS hits of 16 lookups, every live
+     page the cache's at refcount 1, fewer launches of every serve kernel
+     with the cache, cache evictions under pressure; tokens/s, ticks,
+     chunks, hit tokens, the engine's TTFT/TBT histograms, peak GiB;
+ 31. a 1 prefill + 1 decode fleet (DisaggRouter) on the card, the cache
+     on, serving the same trace: phase 30's cache-on tokens bit for bit,
+     16 migrations, pages deduped on the receiver, every migrated page
+     byte-equal on both tiers, no leaked page, the wire bytes the sum of
+     bytes_for; again under a transfer budget of one 4-page batch
+     (deferrals, the same tokens); the codec casting-free on the card's
+     own pools (TorchDispatchMode); wire MiB, pages, migration ms, peak;
+ 32. the serve launcher in a subprocess on the card (qwen15_05b whole,
+     --prefix-cache --disagg --obs-jsonl --obs-prom) and the JSONL
+     reporter over its records, each exiting 0;
   9. the {"kernels": [...]} summary line (the eleven kernels, #1's
      linear mode and the AdamW update, with the new shapes' rows), then
      the result line.
@@ -304,6 +323,11 @@ PATH_KERNELS.update({
                    "grouped_gemm_fp8"),
     "grok_masked_serve": ("quantize_rowwise", "fused_permute_pad",
                           "masked_grouped_gemm_fp8")})
+# the prefix cache's engine and the disaggregated fleet (phases 30-31)
+# serve through the serve path's kernels; the cache, the codec and the
+# router add none
+PATH_KERNELS.update({"prefix_serve": PATH_KERNELS["serve"],
+                     "fleet_serve": PATH_KERNELS["serve"]})
 
 # activation casts per train step (paper Fig. 2): per MoE block (router,
 # dispatch, experts, combine) and per dense MLP (a dense layer's or a
@@ -2768,6 +2792,320 @@ def flash_vjp_phase(dev, arch="llava_next_34b"):
           f"the flash VJP keeps no less than autograd: {rows}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 30-32: the prefix cache, the disaggregated fleet, the launcher.
+# ---------------------------------------------------------------------------
+# the engine of phases 30-31: the serve path's, with page-aligned prefill
+# chunks (prefill_chunk == page_size), which make a cache hit's chunks the
+# same as a miss's, so cache on and off must serve the same bits
+PREFIX_ECFG = dict(max_batch=8, page_size=8, n_pages=128,
+                   max_pages_per_req=8, token_budget=512,
+                   prefill_buckets=(16, 32, 64), prefill_chunk=8,
+                   fp8_kv=True, w8_weights=True, seed=0)
+# the hits prefix_trace is built for: each tenant's 2nd and 3rd request,
+# the repeat and the divergent one (the port's CPU run of the same trace
+# geometry counts these: tests/test_torch_prefix_cache.py)
+PREFIX_HITS = 10
+# a pool small enough that the cache must give up leaves (cache_evictions
+# > 0 in the CPU run of the same geometry) and still every request fits
+PRESSURE_PAGES = 40
+# phase 31's tight-budget run: the decode tier's token budget, cut from 512
+# to about three requests.  At 512 the tier is bound by its 8 slots, which
+# free one a tick (every request decodes the same 15 tokens after its
+# adoption), so at most one migration is ever ready in a drain cycle and
+# no transfer budget can defer one; bound by tokens, one finish can admit
+# two short requests at once (3 deferrals in the CPU run of this geometry)
+TIGHT_DECODE_BUDGET = 160
+
+
+def prefix_trace(vocab):
+    """Phase 30's trace: 16 greedy requests of 16 new tokens, prompts from
+    default_rng(0).  4 tenants x 3 requests, each a 32-token tenant prefix
+    (4 pages) and a 1-16-token tail (tenant 0's first tail is 8: a
+    40-token prompt); one repeat of that 40-token prompt whole (a
+    whole-prompt hit: the copy-on-write case); one sharing the first 16
+    tokens of tenant 1's prefix and then its own 20 (a hit that splits a
+    radix edge mid-way); two sharing nothing."""
+    from repro_torch.serve.scheduler import Request
+    r = np.random.default_rng(0)
+
+    def toks(n):
+        return [int(t) for t in r.integers(1, vocab, n)]
+    tenants = [toks(32) for _ in range(4)]
+    rounds = [[t + toks(8 if i == j == 0 else int(r.integers(1, 17)))
+               for j, t in enumerate(tenants)] for i in range(3)]
+    prompts = (rounds[0] + [toks(int(r.integers(3, 49)))] + rounds[1]
+               + [list(rounds[0][0]), tenants[1][:16] + toks(20)]
+               + rounds[2] + [toks(int(r.integers(3, 49)))])
+    return [Request(prompt=p, max_new_tokens=16) for p in prompts]
+
+
+def run_trace(runner, reqs):
+    """Drive `reqs` closed-loop through an engine or a router; returns
+    (tokens by request, stats, seconds, launches)."""
+    from repro_torch import kernels
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = runner.run(reqs, realtime=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(len(results) == len(reqs), "not every request finished")
+    tokens = [results[q.rid]["tokens"] for q in reqs]
+    check(all(len(t) == q.max_new_tokens for t, q in zip(tokens, reqs)),
+          "a request stopped short of max_new_tokens")
+    return tokens, results.stats, dt, dict(kernels.LAUNCHES)
+
+
+def check_cache_clean(eng, what):
+    """After a run: the radix tree's invariants hold, every live page is
+    the cache's and held by it alone (no request leaked a reference)."""
+    pc = eng.prefix_cache
+    pc.check_invariants(eng.alloc)
+    check(eng.sched.idle(), f"{what}: the engine is not idle")
+    check(eng.alloc.live_pages == pc.n_cached_pages,
+          f"{what}: {eng.alloc.live_pages} live pages, "
+          f"{pc.n_cached_pages} cached")
+    check(all(eng.alloc.refcount(p) == 1
+              for n in pc._iter_nodes() for p in n.pages),
+          f"{what}: a cached page is still referenced by a request")
+
+
+def hist_quantiles(tel, name):
+    from repro_torch.serve.engine import _LAT_BUCKETS
+    h = tel.histogram(name, edges=_LAT_BUCKETS)
+    return dict(n=h.count, p50=h.quantile(0.5), p99=h.quantile(0.99),
+                mean=h.mean)
+
+
+def prefix_cache_phase(cfg, dev, params):
+    """Phase 30: prefix_trace through the serve path's engine (W8 experts,
+    FP8 KV, PREFIX_ECFG) with the cache off, on, and on over a pool of
+    PRESSURE_PAGES pages.  Gates: the same tokens bit for bit in all
+    three; PREFIX_HITS hits of 16 lookups; a clean cache; fewer launches
+    of every serve kernel with the cache (its skipped chunks launch
+    nothing); exactly the serve path's kernels; cache evictions under
+    pressure.  Returns (launches of the cache run, its tokens)."""
+    from repro_torch.obs.sink import Telemetry
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, kw in (("off", {}), ("on", dict(prefix_cache=True)),
+                     ("pressure", dict(prefix_cache=True,
+                                       n_pages=PRESSURE_PAGES))):
+        torch.cuda.reset_peak_memory_stats()
+        tel = Telemetry()
+        eng = ServeEngine(cfg, recipe_for("serve"), params,
+                          ServeConfig(**{**PREFIX_ECFG, **kw}), device=dev,
+                          telemetry=tel)
+        reqs = prefix_trace(cfg.vocab)
+        tokens, stats, dt, launches = run_trace(eng, reqs)
+        n_tok = sum(len(t) for t in tokens)
+        runs[name] = dict(tokens=tokens, stats=stats, launches=launches,
+                          row=dict(
+            seconds=dt, tokens_per_s=n_tok / dt, ticks=stats["ticks"],
+            prefill_chunks=stats["prefill_chunks"],
+            evicted=stats["evicted"],
+            tokens_sha256=hashlib.sha256(
+                json.dumps(tokens).encode()).hexdigest(),
+            ttft_ms=hist_quantiles(tel, "serve_ttft_ms"),
+            tbt_ms=hist_quantiles(tel, "serve_tbt_ms"),
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+            / 2**30,
+            launches={k: n for k, n in launches.items() if n}))
+        if eng.prefix_cache is not None:
+            runs[name]["row"].update({k: stats[k] for k in (
+                "prefix_lookups", "prefix_hits", "prefix_hit_tokens",
+                "shared_pages", "cache_evictions", "cache_evicted_pages")})
+            check_cache_clean(eng, f"prefix cache {name}")
+        else:
+            check(eng.alloc.free_pages == eng.ecfg.n_pages - 1,
+                  "cache off: pages were not returned")
+        del eng
+        torch.cuda.empty_cache()
+    print(json.dumps({"prefix_cache": dict(
+        config=f"{cfg.name} n_layers={cfg.n_layers} full width, fp8_flow, "
+               f"W8 experts, FP8 KV, page 8, prefill chunk 8",
+        trace="16 greedy requests x 16 new tokens, closed loop (not a "
+              "benchmark): 4 tenants x 3 (32-token prefix + 1-16 tail), a "
+              "whole repeat, a mid-edge divergence, two unrelated",
+        pressure_n_pages=PRESSURE_PAGES,
+        seconds=time.perf_counter() - t_phase,
+        by_run={n: r["row"] for n, r in runs.items()})}))
+    on, off = runs["on"], runs["off"]
+    check(on["tokens"] == off["tokens"],
+          "prefix cache on: other tokens than with the cache off")
+    check(runs["pressure"]["tokens"] == off["tokens"],
+          "prefix cache under pool pressure: other tokens than cache off")
+    check(on["stats"]["prefix_lookups"] == 16
+          and on["stats"]["prefix_hits"] == PREFIX_HITS,
+          f"prefix cache: {on['stats']['prefix_hits']} hits of "
+          f"{on['stats']['prefix_lookups']} lookups, not {PREFIX_HITS} of 16")
+    check(runs["pressure"]["stats"]["cache_evictions"] > 0,
+          f"no cache eviction over {PRESSURE_PAGES} pages")
+    check(on["stats"]["prefill_chunks"] < off["stats"]["prefill_chunks"],
+          "the cache skipped no prefill chunk")
+    check(all(on["launches"][k] < off["launches"][k]
+              for k in PATH_KERNELS["serve"]),
+          f"the cache run launched no fewer serve kernels: {on['launches']}"
+          f" vs {off['launches']}")
+    check_launches("prefix_serve", on["launches"])
+    return on["launches"], on["tokens"]
+
+
+def migrated_pages_equal(pe, de, reqs):
+    """Every cached prompt page of the prefill tier against the decode
+    tier's page for the same blocks, byte for byte (payload and exponents,
+    gathered one page at a time: a bucket's padding is scratch)."""
+    compared = 0
+    for q in reqs:
+        for s, t in zip(pe.prefix_cache.match_pages(q.prompt),
+                        de.prefix_cache.match_pages(q.prompt)):
+            a = pe.codec._gather(pe.pools, pe.codec._pad_ids([s]))
+            b = de.codec._gather(de.pools, de.codec._pad_ids([t]))
+            check(torch.equal(a, b), f"migrated page {s} -> {t} differs")
+            compared += 1
+    return compared
+
+
+def fleet_phase(cfg, dev, params, mixed_tokens):
+    """Phase 31: one prefill and one decode ServeEngine (PREFIX_ECFG, the
+    cache on), both on `dev` under DisaggRouter, serving prefix_trace:
+    phase 30's cache-on tokens bit for bit, 16 migrations, pages deduped
+    on the receiver, the migrated pages byte-equal on both tiers, no page
+    leaked, the wire bytes the sum of bytes_for over the migrations; then
+    the same under a budget of one 4-page batch (deferrals, the same
+    tokens, with the decode tier's token budget at TIGHT_DECODE_BUDGET);
+    the codec casting-free on the card's pools.  Returns the first run's
+    launches."""
+    from repro_torch.obs.sink import MemorySink, Telemetry
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.router import DisaggConfig, DisaggRouter
+    t_phase = time.perf_counter()
+
+    def fleet(tel, decode_budget=PREFIX_ECFG["token_budget"]):
+        return [ServeEngine(cfg, recipe_for("serve"), params, ServeConfig(
+                    **{**PREFIX_ECFG, "token_budget": budget},
+                    prefix_cache=True, role=role), device=dev,
+                    telemetry=tel)
+                for role, budget in (
+                    ("prefill", PREFIX_ECFG["token_budget"]),
+                    ("decode", decode_budget))]
+
+    torch.cuda.reset_peak_memory_stats()
+    sink = MemorySink()
+    tel = Telemetry(sinks=(sink,))
+    pe, de = fleet(tel)
+    router = DisaggRouter([pe], [de], telemetry=tel)
+    reqs = prefix_trace(cfg.vocab)
+    tokens, stats, dt, launches = run_trace(router, reqs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    d = stats["disagg"]
+    migs = sink.of_kind("migration")
+    bpp = 2 * cfg.n_layers * PREFIX_ECFG["page_size"] * cfg.n_kv * (
+        cfg.head_dim + 1)
+    check(pe.codec.bytes_per_page == bpp,
+          f"bytes_per_page {pe.codec.bytes_per_page}, not {bpp}")
+    check(tokens == mixed_tokens,
+          "the fleet served other tokens than the cache-on mixed engine")
+    check(d["migrations"] == 16 and len(migs) == 16,
+          f"{d['migrations']} migrations, not 16")
+    check(d["deduped_pages"] > 0, "the receiver deduped no page")
+    check(d["kv_transfer_bytes"] == sum(
+        pe.codec.bytes_for(m["shipped_pages"]) for m in migs)
+        == sum(m["bytes"] for m in migs),
+        f"kv_transfer_bytes {d['kv_transfer_bytes']} is not the sum of "
+        f"bytes_for over the migrations")
+    compared = migrated_pages_equal(pe, de, reqs)
+    check(compared > 0, "no migrated page compared")
+    for eng, what in ((pe, "prefill tier"), (de, "decode tier")):
+        check_cache_clean(eng, what)
+    pe.codec.assert_casting_free(pe.pools)
+    de.codec.assert_casting_free(de.pools)
+    row = dict(
+        seconds=dt, tokens_per_s=sum(map(len, tokens)) / dt,
+        migrations=d["migrations"], shipped_pages=d["shipped_pages"],
+        deduped_pages=d["deduped_pages"],
+        wire_mib=d["kv_transfer_bytes"] / 2**20,
+        bytes_per_page=pe.codec.bytes_per_page,
+        migration_ms=dict(p50=statistics.median(m["ms"] for m in migs),
+                          max=max(m["ms"] for m in migs)),
+        ticks=stats["ticks"], prefix_hits=stats["prefix_hits"],
+        max_memory_allocated_gib=peak, pages_compared=compared,
+        casting_free_on=str(pe.pools["main_attn"]["k"]["data"].device),
+        launches={k: n for k, n in launches.items() if n})
+    del router, pe, de
+    torch.cuda.empty_cache()
+
+    pe, de = fleet(None, TIGHT_DECODE_BUDGET)
+    budget = pe.codec.bytes_for(4)
+    router = DisaggRouter([pe], [de], dcfg=DisaggConfig(
+        transfer_budget_bytes=budget))
+    tight, tstats, tdt, _ = run_trace(router, prefix_trace(cfg.vocab))
+    td = tstats["disagg"]
+    check(tight == mixed_tokens, "the fleet under a tight transfer budget "
+          "served other tokens")
+    check(td["budget_deferrals"] > 0,
+          f"no deferral under a {budget}-byte budget")
+    del router, pe, de
+    torch.cuda.empty_cache()
+    print(json.dumps({"disagg_fleet": dict(
+        config=f"{cfg.name} n_layers={cfg.n_layers} full width: 1 prefill + "
+               f"1 decode engine on one card, each its own W8 experts",
+        trace="phase 30's, closed loop (not a benchmark)",
+        seconds=time.perf_counter() - t_phase, run=row,
+        tight_budget=dict(transfer_budget_bytes=budget,
+                          decode_token_budget=TIGHT_DECODE_BUDGET,
+                          seconds=tdt,
+                          budget_deferrals=td["budget_deferrals"],
+                          migrations=td["migrations"],
+                          reserve_failures=td["reserve_failures"]))}))
+    check_launches("fleet_serve", launches)
+    return launches
+
+
+def launcher_phase(out_dir):
+    """Phase 32: the serve launcher in a subprocess on the card: qwen15_05b
+    whole with the prefix cache as a 1 + 1 fleet, telemetry to JSONL and
+    Prometheus; then the reporter over the JSONL.  Gates: both exit 0, the
+    record kinds the fleet writes, the report's serve and disagg
+    sections."""
+    import os
+    t_phase = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jsonl, prom = out_dir / "serve.jsonl", out_dir / "serve.prom"
+    for f in (jsonl, prom):
+        if f.exists():
+            f.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen15_05b", "--device", "cuda", "--prefix-cache", "--disagg",
+           "--obs-jsonl", str(jsonl), "--obs-prom", str(prom)]
+    serve = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=600)
+    print(serve.stdout.strip())
+    check(serve.returncode == 0,
+          f"the launcher exited {serve.returncode}: {serve.stderr[-2000:]}")
+    kinds = {json.loads(line)["kind"] for line in jsonl.read_text()
+             .splitlines() if line.strip()}
+    want = {"serve_tick", "request_done", "migration", "disagg_summary"}
+    check(want <= kinds, f"the launcher's JSONL lacks {want - kinds}")
+    check("serve_ttft_ms" in prom.read_text(),
+          "the Prometheus snapshot has no serve_ttft_ms")
+    report = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", str(jsonl)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    print(report.stdout.strip())
+    check(report.returncode == 0,
+          f"the reporter exited {report.returncode}: {report.stderr[-2000:]}")
+    check("== serve:" in report.stdout
+          and "== disaggregation:" in report.stdout,
+          "the report lacks its serve or disagg section")
+    print(json.dumps({"launcher": dict(
+        command=" ".join(cmd[1:]), record_kinds=sorted(kinds),
+        seconds=time.perf_counter() - t_phase)}))
+
+
 def dir_bytes(d) -> int:
     import os
     return sum(os.path.getsize(os.path.join(r, f))
@@ -2962,6 +3300,18 @@ def main() -> int:
     # 29's deeper mamba2_27b and llava_next_34b runs are phase 20's)
     launches["dsv2_remat_train"] = policy_phase(dev)
     flash_vjp_phase(dev)
+
+    # the rest of serving (phases 30-32): one random tree for the prefix
+    # cache's engines and the fleet's two tiers, then the launcher
+    from repro_torch.models.lm import init_params
+    cfg = serve_config()
+    params = init_params(cfg, seed=0, device=dev)
+    launches["prefix_serve"], cached_tokens = prefix_cache_phase(cfg, dev,
+                                                                 params)
+    launches["fleet_serve"] = fleet_phase(cfg, dev, params, cached_tokens)
+    del params
+    torch.cuda.empty_cache()
+    launcher_phase(ROOT / "build" / "smoke_launcher")
 
     from repro_torch.kernels import (adamw_update, fp8_transpose,
                                      fused_permute_pad, fused_swiglu_quant,

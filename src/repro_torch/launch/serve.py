@@ -3,11 +3,14 @@ W8-resident expert weights, on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_235b \\
       --reduced --device cuda [--recipe {fp8_flow,bf16}] [--requests 16] \\
-      [--bf16-kv] [--no-w8]
+      [--bf16-kv] [--no-w8] [--prefix-cache] [--disagg \\
+      [--prefill-replicas 1] [--decode-replicas 1] [--transfer-budget B]] \\
+      [--obs-jsonl run.jsonl] [--obs-prom metrics.prom]
 
 The flags are the reference launcher's (``repro.launch.serve``) plus
-``--device``.  The prefix cache, disaggregation and telemetry flags are
-accepted and raise until those slices are ported.  ``--arch`` takes the
+``--device``; every replica of a ``--disagg`` fleet runs on that one
+device.  ``python -m repro_torch.obs.report run.jsonl`` renders what
+``--obs-jsonl`` writes.  ``--arch`` takes the
 attention-only decoders: qwen15_05b, qwen3_moe_235b, deepseek_v2_lite,
 deepseek_v3_671b, starcoder2_15b, gemma3_4b, gemma2_9b and grok1_314b.
 The paged engine refuses llava_next_34b, seamless_m4t_v2, mamba2_27b and
@@ -22,6 +25,7 @@ and grok1_314b only at a cut depth (``chip_smoke.py`` serves them at 4
 layers).
 """
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -49,28 +53,35 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill: max prompt tokens per tick")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="not ported yet (raises)")
+                    help="radix prefix cache: shared page-aligned prompt "
+                         "prefixes are quantized+prefilled once and reused "
+                         "across requests (refcounted FP8 KV pages)")
     ap.add_argument("--disagg", action="store_true",
-                    help="not ported yet (raises)")
+                    help="prefill/decode disaggregation: a two-tier fleet "
+                         "(prefill replicas park finished prefills; KV pages "
+                         "migrate bit-for-bit to decode replicas under a "
+                         "transfer-bytes budget)")
     ap.add_argument("--prefill-replicas", type=int, default=1)
     ap.add_argument("--decode-replicas", type=int, default=1)
     ap.add_argument("--transfer-budget", type=int, default=1 << 20,
-                    metavar="BYTES")
+                    metavar="BYTES",
+                    help="KV migration wire bytes per router drain cycle")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--bf16-kv", action="store_true")
     ap.add_argument("--no-w8", action="store_true")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--obs-jsonl", default=None, metavar="PATH",
-                    help="not ported yet (raises)")
+                    help="write structured serve telemetry (per-tick "
+                         "records, request_done events with TTFT/TBT, "
+                         "KV-pool occupancy) as JSONL for "
+                         "`python -m repro_torch.obs.report`")
     ap.add_argument("--obs-prom", default=None, metavar="PATH",
-                    help="not ported yet (raises)")
+                    help="write a Prometheus text-exposition snapshot of "
+                         "the serve metrics registry at exit")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain twins)")
     args = ap.parse_args(argv)
-    if args.disagg or args.obs_jsonl or args.obs_prom:
-        raise NotImplementedError(
-            "--disagg / --obs-* are not ported yet (ROADMAP.md, Queue 1)")
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -85,7 +96,33 @@ def main(argv=None):
         prefill_chunk=args.prefill_chunk, fp8_kv=not args.bf16_kv,
         w8_weights=not args.no_w8, prefix_cache=args.prefix_cache,
         seed=args.seed)
-    engine = ServeEngine(cfg, recipe, params, ecfg, device=args.device)
+    from repro_torch.obs.sink import JsonlSink, Telemetry, null_telemetry
+    if args.obs_jsonl is not None or args.obs_prom is not None:
+        sinks = (JsonlSink(args.obs_jsonl),) if args.obs_jsonl else ()
+        tel = Telemetry(sinks=sinks)
+    else:
+        tel = null_telemetry()
+    if args.disagg:
+        from repro_torch.serve.router import DisaggConfig, DisaggRouter
+        pes = [ServeEngine(cfg, recipe, params,
+                           dataclasses.replace(ecfg, role="prefill"),
+                           device=args.device, telemetry=tel)
+               for _ in range(args.prefill_replicas)]
+        des = [ServeEngine(cfg, recipe, params,
+                           dataclasses.replace(ecfg, role="decode"),
+                           device=args.device, telemetry=tel)
+               for _ in range(args.decode_replicas)]
+        runner = DisaggRouter(
+            pes, des, dcfg=DisaggConfig(
+                transfer_budget_bytes=args.transfer_budget), telemetry=tel)
+        engine = pes[0]
+        print(f"[serve] disaggregated fleet: {len(pes)} prefill + "
+              f"{len(des)} decode replicas, transfer budget "
+              f"{args.transfer_budget / 2**20:.2f} MiB/cycle")
+    else:
+        engine = ServeEngine(cfg, recipe, params, ecfg, device=args.device,
+                             telemetry=tel)
+        runner = engine
     print(f"[serve] {args.arch} recipe={recipe.name} device={args.device} "
           f"kv={'fp8' if ecfg.fp8_kv else 'bf16'} w8={ecfg.w8_weights} "
           f"pool={engine.kv_bytes() / 2**20:.1f} MiB")
@@ -97,7 +134,7 @@ def main(argv=None):
                     temperature=args.temperature)
             for _ in range(args.requests)]
     t0 = time.perf_counter()
-    results = engine.run(reqs, realtime=False)
+    results = runner.run(reqs, realtime=False)
     dt = time.perf_counter() - t0
     n_tok = sum(len(v["tokens"]) for v in results.values())
     print(f"[serve] {len(results)}/{args.requests} requests, {n_tok} tokens "
@@ -108,6 +145,28 @@ def main(argv=None):
           f"evicted={s['evicted']} finished={s['finished']} "
           f"prefill_chunks={s['prefill_chunks']} "
           f"decode_tokens={s['decode_tokens']}")
+    if args.disagg:
+        d = s["disagg"]
+        print(f"[serve] disagg: migrations={d['migrations']} "
+              f"wire={d['kv_transfer_bytes'] / 2**20:.2f} MiB "
+              f"shipped_pages={d['shipped_pages']} "
+              f"deduped_pages={d['deduped_pages']} "
+              f"requeued={d['requeued_evictions']} "
+              f"deferrals={d['budget_deferrals']}")
+    if args.prefix_cache:
+        total_prompt = sum(len(q.prompt) for q in reqs)
+        print(f"[serve] prefix cache: hits={s['prefix_hits']}/"
+              f"{s['prefix_lookups']} hit_tokens={s['prefix_hit_tokens']}"
+              f"/{total_prompt} shared_pages={s['shared_pages']} "
+              f"cache_evictions={s['cache_evictions']}")
+    if args.obs_prom is not None:
+        tel.write_prometheus(args.obs_prom)
+        print(f"[serve] wrote metrics snapshot to {args.obs_prom}")
+    if args.obs_jsonl is not None:
+        tel.emit_registry()
+        tel.close()
+        print(f"[serve] wrote telemetry to {args.obs_jsonl} "
+              f"(report: python -m repro_torch.obs.report {args.obs_jsonl})")
 
 
 if __name__ == "__main__":

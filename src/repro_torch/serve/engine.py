@@ -1,4 +1,4 @@
-"""Continuous-batching FP8 serving engine (the ``mixed`` role).
+"""Continuous-batching FP8 serving engine.
 
 Counterpart of ``repro.serve.engine``: a request queue feeding interleaved
 prefill and decode over W8-resident FP8 expert weights (serve/w8.py;
@@ -14,10 +14,18 @@ reference's all the same (bucketed prompts, full-batch decode), which is
 what a later CUDA-graph capture needs.
 
 Scheduling is FCFS with decode priority and a reserved-token budget
-(serve/scheduler.py); pages come from a host-side free list with
-youngest-first eviction under pressure (restart semantics).  The prefix
-cache, prefill/decode disaggregation and telemetry are later slices: their
-settings raise here.
+(serve/scheduler.py); pages come from a host-side refcounted free list
+with youngest-first eviction under pressure (restart semantics).
+
+``prefix_cache=True`` puts the radix prefix cache (serve/prefix_cache.py)
+over the pool: a request whose page-aligned prompt prefix is cached
+shares those pages and starts its prefill after them; a whole-prompt hit
+copies its boundary page (``paged_kv.copy_page``, on the device) before
+it writes the recomputed last row.  ``role`` splits serving into tiers:
+a ``prefill`` replica parks each finished prefill in ``handoff`` for the
+router (serve/router.py) to migrate its KV pages, bit for bit, to a
+``decode`` replica (serve/transfer.py), which admits nothing itself.
+Telemetry reads host state only, so it adds no host sync to a tick.
 """
 from __future__ import annotations
 
@@ -34,10 +42,16 @@ from repro_torch.core.moe import check_decode_recipe
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import paged_decode_step, paged_prefill
-from repro_torch.serve.paged_kv import (PageAllocator, init_paged_cache,
-                                        pool_nbytes)
+from repro_torch.obs.metrics import po2_buckets
+from repro_torch.obs.sink import null_telemetry
+from repro_torch.serve.paged_kv import (PageAllocator, copy_page,
+                                        init_paged_cache, pool_nbytes)
 from repro_torch.serve.scheduler import Request, RequestState, Scheduler
 from repro_torch.weights import params_to
+
+# latency histogram edges: 2^-4 .. 2^14 ms covers sub-ms decode ticks
+# through multi-second saturated TTFTs
+_LAT_BUCKETS = po2_buckets(-4, 14)
 
 
 class TraceResults(dict):
@@ -62,20 +76,13 @@ class ServeConfig:
     prefill_chunk: Optional[int] = None  # max prompt tokens per tick
     fp8_kv: bool = True                # e4m3 pages w/ po2 scales, else bf16
     w8_weights: bool = False           # pre-quantize expert weights
-    prefix_cache: bool = False         # not ported yet: raises
+    prefix_cache: bool = False         # radix prefix cache over the pool
     top_k: int = 0                     # 0 -> full-vocab sampling
     eos_id: Optional[int] = None
     seed: int = 0
-    role: str = "mixed"                # only "mixed" is ported
-
-    def __post_init__(self):
-        if self.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache is not ported yet (ROADMAP.md, Queue 1)")
-        if self.role != "mixed":
-            raise NotImplementedError(
-                f"role {self.role!r}: disaggregation is not ported yet "
-                "(ROADMAP.md, Queue 1)")
+    role: str = "mixed"                # "mixed", "prefill" (parks finished
+                                       # prefills for migration) or
+                                       # "decode" (adopts migrated requests)
 
     @property
     def max_len(self) -> int:
@@ -106,10 +113,14 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ArchConfig, recipe: Recipe, params,
-                 ecfg: ServeConfig = ServeConfig(), device="cuda"):
+                 ecfg: ServeConfig = ServeConfig(), device="cuda",
+                 telemetry=None):
         check_decode_recipe(recipe)
         self.device = resolve_device(device)
         self.cfg, self.recipe, self.ecfg = cfg, recipe, ecfg
+        self.tel = telemetry if telemetry is not None else null_telemetry()
+        if ecfg.role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"unknown role {ecfg.role!r}")
         if ecfg.prefill_chunk is not None and (
                 ecfg.prefill_chunk < 1
                 or ecfg.prefill_chunk > max(ecfg.prefill_buckets)):
@@ -124,21 +135,50 @@ class ServeEngine:
         self.pools = init_paged_cache(cfg, ecfg.n_pages, ecfg.page_size,
                                       fp8_kv=ecfg.fp8_kv, device=self.device)
         self.alloc = PageAllocator(ecfg.n_pages, ecfg.page_size)
-        self.sched = Scheduler(ecfg.max_batch, ecfg.token_budget)
+        self.prefix_cache = None
+        release_hook = None
+        if ecfg.prefix_cache:
+            from repro_torch.serve.prefix_cache import PrefixCache
+            self.prefix_cache = PrefixCache(ecfg.page_size, telemetry=self.tel)
+            # the scheduler's one release point decrefs, so pages the cache
+            # holds outlive the request that wrote them
+            release_hook = lambda st, pages, alloc: alloc.decref(pages)
+        self.sched = Scheduler(ecfg.max_batch, ecfg.token_budget,
+                               release_hook=release_hook)
         self.gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
         self._tick_count = 0
         self.max_concurrent = 0
         self.total_decoded = 0
         self.n_rejected = 0
         self.n_prefill_chunks = 0
+        self.n_migrated_out = 0
+        # prefill tier: finished prefills parked (slot, pages and budget
+        # held) until the router migrates their KV and the receiver acks
+        self.handoff: deque = deque()
+        self._codec = None
+
+    @property
+    def codec(self):
+        """KV page transfer codec for this engine's pool geometry (made on
+        first use: only a disaggregated fleet needs it)."""
+        if self._codec is None:
+            from repro_torch.serve.transfer import KVTransferCodec
+            self._codec = KVTransferCodec(self.pools)
+        return self._codec
 
     # -- queue -------------------------------------------------------------
     def _reject(self, req: Request, msg: str):
+        """A request that can never be served is counted and refused."""
         self.n_rejected += 1
+        self.tel.counter("serve_rejected_total").inc()
+        self.tel.record("request_rejected", rid=req.rid, reason=msg)
         raise ValueError(msg)
 
     def submit(self, req: Request) -> None:
         ecfg = self.ecfg
+        if ecfg.role == "decode":
+            self._reject(req, "decode-tier replica does not admit requests "
+                         "(route to the prefill tier; KV arrives via adopt)")
         P = len(req.prompt)
         if P < 1 or req.max_new_tokens < 1:
             self._reject(req, "empty prompt / zero max_new_tokens")
@@ -156,19 +196,29 @@ class ServeEngine:
         self.sched.submit(req)
 
     # -- one tick ----------------------------------------------------------
+    def _alloc_pages(self, n: int):
+        """Pool allocation with the prefix cache as the first pressure
+        valve: LRU unreferenced radix leaves go before any resident."""
+        if self.prefix_cache is not None:
+            return self.prefix_cache.alloc_pages(self.alloc, n)
+        return self.alloc.alloc(n)
+
     def _grow_pages(self, st: RequestState) -> bool:
         """Ensure st's page table covers its next write; evicts YOUNGER
         residents under pressure (st self-evicts when it is the youngest).
         False if st got unseated."""
         need = st.next_pos // self.ecfg.page_size + 1
         while len(st.pages) < need:
-            got = self.alloc.alloc(1)
+            got = self._alloc_pages(1)
             if got is not None:
                 st.pages.extend(got)
                 continue
             ev = self.sched.evict_youngest(self.alloc, requester=st)
             if ev is None:
                 raise RuntimeError("page pressure with no resident to evict")
+            self.tel.counter("serve_evicted_total").inc()
+            self.tel.record("request_evicted", rid=ev.req.rid,
+                            by=st.req.rid, n_evictions=ev.n_evictions)
             if ev is st:
                 return False
         return st.slot in self.sched.active
@@ -180,16 +230,33 @@ class ServeEngine:
     def tick(self, now: float, results: Dict[int, dict]) -> bool:
         """One engine tick; returns True if any work ran."""
         ecfg, sched = self.ecfg, self.sched
+        # parked states (prefill tier, awaiting migration) keep their KV
+        # frozen: they leave the decode set
         for slot in sorted(sched.active):
             st = sched.active.get(slot)
-            if st is not None and st.prefilled:
+            if st is not None and st.prefilled and not st.parked:
                 self._grow_pages(st)
         decode_slots = [s for s in sorted(sched.active)
-                        if sched.active[s].prefilled]
+                        if sched.active[s].prefilled
+                        and not sched.active[s].parked]
 
-        pf = sched.mid_prefill()
-        if pf is None:
-            pf = sched.try_admit(self.alloc, now)
+        # a decode-tier replica never prefills: its requests arrive
+        # prefilled through commit_adopt
+        pf = sched.mid_prefill() if ecfg.role != "decode" else None
+        if pf is None and ecfg.role != "decode":
+            pf = sched.try_admit(self.alloc, now,
+                                 prefix_cache=self.prefix_cache)
+            if pf is not None and pf.cached_tokens:
+                self.tel.record("prefix_hit", rid=pf.req.rid,
+                                cached_tokens=pf.cached_tokens,
+                                shared_pages=pf.n_shared_pages,
+                                cow=pf.cow_page is not None)
+        if pf is not None and pf.cow_page is not None:
+            # whole-prompt hit: the recomputed last row writes a private
+            # copy of the boundary page; the shared original stays as it is
+            src, dst = pf.cow_page
+            pf.cow_page = None
+            copy_page(self.pools, src, dst)
         if pf is None and not decode_slots:
             return False
 
@@ -241,13 +308,40 @@ class ServeEngine:
         self._tick_count += 1
         self.max_concurrent = max(self.max_concurrent,
                                   len(decode_slots) + (pf is not None))
+        tel = self.tel
+        tel.counter("serve_ticks_total").inc()
+        tel.counter("serve_decode_tokens_total").inc(len(decode_slots))
+        if pf is not None:
+            tel.counter("serve_prefill_chunks_total").inc()
+        used = (ecfg.n_pages - 1) - self.alloc.free_pages
+        tel.gauge("kv_used_pages").set(used)
+        tel.histogram("kv_used_pages_hist",
+                      edges=po2_buckets(0, 20)).observe(used)
+        if tel.enabled:
+            tel.record("serve_tick", tick=self._tick_count - 1,
+                       n_decode=len(decode_slots),
+                       bucket=bucket if pf is not None else None,
+                       chunk=int(chunk), kv_used_pages=used,
+                       n_waiting=len(sched.waiting),
+                       reserved_tokens=sched.reserved_tokens)
 
         if pf is not None:
             self.n_prefill_chunks += 1
             pf.prefill_pos += chunk
             if final_chunk:
+                if self.prefix_cache is not None:
+                    # every full prompt page is written and stable (decode
+                    # rows land beyond them): publish the prefix
+                    self.prefix_cache.insert(pf.req.prompt, pf.pages,
+                                             self.alloc)
                 # only the last chunk's logits are the prompt's final position
                 self._emit(pf, int(out["prefill_tok"]), now, results)
+                if ecfg.role == "prefill" and sched.active.get(pf.slot) is pf:
+                    # prefill tier: park (slot, pages and budget stay held)
+                    # and queue for migration to a decode replica
+                    pf.parked = True
+                    self.handoff.append(pf)
+                    tel.gauge("handoff_queue_depth").set(len(self.handoff))
         for s in decode_slots:
             st = sched.active.get(s)
             if st is not None:
@@ -261,9 +355,23 @@ class ServeEngine:
         self.total_decoded += 1
         if st.first_token_time is None:
             st.first_token_time = now
+            self.tel.histogram("serve_ttft_ms", edges=_LAT_BUCKETS).observe(
+                (now - st.req.arrival_time) * 1e3)
+        elif st.last_token_time is not None:
+            self.tel.histogram("serve_tbt_ms", edges=_LAT_BUCKETS).observe(
+                (now - st.last_token_time) * 1e3)
         st.last_token_time = now
         if st.done(self.ecfg.eos_id):
             self.sched.finish(st.slot, self.alloc, now)
+            self.tel.counter("serve_finished_total").inc()
+            n_tok = len(st.generated)
+            self.tel.record(
+                "request_done", rid=st.req.rid, n_tokens=n_tok,
+                ttft_ms=(st.first_token_time - st.req.arrival_time) * 1e3,
+                tbt_ms_mean=((now - st.first_token_time) * 1e3
+                             / max(n_tok - 1, 1)),
+                wait_ms=(st.admit_time - st.req.arrival_time) * 1e3,
+                n_evictions=st.n_evictions, cached_tokens=st.cached_tokens)
             results[st.req.rid] = {
                 "tokens": list(st.generated),
                 "arrival": st.req.arrival_time,
@@ -273,6 +381,99 @@ class ServeEngine:
                 "n_evictions": st.n_evictions,
                 "cached_tokens": st.cached_tokens,
             }
+
+    # -- disaggregation: casting-free KV migration -------------------------
+    # Two-phase protocol, driven by the router:
+    #   1. receiver.reserve_for_adopt(meta): pin the prompt pages it already
+    #      caches (incref) first, then reserve fresh pages; all or nothing.
+    #   2. donor.pack_handoff(st, skip): pack only the pages the receiver
+    #      lacks; receiver.commit_adopt scatters them into its pool and
+    #      installs the RequestState in its decode batch.
+    #   3. donor.release_parked(st): only after the receiver's ack, the
+    #      pages leave through the release funnel (cached pages stay).
+    def pack_handoff(self, st: RequestState, skip_pages: int = 0):
+        """Donor: one uint8 wire message carrying ``st.pages[skip_pages:]``
+        (the receiver holds bit-identical copies of the first `skip_pages`:
+        po2 pages are content-addressable) and the request's resume
+        metadata."""
+        from repro_torch.serve.transfer import TransferMeta
+        ship = st.pages[skip_pages:]
+        meta = TransferMeta(rid=st.req.rid, n_pages=len(ship),
+                            page_size=self.ecfg.page_size,
+                            bytes_per_page=self.codec.bytes_per_page,
+                            pos=st.prefill_pos,
+                            max_new_tokens=st.req.max_new_tokens,
+                            temperature=st.req.temperature,
+                            prompt=tuple(st.req.prompt),
+                            generated=tuple(st.generated))
+        return self.codec.pack(self.pools, ship, meta)
+
+    def reserve_for_adopt(self, req):
+        """Receiver phase 1: (shared, fresh) page lists covering the
+        migrating prompt, or None if a slot, the token budget or the pool
+        cannot take it now (the donor keeps it parked; the router retries).
+        `req` has .prompt and .max_new_tokens (a Request or a
+        TransferMeta).  Cached blocks are pinned by incref before the fresh
+        tail allocates: the tail's allocation may evict cache leaves."""
+        sched, ecfg = self.sched, self.ecfg
+        if not sched._free_slots:
+            return None
+        P = len(req.prompt)
+        n_total = self.alloc.pages_for(P)
+        shared = (self.prefix_cache.match_pages(req.prompt)
+                  if self.prefix_cache is not None else [])[:n_total]
+        cached = len(shared) * ecfg.page_size
+        if sched.reserved_tokens + P + req.max_new_tokens - cached \
+                > sched.token_budget:
+            return None
+        self.alloc.incref(shared)
+        n_fresh = n_total - len(shared)
+        fresh = (self._alloc_pages(n_fresh) or None) if n_fresh else []
+        if fresh is None:
+            self.alloc.decref(shared)
+            return None
+        return shared, fresh
+
+    def abort_adopt(self, shared, fresh) -> None:
+        """Receiver: roll phase 1 back (decref the pins, free the fresh
+        pages)."""
+        self.alloc.decref(list(shared) + list(fresh))
+
+    def commit_adopt(self, meta, payload, shared, fresh, now: float,
+                     timing: Optional[dict] = None) -> RequestState:
+        """Receiver phase 2: write the shipped page bytes into the fresh
+        pages (a bitcast: they land bit for bit the donor's), rebuild the
+        RequestState at the request's `pos`, install it in the decode
+        batch, and publish the prompt prefix in the local radix tree so
+        later migrations and admissions of the same tenant share these
+        pages."""
+        if fresh:
+            self.codec.scatter(self.pools, payload, fresh)
+        timing = timing or {}
+        req = Request(prompt=list(meta.prompt),
+                      max_new_tokens=meta.max_new_tokens,
+                      arrival_time=timing.get("arrival", now),
+                      temperature=meta.temperature, rid=meta.rid)
+        st = RequestState(req=req, slot=-1, pages=list(shared) + list(fresh),
+                          admit_seq=-1, admit_time=timing.get("admit", now),
+                          generated=list(meta.generated),
+                          first_token_time=timing.get("first"),
+                          last_token_time=timing.get("last"),
+                          prefilled=True, prefill_pos=meta.pos,
+                          cached_tokens=len(shared) * self.ecfg.page_size,
+                          n_shared_pages=len(shared))
+        self.sched.adopt(st)
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(meta.prompt, st.pages, self.alloc)
+        return st
+
+    def release_parked(self, st: RequestState) -> None:
+        """Donor phase 3 (after the ack): the parked request's slot, budget
+        and pages leave through the scheduler's funnel; with a prefix cache
+        the prompt pages stay for later local hits."""
+        st.parked = False
+        self.sched.release(st, self.alloc)
+        self.n_migrated_out += 1
 
     # -- driver ------------------------------------------------------------
     def run(self, requests: Sequence[Request],
@@ -302,17 +503,25 @@ class ServeEngine:
                     "scheduler deadlock: waiting requests can never be "
                     "admitted (check token_budget / n_pages)")
         results.stats = self.stats()
+        self.tel.record("serve_summary", **results.stats)
+        self.tel.flush()
         return results
 
     def stats(self) -> Dict[str, int]:
+        """Run-level counters (also run()'s TraceResults.stats)."""
         s = self.sched.stats()
-        return {"ticks": self._tick_count, "admitted": s["admitted"],
-                "evicted": s["evicted"], "finished": s["finished"],
-                "rejected": self.n_rejected,
-                "prefill_chunks": self.n_prefill_chunks,
-                "decode_tokens": self.total_decoded,
-                "max_concurrent": self.max_concurrent,
-                "role": self.ecfg.role}
+        out = {"ticks": self._tick_count, "admitted": s["admitted"],
+               "evicted": s["evicted"], "finished": s["finished"],
+               "rejected": self.n_rejected,
+               "prefill_chunks": self.n_prefill_chunks,
+               "decode_tokens": self.total_decoded,
+               "max_concurrent": self.max_concurrent,
+               "adopted": s["adopted"],
+               "migrated_out": self.n_migrated_out,
+               "role": self.ecfg.role}
+        if self.prefix_cache is not None:
+            out.update(self.prefix_cache.stats())
+        return out
 
     def kv_bytes(self) -> int:
         return pool_nbytes(self.pools)

@@ -44,6 +44,18 @@ class PageAllocator:
     def free_pages(self) -> int:
         return len(self._free)
 
+    @property
+    def live_pages(self) -> int:
+        return len(self._refs)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages with more than one outstanding reference."""
+        return sum(1 for c in self._refs.values() if c > 1)
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
     def pages_for(self, n_tokens: int) -> int:
         return -(-max(n_tokens, 1) // self.page_size)
 

@@ -1,7 +1,7 @@
 """Request scheduler for the continuous-batching serving engine.
 
 A copy of ``repro.serve.scheduler`` (the port imports nothing of the JAX
-package); the prefix-cache hooks stay, unused until that slice.
+package), with its prefix-cache and disaggregation hooks.
 
 Policy (LightLLM/vLLM-style, sized for the paper's FP8-resident decode):
 

@@ -1590,3 +1590,74 @@ def test_adamw_update_kernel_skips_on_flags(card, mode):
     for a, b in zip(_opt_bytes(p, m, v, w), _opt_bytes(*ref)):
         assert torch.equal(a, b)
     assert not torch.equal(_opt_bytes(p)[0], before[0])
+
+
+def _card_pools(card, fp8, seed, n_pages=8, L=2, ps=8, KV=4, hd=128):
+    """Two-stack paged pools on the card: fp8 payloads are raw random
+    bytes (NaN encodings 0x7F / 0xFF among them) with po2 scales, bf16
+    pools have no scale plane."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    shape = (L, n_pages, ps, KV, hd)
+
+    def one():
+        if fp8:
+            raw = torch.randint(0, 256, shape, generator=gen, device=card,
+                                dtype=torch.uint8)
+            exp = torch.randint(-30, 31, shape[:-1] + (1,), generator=gen,
+                                device=card, dtype=torch.int32)
+            return {"data": raw.view(torch.float8_e4m3fn),
+                    "scale": ((exp + 127) << 23).view(torch.float32)}
+        return {"data": torch.randn(shape, generator=gen, device=card)
+                .to(torch.bfloat16)}
+    return {"main_attn": {"k": one(), "v": one()},
+            "dense_attn": {"k": one(), "v": one()}}
+
+
+def _page_bytes(codec, pools, page):
+    return codec._gather(pools, codec._pad_ids([page]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fp8", [True, False], ids=["fp8", "bf16"])
+def test_kv_codec_round_trip_on_card(card, fp8):
+    """pack on the card -> host message -> scatter into other pages of a
+    zeroed pool on the card: every page's bytes equal, NaN encodings
+    kept; the gather and the scatter run no float op on CUDA pools."""
+    from repro_torch.serve.transfer import KVTransferCodec, TransferMeta
+    pools = _card_pools(card, fp8, 1)
+    codec = KVTransferCodec(pools)
+    assert codec.device.type == "cuda"
+    if fp8:
+        raw = pools["main_attn"]["k"]["data"].view(torch.uint8)
+        assert bool(((raw == 0x7F) | (raw == 0xFF)).any())
+    meta = TransferMeta(rid=3, n_pages=3, page_size=8,
+                        bytes_per_page=codec.bytes_per_page, pos=24,
+                        max_new_tokens=4, temperature=0.0,
+                        prompt=tuple(range(24)), generated=(5,))
+    src, dst = [2, 5, 1], [6, 3, 7]
+    msg = codec.pack(pools, src, meta)
+    got, payload = codec.unpack(msg)
+    assert got == meta and len(payload) == codec.bytes_for(3)
+    blank = {s: {kv: {k: torch.zeros_like(t) for k, t in p.items()}
+                 for kv, p in st.items()} for s, st in pools.items()}
+    assert codec.scatter(blank, payload, dst) is blank
+    for s, d in zip(src, dst):
+        assert torch.equal(_page_bytes(codec, pools, s),
+                           _page_bytes(codec, blank, d))
+    codec.assert_casting_free(pools, n=3)
+
+
+@pytest.mark.gpu
+def test_copy_page_is_the_cow_copy_on_card(card):
+    """copy_page(src, dst) on the card: dst equals src byte for byte in
+    every layer of every stack, src keeps its bytes, other pages stay."""
+    from repro_torch.serve.paged_kv import copy_page
+    from repro_torch.serve.transfer import KVTransferCodec
+    pools = _card_pools(card, True, 2)
+    codec = KVTransferCodec(pools)
+    before = [_page_bytes(codec, pools, p) for p in range(8)]
+    copy_page(pools, 3, 6)
+    after = [_page_bytes(codec, pools, p) for p in range(8)]
+    assert torch.equal(after[6], before[3])
+    assert all(torch.equal(a, b) for i, (a, b) in enumerate(
+        zip(after, before)) if i != 6)

@@ -34,7 +34,9 @@ configs |= {"repro_torch.models.ssm", "repro_torch.serve.serve_step"}
 configs |= {f"repro_torch.{m}" for m in (
     "dist.opt_state", "kernels.adamw_update", "train.guards", "train.loop",
     "runtime.fault_injection", "runtime.fault_tolerance",
-    "checkpoint.checkpointing", "obs.metrics", "obs.sink")}
+    "checkpoint.checkpointing", "obs.metrics", "obs.sink",
+    "dist.scale_sync", "serve.prefix_cache", "serve.transfer",
+    "serve.router", "obs.report")}
 assert configs <= set(names), sorted(configs - set(names))
 import chip_depths, chip_profile, chip_smoke
 bad = sorted(m for m in sys.modules
@@ -79,5 +81,7 @@ def test_cuda_request_without_card_raises(monkeypatch):
         ServeEngine(cfg, get_recipe("fp8_flow"), {}, ServeConfig())
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg, get_recipe("naive_fp8"), {}, ServeConfig())
-    with pytest.raises(NotImplementedError):
-        ServeConfig(prefix_cache=True)
+    for role in ("prefill", "decode"):        # the cache and the tiers too
+        with pytest.raises(RuntimeError, match="cuda"):
+            ServeEngine(cfg, get_recipe("fp8_flow"), {},
+                        ServeConfig(prefix_cache=True, role=role))
