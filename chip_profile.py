@@ -33,11 +33,21 @@ kernels, cuBLAS GEMMs, everything else) and `quant_weights`: the device
 time of the blockwise quantizes of bf16 weights inside the expert FFN
 (``core.linear._quant_weights``, under a profiler range: in serving the
 dense layers' and shared experts' weights at every prefill, W8 covering
-only the routed experts), `spans_ms`: the device time inside the
-flash-attention Function's forward and backward (``flash_fwd``,
-``flash_bwd``) and inside each checkpoint block's recompute
+only the routed experts), `spans_ms`: the device time of the kernels
+launched inside the flash-attention Function's forward and backward
+(``flash_fwd``, ``flash_bwd``), inside each checkpoint block's recompute
 (``remat/<policy>/recompute``: the forward work the remat policy adds to
-a step), then a JSON line with the top kernels.
+a step), inside each checkpoint block (``remat/<policy>``, its forward
+and recompute) and inside each stage of the layer program
+(``stage/attn``, ``stage/router``, ``stage/dispatch``, ``stage/expert``,
+``stage/combine``: the forward side of each stage, obs/trace.py); a
+kernel belongs to a range when the CUDA call that launched it ran inside
+it (``chip_smoke.range_device_ms``), then a
+JSON line with the top kernels, then a ``roofline`` line: the pass run
+once more inside ``roofline.analysis.tally()``, its FLOPs and bytes, the
+compute and memory terms on the H100 SXM beside the busy device ms, the
+bottleneck, and for a train pass the model FLOPs (6 N_active D) and
+their share of the bf16 peak over the plain run's wall time (`mfu`).
 """
 from __future__ import annotations
 
@@ -114,27 +124,24 @@ def weight_quantize_range():
         linear._quant_weights = orig
 
 
-def device_total_ms(prof, key) -> float:
-    """Device time of the kernels launched inside the ranges `key`."""
-    for e in prof.key_averages():
-        if e.key == key:
-            for attr in ("device_time_total", "cuda_time_total"):
-                if hasattr(e, attr):
-                    return float(getattr(e, attr)) / 1e3
-    return 0.0
-
-
 # profiler ranges of the port whose device time each pass reports apart:
-# the flash-attention Function's two directions (models/layers.py) and a
-# checkpoint block's recompute (train/memory.py, one range a policy)
+# the flash-attention Function's two directions (models/layers.py), a
+# checkpoint block and its recompute (train/memory.py, one range a
+# policy) and the stages of the layer program (obs/trace.py)
+STAGE_SPANS = tuple(f"stage/{s}" for s in chip_smoke.STAGES)
 SPANS = ("flash_fwd", "flash_bwd") + tuple(
-    f"remat/{p}/recompute" for p in chip_smoke.REMAT_POLICIES)
+    f"remat/{p}{r}" for p in chip_smoke.REMAT_POLICIES
+    for r in ("", "/recompute")) + STAGE_SPANS
 
 
-def profile_pass(label, run, unit):
+def profile_pass(label, run, unit, model_flops=None):
     """Time one warmed call of `run` unprofiled, then profile another; `run`
-    returns how many `unit`s it ran.  Prints the pass's JSON lines."""
+    returns how many `unit`s it ran; then tally one more call.  Prints the
+    pass's JSON lines.  `model_flops`: the useful FLOPs of one call of
+    `run` (train passes), for the mfu."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.roofline import analysis
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -151,7 +158,7 @@ def profile_pass(label, run, unit):
     # kernels: it is not a kernel
     kernels = [e for e in prof.key_averages() if device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key != "quant_weights" and e.key not in SPANS]
+               and not e.key.startswith(chip_smoke.RANGE_PREFIXES)]
     by_group = {}
     for e in kernels:
         g = group_of(e.key)
@@ -160,14 +167,14 @@ def profile_pass(label, run, unit):
         by_group[g][1] += e.count
     busy_ms = sum(v[0] for v in by_group.values())
     chip_smoke.check(busy_ms > 0, "the profiler recorded no device time")
+    spans = chip_smoke.range_device_ms(prof, SPANS + ("quant_weights",))
     print(json.dumps({"profile": dict(
         path=label, **{unit: n_units}, wall_s=plain_wall,
         profiled_wall_s=wall, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (plain_wall * 1e3),
         device_idle_share=1 - busy_ms / (plain_wall * 1e3),
-        quant_weights_ms=device_total_ms(prof, "quant_weights"),
-        spans_ms={k: device_total_ms(prof, k) for k in SPANS
-                  if device_total_ms(prof, k)},
+        quant_weights_ms=spans["quant_weights"],
+        spans_ms={k: spans[k] for k in SPANS if spans[k]},
         groups={g: dict(ms=v[0], share=v[0] / busy_ms, launches=v[1])
                 for g, v in sorted(by_group.items(),
                                    key=lambda kv: -kv[1][0])})}))
@@ -175,6 +182,45 @@ def profile_pass(label, run, unit):
     print(json.dumps({"top_kernels": [
         dict(name=e.key[:120], ms=device_us(e) / 1e3, count=e.count)
         for e in top], "path": label}))
+    stage_ms = sum(spans[k] for k in STAGE_SPANS)
+    chip_smoke.check(stage_ms <= busy_ms * 1.001, f"{label}: the stages' "
+                     f"{stage_ms} ms exceed the busy {busy_ms} ms")
+    with analysis.tally() as t:
+        run()
+        torch.cuda.synchronize()
+    roof = analysis.analyze_tally(t, model_flops_global=model_flops or 0.0)
+    print(json.dumps({"roofline": dict(
+        path=label, **{unit: n_units}, flops=roof.flops,
+        hbm_bytes=roof.hbm_bytes, gemm_flops=t.gemm_flops,
+        t_compute_ms=roof.t_compute * 1e3, t_memory_ms=roof.t_memory * 1e3,
+        bottleneck=roof.bottleneck, device_busy_ms=busy_ms,
+        bound_share_of_busy=roof.step_time * 1e3 / busy_ms,
+        stage_ms_sum=stage_ms, model_flops=model_flops,
+        mfu=(analysis.measured_mfu(model_flops, plain_wall)
+             if model_flops else None),
+        kernels=t.kernels())}))
+
+
+def train_profile(label, cfg, dev):
+    """The train pass of `label`: a warm-up step, then profile_pass over
+    three steps."""
+    from repro_torch.roofline.analysis import model_flops_train
+    state, step, batch = chip_smoke.make_train(cfg, dev, label)
+    box = {"state": state}
+    del state
+
+    def train(n=3):
+        for _ in range(n):
+            box["state"], m = step(box["state"], batch)
+            chip_smoke.check(bool(torch.isfinite(m["loss"])),
+                             "a non-finite train loss")
+        return n
+
+    train(1)                                           # warm-up step
+    B, S = batch["tokens"].shape
+    rows = B * (S + (batch["prefix"].shape[1] if "prefix" in batch else 0))
+    profile_pass(label, train, "steps",
+                 model_flops=3 * model_flops_train(cfg, rows))
 
 
 def main() -> int:
@@ -185,6 +231,13 @@ def main() -> int:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0))
     only = set(sys.argv[1:])
+    # CUPTI initializes with the first profile; under a pass that fills
+    # the card (llava_next_34b's 7 layers) it failed to, and the profile
+    # recorded no device time, so a first profile runs before any pass
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
 
     passes = [(label, chip_smoke.serve_config()) for label in (
         "serve", "masked_serve", "bf16_serve")]
@@ -222,20 +275,8 @@ def main() -> int:
     for label, cfg in passes:
         if only and label not in only:
             continue
-        state, step, batch = chip_smoke.make_train(cfg, dev, label)
-        box = {"state": state}
-        del state
-
-        def train(n=3):
-            for _ in range(n):
-                box["state"], m = step(box["state"], batch)
-                chip_smoke.check(bool(torch.isfinite(m["loss"])),
-                                 "a non-finite train loss")
-            return n
-
-        train(1)                                       # warm-up step
-        profile_pass(label, train, "steps")
-        box.clear()
+        with chip_smoke.grown_segments(label):
+            train_profile(label, cfg, dev)
         torch.cuda.empty_cache()
     return 0
 

@@ -197,7 +197,8 @@ Phases (any failure raises and the script exits non-zero):
  29. the depths the plan buys, trained in phase 20: mamba2_27b whole (64
      layers) under the f32 state with the default 'full', llava_next_34b
      at the deepest depth chip_depths.py found under the f32 state with
-     'fp8_resident' (NEW_TRAIN_LAYERS, TRAIN_POLICY);
+     'fp8_resident' (NEW_TRAIN_LAYERS, TRAIN_POLICY: 7 layers, its pass
+     with the allocator's expandable segments, GROWN_SEGMENT_PASSES);
  30. the radix prefix cache at full width: qwen3_moe_235b at depth 4
      (one random tree for phases 30-31), W8 experts, FP8 KV, page and
      prefill chunk 8, serving prefix_trace (4 tenants' shared prefixes,
@@ -217,6 +218,24 @@ Phases (any failure raises and the script exits non-zero):
  32. the serve launcher in a subprocess on the card (qwen15_05b whole,
      --prefix-cache --disagg --obs-jsonl --obs-prom) and the JSONL
      reporter over its records, each exiting 0;
+ 33. the stage ranges (obs/trace.py): qwen3_moe_235b's fp8_flow train step
+     (1 layer) and phase 3's serve trace (depth 4) under torch.profiler:
+     busy device ms per stage/* range (their sum at most the busy ms),
+     phase 6's losses and phase 3's tokens bit for bit with the ranges
+     open and with annotate patched out, tokens/s each way;
+ 34. the roofline (roofline/analysis.py tally()) of that train step, a
+     bucket-64 prefill and an 8-slot decode step: FLOPs, bytes, the
+     compute and memory terms on the H100 SXM, the bottleneck, the
+     measured ms and the mfu; the kernels' GEMM FLOPs equal to the
+     analytic count;
+ 35. the chunked MoE blocks (core/moe.py moe_block_overlapped) at full
+     width: qwen3 (1 layer, the FP8-split state) trained monolithic and at
+     n = 1, 2, 4 chunks, padded and masked (losses, ms a step, padded
+     rows, 2 casts a step, drop_frac, expert-plan overflow; masked bit for
+     bit padded), every kernel against its twin at the chunk shapes, and
+     phase 3's trace served through the chunked blocks (its tokens);
+ 36. the expected_m hint at the train shapes: the padded kernels launched
+     at expected_m >= C, the masked launches' bits;
   9. the {"kernels": [...]} summary line (the eleven kernels, #1's
      linear mode and the AdamW update, with the new shapes' rows), then
      the result line.
@@ -246,11 +265,20 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the passes whose step fills the card (llava_next_34b at 7 layers: 75.0
+# GiB of 79.18) run with the caching allocator growing its segments in
+# place (expandable_segments): with fixed segments such a step ran out on
+# 3.69 GiB of fragments after earlier passes in the same process.  Only
+# those passes: set for the whole process, growing segments slowed the
+# set-up of every other path (each new allocation maps its pages)
+GROWN_SEGMENT_PASSES = ("lv_train",)
 
 # published dense peaks of the H100 SXM (NVIDIA data sheet): HBM bytes/s,
-# fp8 and bf16 tensor-core and f32 (non-tensor) FLOP/s; the bounds hold
-# only for that part, whose name torch reports as "NVIDIA H100 80GB HBM3"
-PEAKS = dict(bw=3.35e12, fp8=1979e12, bf16=989e12, f32=67e12)
+# fp8 and bf16 tensor-core and f32 (non-tensor) FLOP/s, kept in one place
+# (repro_torch.roofline.analysis); the bounds hold only for that part,
+# whose name torch reports as "NVIDIA H100 80GB HBM3"
+from repro_torch.roofline.analysis import PEAKS  # noqa: E402
+from repro_torch.obs.trace import STAGES  # noqa: E402
 
 
 # the kernels each path runs; every other kernel must stay at 0 launches
@@ -328,6 +356,10 @@ PATH_KERNELS.update({
 # router add none
 PATH_KERNELS.update({"prefix_serve": PATH_KERNELS["serve"],
                      "fleet_serve": PATH_KERNELS["serve"]})
+# the chunked MoE blocks (phase 35) run the kernels of the monolithic ones
+PATH_KERNELS.update({"overlap_serve": PATH_KERNELS["serve"],
+                     "overlap_train": PATH_KERNELS["train"],
+                     "overlap_masked_train": PATH_KERNELS["masked_train"]})
 
 # activation casts per train step (paper Fig. 2): per MoE block (router,
 # dispatch, experts, combine) and per dense MLP (a dense layer's or a
@@ -360,7 +392,10 @@ PATH_RECIPES = {"serve": ("fp8_flow", {}),
                 "masked_train": ("fp8_flow", MASKED),
                 "bf16_train": ("bf16", {}),
                 "blockwise_train": ("blockwise", {}),
-                "naive_train": ("naive_fp8", {})}
+                "naive_train": ("naive_fp8", {}),
+                "overlap_serve": ("fp8_flow", {}),
+                "overlap_train": ("fp8_flow", {}),
+                "overlap_masked_train": ("fp8_flow", MASKED)}
 
 
 def base_label(label: str) -> str:
@@ -1138,10 +1173,11 @@ SERVE_SHA256 = {"serve": ("03d9545e", "14e6"),
                 "bf16_serve": ("dab58147", "6c6d")}
 
 
-def make_serve(cfg, dev, label="serve"):
+def make_serve(cfg, dev, label="serve", moe_overlap=None):
     """The serve path's engine (random weights from seed 0: W8 for
-    fp8_flow, bf16 for the bf16 recipe; FP8 KV) and its trace: 16 greedy
-    requests, prompts of 3-48 tokens, 16 new each."""
+    fp8_flow, bf16 for the bf16 recipe; FP8 KV; the MoE blocks chunked by
+    `moe_overlap`, a DispatchPlan) and its trace: 16 greedy requests,
+    prompts of 3-48 tokens, 16 new each."""
     from repro_torch.models.lm import init_params
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.scheduler import Request
@@ -1152,7 +1188,8 @@ def make_serve(cfg, dev, label="serve"):
                        w8_weights=True, seed=0)
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, recipe_for(label),
-                      init_params(cfg, seed=0, device=dev), ecfg, device=dev)
+                      init_params(cfg, seed=0, device=dev), ecfg, device=dev,
+                      moe_overlap=moe_overlap)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name} n_layers={cfg.n_layers} d_model="
           f"{cfg.d_model} experts={cfg.n_experts} top{cfg.top_k} "
@@ -1195,16 +1232,18 @@ def pick_plan(plans):
     return full[len(full) // 2]
 
 
-def serve_path(cfg, dev, label="serve", padded_tokens=None):
-    """The trace through the engine with the recipe of `label`; the masked
-    recipe's tokens must be padded_tokens exactly.  Returns (launches,
-    tokens by request, the plans of a prefill and a decode step or
-    None)."""
+def serve_path(cfg, dev, label="serve", padded_tokens=None,
+               moe_overlap=None):
+    """The trace through the engine with the recipe of `label` (and the
+    chunked MoE blocks of `moe_overlap`); the masked recipe's tokens, and
+    the chunked blocks', must be padded_tokens exactly.  Returns
+    (launches, tokens by request, the plans of a prefill and a decode step
+    or None)."""
     from repro_torch import kernels
 
     masked = recipe_for(label).masked_experts
     torch.cuda.reset_peak_memory_stats()
-    eng, reqs = make_serve(cfg, dev, label)
+    eng, reqs = make_serve(cfg, dev, label, moe_overlap)
     ecfg = eng.ecfg
     with recorded_plans() as plans:
         kernels.reset_launches()
@@ -1224,9 +1263,9 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None):
           "a token outside the vocabulary")
     check(eng.alloc.free_pages == ecfg.n_pages - 1, "pages were not returned")
     check_launches(label, launches)
-    if masked:
-        check(tokens == padded_tokens, "the masked serve pass generated "
-              "other tokens than the padded pass")
+    if masked or moe_overlap is not None:
+        check(tokens == padded_tokens, f"the {label} pass generated other "
+              "tokens than the padded pass")
     sha = hashlib.sha256(json.dumps(tokens).encode()).hexdigest()
     if label in SERVE_SHA256:
         head, tail = SERVE_SHA256[label]
@@ -1249,14 +1288,16 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None):
         page_row = torch.arange(1, 9, device=dev)
         kernels.reset_launches()
         paged_prefill(cfg, eng.recipe, eng.params, eng.pools, page_row,
-                      torch.ones((1, 64), dtype=torch.int64, device=dev), 48)
+                      torch.ones((1, 64), dtype=torch.int64, device=dev), 48,
+                      moe_overlap=moe_overlap)
         per_step["prefill_bucket64"] = dict(kernels.LAUNCHES)
         kernels.reset_launches()
         paged_decode_step(cfg, eng.recipe, eng.params, eng.pools,
                           page_row.repeat(8, 1),
                           torch.ones((8, 1), dtype=torch.int64, device=dev),
                           torch.full((8,), 48, device=dev),
-                          torch.ones((8,), dtype=torch.bool, device=dev))
+                          torch.ones((8,), dtype=torch.bool, device=dev),
+                          moe_overlap=moe_overlap)
         per_step["decode_step_b8"] = dict(kernels.LAUNCHES)
     torch.cuda.synchronize()
     print(json.dumps({f"{label}_launches_per_step": per_step}))
@@ -1363,6 +1404,14 @@ def train_config():
     return dataclasses.replace(get_arch("qwen3_moe_235b"), n_layers=1)
 
 
+def moe_config(cfg):
+    """The MoE block's config of an arch config (models/lm._moe_stage's)."""
+    from repro_torch.core.moe import MoEConfig
+    return MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     d_model=cfg.d_model, d_ff=cfg.d_ff_expert,
+                     capacity_factor=cfg.capacity_factor, act=cfg.act)
+
+
 def train_capacity(cfg) -> int:
     """Rows an expert on the train path: moe_block's C_exp at B*S tokens."""
     from repro_torch.core.moe import _round_up
@@ -1371,17 +1420,28 @@ def train_capacity(cfg) -> int:
     return _round_up(max(C_send // cfg.n_experts, 8), 128)
 
 
-def train_kernel_checks(cfg, peaks, dev, floor_ms):
+def train_kernel_checks(cfg, peaks, dev, floor_ms, n_chunks=1):
     """Every kernel of the train path against its twin at the shapes one
     full-width train step gives it (T = 2048 tokens, C = 256 rows an
-    expert)."""
-    from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
+    expert), or with n_chunks > 1 at the shapes of one chunk of the
+    overlapped block (T / n tokens a send, its own C; the entry quantize
+    stays whole, the island quantize covers every chunk's rows), the
+    shapes then prefixed "chunk<n> "."""
+    from repro_torch.core.moe import (_chunk_geometry, _dispatch_plan,
+                                      _expert_plan, _round_up)
 
     gen = torch.Generator(device=dev).manual_seed(2)
     D, F, E, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.top_k
     T = TRAIN_B * TRAIN_S                                       # 2048
     C_send = _round_up(max(int(T * k * cfg.capacity_factor), 8), 8)
     C = train_capacity(cfg)                                     # 256
+    tag = ""
+    if n_chunks > 1:
+        tag = f"chunk{n_chunks} "
+        T_send, C_send, _, C = _chunk_geometry(
+            recipe_for("train"), moe_config(cfg), T, n_chunks, 1, E)
+    else:
+        T_send = T
     record = KernelRows(peaks, floor_ms)
 
     def erowq(M, K, spread=0.0):
@@ -1389,24 +1449,27 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms):
         return d.reshape(E, M, K), s.reshape(E, M, K // 128)
 
     # -- #1: the entry quantize, the backward island and dact_quant
-    for shape, M, K in (("q_entry", T, D), ("q_bwd_island", E * C, D),
+    for shape, M, K in (("q_entry", T, D),
+                        ("q_bwd_island", n_chunks * E * C, D),
                         ("dact_quant", E * C, 2 * F)):
-        check_quantize(record, shape, torch.randn(
+        if tag and shape == "q_entry":
+            continue                        # the whole block's, as above
+        check_quantize(record, tag + shape, torch.randn(
             (M, K), generator=gen, device=dev, dtype=torch.bfloat16))
 
     # -- #2: the dispatch send, the expert grouping, and the backward gather
     # of the FP8 cotangent by the grouping's inverse map
-    ids = torch.topk(torch.randn((T, E), generator=gen, device=dev), k,
+    ids = torch.topk(torch.randn((T_send, E), generator=gen, device=dev), k,
                      dim=-1).indices
     rms, slot_e, _, _ = _dispatch_plan(ids, k, 1, E, C_send)
     rme, ret = _expert_plan(slot_e, E, C)
-    for shape, M, row_map in (("train_send", T, rms),
+    for shape, M, row_map in (("train_send", T_send, rms),
                               ("train_group", C_send, rme),
                               ("train_bwd_inv_map", E * C, ret)):
-        check_permute(record, shape, *rowq(gen, dev, M, D), row_map)
+        check_permute(record, tag + shape, *rowq(gen, dev, M, D), row_map)
 
     # -- #8: SwiGLU + quantize on GEMM-1's output
-    check_swiglu(record, "train", torch.randn(
+    check_swiglu(record, tag + "train", torch.randn(
         (E * C, 2 * F), generator=gen, device=dev, dtype=torch.bfloat16))
 
     # -- #9 the scaling-aware transpose at its four train launches
@@ -1415,13 +1478,15 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms):
     for shape, K in (("T(qx)", D), ("T(qa)", F), ("T(qg)", D),
                      ("T(qgh)", 2 * F)):
         d, s = erowq(C, K, spread=1.0)
-        check_transpose(record, shape, d, s, phases=shape == "T(qx)")
+        check_transpose(record, tag + shape, d, s,
+                        phases=shape == "T(qx)" and not tag)
         del d, s
         torch.cuda.empty_cache()
 
     # -- #10 the NT grouped GEMM: Wgrad-1 and Wgrad-2, bf16 out
     for shape, M, N in (("wgrad1", D, 2 * F), ("wgrad2", F, D)):
-        check_nt(record, shape, *erowq(M, C), *erowq(N, C))
+        check_nt(record, tag + shape, *erowq(M, C), *erowq(N, C),
+                 phases=not tag)
 
     # -- #3 GEMM-1 (and the h recompute, same shape) and GEMM-2 at C = 256;
     # -- #4 Dgrad-1 with the quantizing epilogue, w13 read transposed;
@@ -1433,7 +1498,7 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms):
             ("dgrad2", D, F, True, False)):
         x, sx = erowq(C, K)
         qw = blockq(gen, dev, *((E, N, K) if w_trans else (E, K, N)))
-        check_gemm(record, shape, x, sx, qw, w_trans=w_trans,
+        check_gemm(record, tag + shape, x, sx, qw, w_trans=w_trans,
                    quant_out=quant_out)
         del x, sx, qw
     return record.rows
@@ -1495,6 +1560,27 @@ def expert_grad_zero_fraction(cfg, recipe, params, batch):
 # the losses it gave before the flash VJP, PLAIN_TRAIN_LOSSES.
 TRAIN_LOSSES = {"train": (12.851900, 12.591271, 11.596126, 8.346811)}
 PLAIN_TRAIN_LOSSES = (12.851900, 12.590693, 11.596179, 8.347960)
+
+
+@contextlib.contextmanager
+def grown_segments(label):
+    """The caching allocator's expandable segments for the pass `label`
+    when it is one of GROWN_SEGMENT_PASSES (this process only), its cache
+    emptied on the way in and out."""
+    if label not in GROWN_SEGMENT_PASSES:
+        yield
+        return
+    # the accelerator-generic setter where torch has it (it deprecates
+    # torch.cuda.memory._set_allocator_settings)
+    setting = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    torch.cuda.empty_cache()
+    setting("expandable_segments:True")
+    try:
+        yield
+    finally:
+        setting("expandable_segments:False")
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1593,17 +1679,17 @@ def train_path(cfg, dev, label="train", padded_losses=None, name=None,
     return launches, losses, plan
 
 
-def masked_train_kernel_checks(cfg, peaks, dev, mm, tag=""):
+def masked_train_kernel_checks(cfg, peaks, dev, mm, tag="", C=None):
     """The four masked kernels at the shapes one full-width masked train
     step gives them (C = 256 rows an expert), on the dispatch layout of
     the masked train pass's own first plan: #7 GEMM-1, #5 GEMM-2, the h
     recompute and Dgrad-2 (w2 read transposed), #6 Dgrad-1 (w13 read
     transposed), #11 Wgrad-1 and Wgrad-2; each against its twin and its
     padded kernel(s), timed beside them.  `tag` prefixes the rows'
-    shapes."""
+    shapes; `C` (default the train capacity) is a chunk's."""
     gen = torch.Generator(device=dev).manual_seed(4)
     D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
-    C = train_capacity(cfg)                                     # 256
+    C = C or train_capacity(cfg)                                # 256
     record = KernelRows(peaks)
     print(json.dumps({"masked_plan": dict(
         path=f"{tag}train", call="step 1", **live_stats(mm, C))}))
@@ -2091,13 +2177,13 @@ TRAIN_SHAPES = {"lv": (1, LLAVA_TOKENS)}
 # depths trained (chip_depths.py, one fp8_flow step, f32 state, of the
 # card's 79.18 GiB; PERF.md section 4): mamba2_27b whole under 'full'
 # (43.59 GiB; 52 layers 73.34 and 56 out of memory under 'none');
-# llava_next_34b 6 layers under 'fp8_resident' (66.12 GiB): 7 is the
-# deepest single step (74.98 GiB under every policy, 8 run out with 70.26
-# GiB of state) but leaves too little for the allocator's fragmentation
-# after earlier work in one process (a 7-layer step after two other
-# train passes ran out, chip_profile.py); hymba_15b and seamless_m4t_v2
-# whole; every one serves whole
-NEW_TRAIN_LAYERS = {"m2": 64, "hy": 32, "sm": 24, "lv": 6}
+# llava_next_34b 7 layers under 'fp8_resident', the deepest single step
+# (74.98 GiB under every policy, 8 run out with 70.26 GiB of state): after
+# earlier work in one process it ran out with 3.69 GiB reserved but not
+# allocated (fragmentation), so it trains with grown segments
+# (GROWN_SEGMENT_PASSES); hymba_15b and seamless_m4t_v2 whole; every one
+# serves whole
+NEW_TRAIN_LAYERS = {"m2": 64, "hy": 32, "sm": 24, "lv": 7}
 # each config's remat policy where it is not the default 'full' (phase 29)
 TRAIN_POLICY = {"lv": "fp8_resident"}
 # seamless_m4t_v2's reduced() encoder sits under both decoder layers'
@@ -3106,6 +3192,464 @@ def launcher_phase(out_dir):
         seconds=time.perf_counter() - t_phase)}))
 
 
+# ---------------------------------------------------------------------------
+# Phases 33-36: stage ranges, the roofline, the chunked MoE blocks and the
+# expected_m hint.
+# ---------------------------------------------------------------------------
+# profiler ranges of the port (obs/trace.py, train/memory.py,
+# models/layers.py): not kernels, so left out of the busy time
+RANGE_PREFIXES = ("stage/", "remat/", "flash_", "host/", "quant_weights")
+
+
+def _device_us_by_launch(prof) -> dict:
+    """{correlation id: device us} of the profile's kernels, copies and
+    sets (the ranges' own device-side spans left out)."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.name.startswith(RANGE_PREFIXES):
+            out[e.id] = out.get(e.id, 0.0) + (e.time_range.end
+                                              - e.time_range.start)
+    return out
+
+
+def busy_device_ms(prof) -> float:
+    """The device time of a profile's kernels, copies and sets."""
+    return sum(_device_us_by_launch(prof).values()) / 1e3
+
+
+def range_device_ms(prof, names) -> dict:
+    """Device ms of the work launched inside each named profiler range: a
+    kernel (copy, set) belongs to a range when the CUDA API call that
+    launched it (cudaLaunchKernel, cuLaunchKernel, cudaMemcpyAsync, ...)
+    ran inside the range's interval.  The launch's time is used, not the
+    profiler's op tree: a kernel the port launches through ctypes inside a
+    range (no aten op open) is linked to no op, and the profiler's own
+    device-side span of a range (its first to its last correlated GPU
+    activity) can cover a whole train step.  Ranges are matched by time
+    alone: in these passes one thread launches at a time (the forward's,
+    then autograd's with the recompute), and a name's intervals do not
+    nest."""
+    import bisect
+    dev_us = _device_us_by_launch(prof)
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    launches = [(e.time_range.start, dev_us[e.id]) for e in events
+                if e.device_type == cpu and e.name.startswith("cu")
+                and e.id in dev_us]
+    out = {}
+    for name in names:
+        iv = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == cpu and e.name == name)
+        starts = [a for a, _ in iv]
+        us = 0.0
+        for t, d in launches:
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and iv[i][1] >= t:
+                us += d
+        out[name] = us / 1e3
+    return out
+
+
+def stage_breakdown(prof) -> dict:
+    """Busy device ms and the device ms of the kernels launched inside
+    each stage/* range of a profile."""
+    busy = busy_device_ms(prof)
+    by_range = range_device_ms(prof, [f"stage/{s}" for s in STAGES])
+    stages = {s: by_range[f"stage/{s}"] for s in STAGES}
+    check(busy > 0, "the profiler recorded no device time")
+    check(sum(stages.values()) <= busy * 1.001,
+          f"the stages' device ms {stages} exceed the busy {busy} ms")
+    return dict(busy_ms=busy, stage_ms=stages,
+                stage_share=sum(stages.values()) / busy)
+
+
+def profiled(fn):
+    """fn() under torch.profiler (CPU + CUDA activity): (its result, the
+    profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+@contextlib.contextmanager
+def annotate_patched_out():
+    """obs.trace.annotate as a bare null context (no profiler check)."""
+    from repro_torch.obs import trace
+    orig = trace.annotate
+    trace.annotate = lambda name: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        trace.annotate = orig
+
+
+def expert_gemm_flops(cfg, C, units, layers=None) -> float:
+    """`units` x 2 E C D F: an expert GEMM pass of a MoE layer at capacity
+    C (GEMM-1 is 2 units, GEMM-2 one), over the config's MoE layers."""
+    layers = cfg.n_layers if layers is None else layers
+    return units * 2.0 * cfg.n_experts * C * cfg.d_model * cfg.d_ff_expert \
+        * layers
+
+
+def roofline_row(name, t, model_flops, ms, want_gemm):
+    """The roofline line of a tallied call: the tally's terms on the H100
+    SXM, the measured ms, the mfu; the kernels' GEMM FLOPs must be the
+    analytic `want_gemm`."""
+    from repro_torch.roofline import analysis
+    roof = analysis.analyze_tally(t, model_flops_global=model_flops)
+    kernel_gemm = t.gemm_flops - t.aten_flops
+    check(kernel_gemm == want_gemm, f"roofline {name}: the kernels report "
+          f"{kernel_gemm} GEMM FLOPs, the analytic count is {want_gemm}")
+    row = dict(call=name, flops=roof.flops, hbm_bytes=roof.hbm_bytes,
+               kernel_gemm_flops=kernel_gemm, aten_flops=t.aten_flops,
+               t_compute_ms=roof.t_compute * 1e3,
+               t_memory_ms=roof.t_memory * 1e3, bottleneck=roof.bottleneck,
+               bound_ms=roof.step_time * 1e3, measured_ms=ms,
+               bound_share=roof.step_time * 1e3 / ms,
+               model_flops=model_flops,
+               mfu=analysis.measured_mfu(model_flops, ms / 1e3),
+               kernels={k: v for k, v in t.kernels().items()})
+    print(json.dumps({"roofline": row}))
+    return row
+
+
+def stage_and_roofline_phase(dev, train_losses, serve_tokens):
+    """Phases 33-34 on qwen3_moe_235b at full width.  Train (1 layer,
+    fp8_flow, the f32 state, phase 6's batch and seed): step 1 plain, step
+    2 under torch.profiler (the stage ranges open), step 3 with annotate
+    patched out, step 4 plain: the losses phase 6's bit for bit; step 5
+    inside the roofline tally.  Serve (depth 4, W8, phase 3's trace):
+    warm-up, plain, annotate patched out, profiled: phase 3's tokens every
+    time; then a bucket-64 prefill and an 8-slot decode step timed, and
+    each tallied.  Busy ms per stage (their sum at most the busy ms);
+    tokens/s with the ranges and with annotate patched out; FLOPs, bytes,
+    the compute and memory terms, the bottleneck, the measured ms and the
+    mfu of the train step, the prefill and the decode step, the kernels'
+    GEMM FLOPs equal to the analytic count."""
+    from repro_torch.core import casts
+    from repro_torch.models.lm import paged_decode_step, paged_prefill
+    from repro_torch.roofline import analysis
+
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    state, step, batch = make_train(cfg, dev, "train")
+    box = {"state": state}
+    del state
+    losses, step_ms, rows = [], [], {}
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with casts.ledger():
+            box["state"], m = step(box["state"], batch)
+            loss = float(m["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+
+    one()
+    _, prof = profiled(one)
+    rows["train_profiled"] = stage_breakdown(prof)
+    del prof
+    with annotate_patched_out():
+        one()
+    one()
+    check(losses == list(train_losses), f"train losses {losses} with the "
+          f"ranges / patched out, not phase 6's {list(train_losses)}")
+    with analysis.tally() as t:
+        box["state"], m = step(box["state"], batch)
+        torch.cuda.synchronize()
+    tokens = TRAIN_B * TRAIN_S
+    C = train_capacity(cfg)
+    roof = {"train": roofline_row(
+        "train_step", t, analysis.model_flops_train(cfg, tokens),
+        step_ms[3], expert_gemm_flops(cfg, C, 11))}
+    rows["train"] = dict(losses=losses, step_ms=step_ms,
+                         ms_plain=step_ms[3], ms_profiled=step_ms[1],
+                         ms_annotate_out=step_ms[2])
+    box.clear()
+    del step, batch, t, m
+    torch.cuda.empty_cache()
+
+    scfg = serve_config()
+    eng, reqs = make_serve(scfg, dev)
+    runs = {}
+
+    def serve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(reqs, realtime=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        toks = [res[q.rid]["tokens"] for q in reqs]
+        check(toks == serve_tokens, "a served pass of phase 33 generated "
+              "other tokens than phase 3")
+        return sum(len(x) for x in toks) / dt
+
+    serve()                                           # warm-up
+    runs["with_ranges"] = serve()
+    with annotate_patched_out():
+        runs["annotate_out"] = serve()
+    runs["profiled"], prof = profiled(serve)
+    rows["serve_profiled"] = stage_breakdown(prof)
+    del prof
+    rows["serve_tokens_per_s"] = runs
+
+    with torch.inference_mode():
+        page_row = torch.arange(1, 9, device=dev)
+        pf_tokens = torch.ones((1, 64), dtype=torch.int64, device=dev)
+        dec = (page_row.repeat(8, 1),
+               torch.ones((8, 1), dtype=torch.int64, device=dev),
+               torch.full((8,), 48, device=dev),
+               torch.ones((8,), dtype=torch.bool, device=dev))
+        calls = {
+            "prefill_bucket64": (lambda: paged_prefill(
+                scfg, eng.recipe, eng.params, eng.pools, page_row,
+                pf_tokens, 48), 64, expert_gemm_flops(scfg, 128, 3)),
+            "decode_step_b8": (lambda: paged_decode_step(
+                scfg, eng.recipe, eng.params, eng.pools, *dec), 8,
+                expert_gemm_flops(scfg, 8, 3))}
+        for name, (fn, n_tok, want) in calls.items():
+            fn()
+            ms = call_ms(fn, n=5, reps=3)
+            with analysis.tally() as t:
+                fn()
+                torch.cuda.synchronize()
+            roof[name] = roofline_row(
+                name, t, analysis.model_flops_decode(scfg, n_tok), ms, want)
+    del eng
+    torch.cuda.empty_cache()
+    print(json.dumps({"stages": dict(
+        config="qwen3_moe_235b full width: train 1 layer (fp8_flow, f32 "
+               "state), serve 4 layers (W8, FP8 KV)",
+        **rows, seconds=time.perf_counter() - t_phase)}))
+    return rows, roof
+
+
+@contextlib.contextmanager
+def recorded_block_stats():
+    """Each MoE block call's drop_frac and expert-plan overflow (the
+    assignments that found no expert slot: their rows drop silently, as in
+    the reference), kept on the device, by call."""
+    from repro_torch.core import moe
+    from repro_torch.models import lm
+    calls = {"drop": [], "overflow": [], "assigned": []}
+    origs = (lm.moe_block, lm.moe_block_overlapped, moe._expert_plan)
+
+    def block(fn):
+        def spy(*a, **kw):
+            y, m = fn(*a, **kw)
+            calls["drop"].append(m["drop_frac"].detach().clone())
+            return y, m
+        return spy
+
+    def expert_plan(recv_expert, E_loc, C_exp):
+        rme, ret = origs[2](recv_expert, E_loc, C_exp)
+        calls["overflow"].append(((recv_expert >= 0) & (ret < 0)).sum())
+        calls["assigned"].append((recv_expert >= 0).sum())
+        return rme, ret
+
+    lm.moe_block, lm.moe_block_overlapped = block(origs[0]), block(origs[1])
+    moe._expert_plan = expert_plan
+    try:
+        yield calls
+    finally:
+        lm.moe_block, lm.moe_block_overlapped, moe._expert_plan = origs
+
+
+OVERLAP_CHUNKS = (1, 2, 4)
+OVERLAP_STEPS = 3
+
+
+def overlap_train_run(cfg, dev, label, n):
+    """OVERLAP_STEPS steps of qwen3 (1 layer, full width) with the FP8-split
+    state (the chunked backward's f32 weight-gradient sums need the room
+    the f32 state leaves no space for), chunked at n (None: the
+    monolithic block).  Returns its row."""
+    from repro_torch import kernels
+    from repro_torch.core import casts
+    from repro_torch.core.moe import DispatchPlan, _chunk_geometry
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=1e-3, state_policy=StatePolicy())
+    plan = None if n is None else DispatchPlan(n_chunks=n,
+                                               min_chunk_tokens=1)
+    recipe = recipe_for(label)
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, recipe, opt, moe_overlap=plan)
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B), 0, device=dev)
+    losses, step_ms, n_casts = [], [], []
+    with recorded_block_stats() as calls, recorded_plans() as plans:
+        kernels.reset_launches()
+        for _ in range(OVERLAP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with casts.ledger() as led:
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            n_casts.append(led.activation_casts())
+        launches = dict(kernels.LAUNCHES)
+    chunks = 1 if n is None else n
+    C = _chunk_geometry(recipe, moe_config(cfg), TRAIN_B * TRAIN_S, chunks,
+                        1, cfg.n_experts)[3]
+    # the first forward's calls: one block, `chunks` expert plans
+    over = [int(v) for v in calls["overflow"][:chunks]]
+    assigned = [int(v) for v in calls["assigned"][:chunks]]
+    row = dict(
+        n_chunks=n, recipe=recipe.name, masked=recipe.masked_experts,
+        losses=losses, step_ms=step_ms,
+        ms_per_step_warm=statistics.mean(step_ms[1:]),
+        tokens_per_s_warm=TRAIN_B * TRAIN_S * 1e3
+        / statistics.mean(step_ms[1:]),
+        capacity_per_chunk=C, padded_rows=chunks * cfg.n_experts * C,
+        activation_casts_per_step=n_casts,
+        drop_frac=float(calls["drop"][0]),
+        expert_overflow=sum(over), expert_overflow_frac=sum(over)
+        / max(sum(assigned), 1),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+    check(all(c == 2 for c in n_casts), f"{label} n={n}: casts {n_casts}")
+    check(all(np.isfinite(losses)), f"{label} n={n}: losses {losses}")
+    check_launches(label, launches)
+    plan_mm = plans[min(plans)][0] if recipe.masked_experts and plans \
+        else None
+    del state, step, batch, m
+    torch.cuda.empty_cache()
+    return row, plan_mm
+
+
+def overlap_phase(cfg, dev, peaks, floor_ms, serve_tokens):
+    """Phase 35: the chunked MoE blocks at full width.  qwen3 (1 layer,
+    the split state) trains monolithic, then chunked at n = 1, 2 and 4,
+    padded and masked: losses, ms a step, padded rows, casts a step (2),
+    drop_frac and the expert-plan overflow; masked bit for bit padded at
+    each n; the first loss within 1e-3 of the monolithic one where no
+    assignment overflows on either side.  Every kernel against its twin
+    at the chunk shapes (C = 128; the masked ones on the n = 4 run's own
+    plan).  qwen3 at depth 4 served with the chunked blocks (2 chunks a
+    prefill and a decode step): phase 3's tokens exactly (no assignment
+    can overflow at these sizes).  Returns (launches by path, timing
+    rows)."""
+    from repro_torch.core.moe import DispatchPlan
+    t_phase = time.perf_counter()
+    rows, launches, timings = {}, {}, {}
+    mono, _ = overlap_train_run(cfg, dev, "overlap_train", None)
+    print(json.dumps({"overlap_train_monolithic": mono}))
+    for n in OVERLAP_CHUNKS:
+        padded, _ = overlap_train_run(cfg, dev, "overlap_train", n)
+        masked, mm = overlap_train_run(cfg, dev, "overlap_masked_train", n)
+        check(masked["losses"] == padded["losses"], f"overlap n={n}: the "
+              f"masked losses {masked['losses']} are not the padded ones "
+              f"{padded['losses']}")
+        if padded["expert_overflow"] == 0 and mono["expert_overflow"] == 0:
+            check(abs(padded["losses"][0] - mono["losses"][0]) <= 1e-3,
+                  f"overlap n={n}: first loss {padded['losses'][0]} vs "
+                  f"monolithic {mono['losses'][0]}")
+        for r in (padded, masked):
+            print(json.dumps({"overlap_train": r}))
+        rows[n] = dict(padded=padded, masked=masked)
+        launches["overlap_train"] = padded["launches"]
+        launches["overlap_masked_train"] = masked["launches"]
+        if n == max(OVERLAP_CHUNKS):
+            add_rows(timings, train_kernel_checks(cfg, peaks, dev, floor_ms,
+                                                  n_chunks=n))
+            add_rows(timings, masked_train_kernel_checks(
+                cfg, peaks, dev, mm, f"chunk{n} ", C=padded[
+                    "capacity_per_chunk"]))
+    plan = DispatchPlan(n_chunks=2, min_chunk_tokens=16, decode_chunks=2,
+                        min_decode_tokens=4)
+    launches["overlap_serve"], _, _ = serve_path(
+        serve_config(), dev, "overlap_serve", padded_tokens=serve_tokens,
+        moe_overlap=plan)
+    print(json.dumps({"overlap": dict(
+        config="qwen3_moe_235b full width, 1 layer, StatePolicy(), "
+               f"{OVERLAP_STEPS} steps of 2 x 1024 tokens",
+        monolithic=dict(ms_per_step_warm=mono["ms_per_step_warm"],
+                        losses=mono["losses"],
+                        expert_overflow=mono["expert_overflow"]),
+        by_chunks={n: {k: dict(ms=r[k]["ms_per_step_warm"],
+                               padded_rows=r[k]["padded_rows"],
+                               overflow=r[k]["expert_overflow"],
+                               drop_frac=r[k]["drop_frac"],
+                               first_loss=r[k]["losses"][0])
+                       for k in r} for n, r in rows.items()},
+        serve_plan=dataclasses.asdict(plan),
+        seconds=time.perf_counter() - t_phase)}))
+    return launches, timings
+
+
+def expected_m_phase(cfg, dev, mm):
+    """Phase 36: the expected_m hint at the train shapes (C = 256 rows an
+    expert, the masked train pass's plan): at expected_m >= C the three
+    masked wrappers launch the padded kernels (LAUNCHES) and give the
+    masked launches' bits; the fused SwiGLU GEMM-1 never falls back."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(9)
+    D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    C = train_capacity(cfg)
+    qx = qtensor_of(*dispatch_rows(gen, dev, mm, C, D))
+    qw13 = blockq(gen, dev, E, D, 2 * F)
+    qa = qtensor_of(*dispatch_cols(gen, dev, mm, D, C))
+    qb = qtensor_of(*dispatch_cols(gen, dev, mm, 2 * F, C))
+    out = {}
+    for hint in (None, C):
+        kw = {} if hint is None else dict(expected_m=hint)
+        kernels.reset_launches()
+        out[hint] = (ops.grouped_gemm_fp8_masked(qx, qw13, mm, **kw),
+                     ops.grouped_gemm_fp8_masked_quant_out(qx, qw13, mm,
+                                                           **kw),
+                     ops.grouped_gemm_nt_fp8_masked(qa, qb, mm,
+                                                    torch.bfloat16, **kw),
+                     ops.grouped_gemm_swiglu_quant_masked(qx, qw13, mm,
+                                                          **kw))
+        torch.cuda.synchronize()
+        out[f"launches_{hint}"] = {k: v for k, v in kernels.LAUNCHES.items()
+                                   if v}
+    m, p = out[None], out[C]
+    want_masked = {"masked_grouped_gemm_fp8": 1,
+                   "masked_grouped_gemm_fp8_quant_out": 1,
+                   "masked_grouped_gemm_nt_fp8": 1,
+                   "masked_grouped_gemm_swiglu_quant": 1}
+    want_padded = {"grouped_gemm_fp8": 1, "grouped_gemm_fp8_quant_out": 1,
+                   "grouped_gemm_nt_fp8": 1,
+                   "masked_grouped_gemm_swiglu_quant": 1}
+    check(out["launches_None"] == want_masked,
+          f"expected_m unset: launches {out['launches_None']}")
+    check(out[f"launches_{C}"] == want_padded,
+          f"expected_m={C}: launches {out[f'launches_{C}']}")
+    check(torch.equal(m[0].view(torch.int16), p[0].view(torch.int16))
+          and torch.equal(m[1].data.view(torch.uint8),
+                          p[1].data.view(torch.uint8))
+          and torch.equal(m[1].scale, p[1].scale)
+          and torch.equal(m[2].view(torch.int16), p[2].view(torch.int16))
+          and torch.equal(m[3].data.view(torch.uint8),
+                          p[3].data.view(torch.uint8)),
+          "expected_m: the padded kernels' bits differ from the masked")
+    print(json.dumps({"expected_m": dict(
+        shape=f"({E},{C},{D}) x ({E},{D},{2 * F}), NT ({E},{D},{C}) x "
+              f"({E},{2 * F},{C})", **live_stats(mm, C),
+        launches_masked=out["launches_None"],
+        launches_expected_m_C=out[f"launches_{C}"], bitwise=True)}))
+
+
+def qtensor_of(d, s):
+    """A row-tiled (E, C, K) QTensor of payload d and scales s."""
+    from repro_torch.core.quant import QTensor
+    return QTensor(d, s, (1, 1, 128))
+
+
 def dir_bytes(d) -> int:
     import os
     return sum(os.path.getsize(os.path.join(r, f))
@@ -3152,6 +3696,7 @@ def main() -> int:
     timings = kernel_checks(cfg, PEAKS, dev, floor_ms)
     launches = {}
     launches["serve"], tokens, _ = serve_path(cfg, dev)
+    serve_tokens = tokens
     launches["masked_serve"], _, plans = serve_path(
         cfg, dev, "masked_serve", padded_tokens=tokens)
     launches["bf16_serve"], _, _ = serve_path(cfg, dev, "bf16_serve")
@@ -3161,11 +3706,13 @@ def main() -> int:
     tcfg = train_config()
     add_rows(timings, train_kernel_checks(tcfg, PEAKS, dev, floor_ms))
     launches["train"], losses, _ = train_path(tcfg, dev)
+    train_losses = losses
     with plain_attention():
         train_path(tcfg, dev, name="train_plain_attention",
                    want_losses=PLAIN_TRAIN_LOSSES)
     launches["masked_train"], _, plan = train_path(
         tcfg, dev, "masked_train", padded_losses=losses)
+    train_plan = plan
     add_rows(timings, masked_train_kernel_checks(tcfg, PEAKS, dev, plan))
     add_rows(timings, linear_kernel_checks(tcfg, PEAKS, dev, floor_ms))
     for label in ("bf16_train", "blockwise_train", "naive_train"):
@@ -3263,7 +3810,9 @@ def main() -> int:
     for tag, n in NEW_TRAIN_LAYERS.items():
         c = dataclasses.replace(arch_config(ARCH_TAGS[tag], n),
                                 remat_policy=TRAIN_POLICY.get(tag, "full"))
-        launches[f"{tag}_train"], _, _ = train_path(c, dev, f"{tag}_train")
+        with grown_segments(f"{tag}_train"):
+            launches[f"{tag}_train"], _, _ = train_path(c, dev,
+                                                        f"{tag}_train")
     launches["hy_bf16_train"], _, _ = train_path(
         arch_config("hymba_15b", NEW_TRAIN_LAYERS["hy"]), dev,
         "hy_bf16_train")
@@ -3312,6 +3861,15 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     launcher_phase(ROOT / "build" / "smoke_launcher")
+
+    # stage ranges, the roofline, the chunked MoE blocks and the
+    # expected_m hint (phases 33-36)
+    stage_and_roofline_phase(dev, train_losses, serve_tokens)
+    ovl_launches, ovl_timings = overlap_phase(tcfg, dev, PEAKS, floor_ms,
+                                              serve_tokens)
+    launches.update(ovl_launches)
+    add_rows(timings, ovl_timings)
+    expected_m_phase(tcfg, dev, train_plan)
 
     from repro_torch.kernels import (adamw_update, fp8_transpose,
                                      fused_permute_pad, fused_swiglu_quant,

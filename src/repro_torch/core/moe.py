@@ -22,6 +22,13 @@ the same fused permute+pad kernel gathers the FP8 cotangent by the inverse
 map, with no dequantize) and ``fp8_dispatch_naive``.  The router, the bf16
 gathers, the probability weighting and the combine are plain
 differentiable ops.
+
+Each block names its stages with the reference's profiler ranges
+(``obs/trace.py``: router, dispatch, expert, combine).  The decode block
+is the reference's staged pipeline; ``moe_block_overlapped`` and
+``moe_block_decode_overlapped`` chunk the block by a ``DispatchPlan``, the
+dispatch of a chunk packed into one uint8 message (the section at the end
+of this module).
 """
 from __future__ import annotations
 
@@ -31,12 +38,15 @@ import torch
 
 from repro_torch.core import casts
 from repro_torch.core.fp8 import TILE
-from repro_torch.core.linear import (dequantize_exit, expert_ffn,
+from repro_torch.core.linear import (_q_row, _quant_weights, _save_q,
+                                     _saved_q, dequantize_exit, expert_ffn,
+                                     ffn_bwd_fp8_core, ffn_fwd_fp8_core,
                                      quantize_entry)
 from repro_torch.core.quant import (QTensor, _dequantize_nocount,
                                     record_entry_stats, row_tile)
 from repro_torch.core.recipes import Recipe
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import stage_annotation
 from repro_torch.runtime import fault_injection
 
 
@@ -146,6 +156,13 @@ def _take_rows(x, row_map, fill=0.0):
     rows = x[torch.clamp(row_map, min=0).to(torch.int64)]
     return torch.where(valid, rows, torch.tensor(fill, dtype=x.dtype,
                                                  device=x.device))
+
+
+def _slot_probs(p, slot_assign):
+    """Each send slot's router prob (0 on an empty slot)."""
+    return torch.where(slot_assign >= 0,
+                       p.reshape(-1)[torch.clamp(slot_assign, min=0).long()],
+                       0.0)
 
 
 def _segment_sum(rows, seg, n: int):
@@ -268,38 +285,42 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
     # GEMM tiles); bf16 only the reference's sublane alignment
     C_exp = _round_up(max(R // E_loc, 8), 128 if recipe.is_fp8 else 8)
 
-    p, ids, aux = router_topk(x, w_router, k)
-    row_map_send, slot_expert, slot_assign, drop_frac = _dispatch_plan(
-        ids, k, EP, E_loc, C_send)
+    with stage_annotation("router"):
+        p, ids, aux = router_topk(x, w_router, k)
+        row_map_send, slot_expert, slot_assign, drop_frac = _dispatch_plan(
+            ids, k, EP, E_loc, C_send)
 
-    if recipe.name == "fp8_flow":
-        recv_in = dispatch_quantize(recipe, x, row_map_send)
-        record_entry_stats("q_entry_moe", x, scale_mode=recipe.scale_mode)
-    elif recipe.name == "naive_fp8":
-        recv_in = fp8_dispatch_naive(recipe, x, row_map_send)
-    else:                                   # bf16 / blockwise: bf16 rows
-        recv_in = _take_rows(x.to(torch.bfloat16), row_map_send)
-    p_flat = torch.where(slot_assign >= 0,
-                         p.reshape(-1)[torch.clamp(slot_assign, min=0).long()],
-                         0.0)
+    with stage_annotation("dispatch"):
+        if recipe.name == "fp8_flow":
+            recv_in = dispatch_quantize(recipe, x, row_map_send)
+            record_entry_stats("q_entry_moe", x, scale_mode=recipe.scale_mode)
+        elif recipe.name == "naive_fp8":
+            recv_in = fp8_dispatch_naive(recipe, x, row_map_send)
+        else:                               # bf16 / blockwise: bf16 rows
+            recv_in = _take_rows(x.to(torch.bfloat16), row_map_send)
+        p_flat = _slot_probs(p, slot_assign)
 
-    row_map_exp, ret_map = _expert_plan(slot_expert, E_loc, C_exp)
-    if recipe.name == "fp8_flow":
-        q_exp = permute_q(recipe, recv_in, row_map_exp, ret_map)
-        ffn_in = QTensor(q_exp.data.reshape(E_loc, C_exp, D),
-                         q_exp.scale.reshape(E_loc, C_exp, D // TILE),
-                         (1, 1, TILE))
-    else:
-        ffn_in = _take_rows(recv_in, row_map_exp).reshape(E_loc, C_exp, D)
-    masked_m = _masked_m_or_none(recipe, row_map_exp, E_loc, C_exp)
-    y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m,
-                       out_tag="stage_expert_out")
+    with stage_annotation("expert"):
+        row_map_exp, ret_map = _expert_plan(slot_expert, E_loc, C_exp)
+        if recipe.name == "fp8_flow":
+            q_exp = permute_q(recipe, recv_in, row_map_exp, ret_map)
+            ffn_in = QTensor(q_exp.data.reshape(E_loc, C_exp, D),
+                             q_exp.scale.reshape(E_loc, C_exp, D // TILE),
+                             (1, 1, TILE))
+        else:
+            ffn_in = _take_rows(recv_in, row_map_exp).reshape(E_loc, C_exp,
+                                                              D)
+        masked_m = _masked_m_or_none(recipe, row_map_exp, E_loc, C_exp)
+        y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m,
+                           out_tag="stage_expert_out")
+        p_exp = _take_rows(p_flat[:, None], row_map_exp).reshape(E_loc,
+                                                                 C_exp)
+        y_exp = y_exp * p_exp[..., None].to(y_exp.dtype)
 
-    p_exp = _take_rows(p_flat[:, None], row_map_exp).reshape(E_loc, C_exp)
-    y_exp = y_exp * p_exp[..., None].to(y_exp.dtype)
-    y_ret = _take_rows(y_exp.reshape(E_loc * C_exp, D), ret_map)
-    seg = torch.where(row_map_send >= 0, row_map_send, T)
-    y = _segment_sum(y_ret, seg, T)
+    with stage_annotation("combine"):
+        y_ret = _take_rows(y_exp.reshape(E_loc * C_exp, D), ret_map)
+        seg = torch.where(row_map_send >= 0, row_map_send, T)
+        y = _segment_sum(y_ret, seg, T)
     return y.to(x.dtype), {"aux_loss": aux, "drop_frac": drop_frac}
 
 
@@ -374,17 +395,392 @@ def decode_stage_expert(recipe: Recipe, cfg: MoEConfig, ffn_in, w13,
     return _segment_sum(y_exp.reshape(E_loc * C_dec, D), seg, Tc)
 
 
-def moe_block_decode(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
-    """Decode-time MoE over a small batch (the reference's staged program
-    at pipeline depth 1, one EP rank)."""
+def _decode_pipeline(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2,
+                     n_chunks: int):
+    """The staged decode program at pipeline depth n_chunks (the
+    reference's ``_decode_pipeline`` at one EP rank): the router and the
+    entry quantize over the whole batch, then each chunk's dispatch and
+    expert stages; the combine, the reference's psum over the EP ranks, is
+    the identity here, so it only joins the chunks' rows."""
     T, D = x.shape
     E_loc = cfg.n_experts
     k = cfg.top_k
-    C_dec = _round_up(max(int(2.0 * T * k / cfg.n_experts), 8), 8)
-    p, aux, local_e, xq = decode_stage_router(recipe, cfg, x, w_router, 0,
-                                              E_loc)
-    ffn_in, rme, tok_loc, n_valid, n_kept = decode_stage_dispatch(
-        recipe, cfg, xq, local_e, 0, E_loc, C_dec)
-    y = decode_stage_expert(recipe, cfg, ffn_in, w13, w2, p, rme, tok_loc, T)
-    drop_frac = (n_valid - n_kept) / (T * k)
+    n = DispatchPlan(decode_chunks=n_chunks,
+                     min_decode_tokens=1).decode_chunks_for(T)
+    Tc = T // n
+    C_dec = _round_up(max(int(2.0 * Tc * k / cfg.n_experts), 8), 8)
+
+    with stage_annotation("router"):
+        p, aux, local_e, xq = decode_stage_router(recipe, cfg, x, w_router,
+                                                  0, E_loc)
+    ys, drops = [], None
+    for c in range(n):
+        with stage_annotation("dispatch"):
+            ffn_in, rme, tok_loc, nv, nk = decode_stage_dispatch(
+                recipe, cfg, xq, local_e[c * Tc * k:(c + 1) * Tc * k],
+                c * Tc, E_loc, C_dec)
+        with stage_annotation("expert"):
+            y_loc = decode_stage_expert(recipe, cfg, ffn_in, w13, w2,
+                                        p[c * Tc:(c + 1) * Tc], rme, tok_loc,
+                                        Tc)
+        with stage_annotation("combine"):
+            ys.append(y_loc)
+        drops = nv - nk if drops is None else drops + (nv - nk)
+    with stage_annotation("combine"):
+        y = torch.cat(ys, dim=0) if n > 1 else ys[0]
+    drop_frac = drops / (T * k)
     return y.to(x.dtype), {"aux_loss": aux, "drop_frac": drop_frac}
+
+
+def moe_block_decode(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
+    """Decode-time MoE over a small batch: the staged pipeline at depth 1
+    (one EP rank, so the reference's combine psum is the identity)."""
+    return _decode_pipeline(recipe, cfg, x, w_router, w13, w2, n_chunks=1)
+
+
+def moe_block_decode_overlapped(recipe: Recipe, cfg: MoEConfig, x, w_router,
+                                w13, w2, n_chunks: int = 2):
+    """The decode pipeline at depth n_chunks (clamped to a divisor of T).
+    Per-token math is moe_block_decode's when no capacity drops occur:
+    C_dec is per chunk, so drop SETS can differ under overflow."""
+    return _decode_pipeline(recipe, cfg, x, w_router, w13, w2,
+                            n_chunks=n_chunks)
+
+
+# ---------------------------------------------------------------------------
+# The chunked (overlapped) dispatch pipeline at EP = 1.
+#
+# The reference's moe_block_overlapped splits the token block into n_chunks
+# and software-pipelines them: chunk c+1's fused dispatch message is issued
+# before chunk c's grouped FFN, so an all-to-all can hide behind compute.
+# One card has no collective to hide; the port keeps the pipeline's
+# dataflow exactly (one uint8 message a chunk, the per-chunk plans and
+# capacities, the block-level casts) with the identity _a2a, which is
+# where the all-to-all goes once the expert axis spans cards (ROADMAP.md,
+# Queue 1, item 7).
+#
+# Quantization stays block-level: ONE entry quantize over the whole block
+# (chunks gather its rows: row-tile scales are row-local) and ONE backward
+# island quantize over every chunk's FFN-output cotangent, so fp8_flow
+# keeps its 2 explicit casts at any n_chunks.  Numerics match moe_block up
+# to f32 summation order PROVIDED no capacity drops occur: C_send and C_exp
+# are per chunk, so drop SETS can differ from the monolithic block's.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class DispatchPlan:
+    """Static overlap configuration (the reference's, threaded through
+    ``models/lm.py`` as ``moe_overlap``).
+
+    n_chunks          pipeline depth per MoE layer (1 = fused message only)
+    min_chunk_tokens  never chunk below this many tokens per chunk
+    decode_chunks     pipeline depth of the decode MoE
+    min_decode_tokens decode batches are small: no pipeline below this
+    """
+    n_chunks: int = 2
+    min_chunk_tokens: int = 64
+    decode_chunks: int = 2
+    min_decode_tokens: int = 8
+
+    def chunks_for(self, T: int) -> int:
+        cap = max(1, min(self.n_chunks, T // max(self.min_chunk_tokens, 1)))
+        return max(d for d in range(1, cap + 1) if T % d == 0)
+
+    def decode_chunks_for(self, T: int) -> int:
+        cap = max(1, min(self.decode_chunks,
+                         T // max(self.min_decode_tokens, 1)))
+        return max(d for d in range(1, cap + 1) if T % d == 0)
+
+
+def _a2a(t, ep: int = 1):
+    """The dispatch / combine all-to-all over the expert ranks: the
+    identity at EP = 1, as the reference's is with no expert axis."""
+    if ep != 1:
+        raise NotImplementedError(
+            "the expert-parallel all-to-all (EP > 1) is not ported yet "
+            "(ROADMAP.md, Queue 1, item 7)")
+    return t
+
+
+def _u8(t):
+    """The bytes of t as (R, w) uint8 (a view of the same bits, no cast):
+    the trailing axes flattened, little-endian, as the reference's
+    bitcast gives them."""
+    t = t.contiguous()
+    return t.view(torch.uint8).reshape(t.shape[0], -1)
+
+
+def _from_u8(u, dtype, shape):
+    """(R, w) uint8 columns -> a contiguous tensor of dtype and shape (a
+    view of the bits)."""
+    return u.contiguous().view(dtype).reshape(shape)
+
+
+def _pack_dispatch_msg(d, s, se, pf):
+    """One chunk's dispatch as a single uint8 message: d (R, D) e4m3
+    payload | s (R, D/TILE) f32 scales | se (R,) int32 local expert ids |
+    pf (R,) f32 router probs.  Width D + 4*D/TILE + 8 bytes a row."""
+    return torch.cat([_u8(d), _u8(s), _u8(se.to(torch.int32)[:, None]),
+                      _u8(pf.to(torch.float32)[:, None])], dim=1)
+
+
+def _unpack_dispatch_msg(msg, D: int):
+    R, Ds = msg.shape[0], D // TILE
+    d = _from_u8(msg[:, :D], torch.float8_e4m3fn, (R, D))
+    o = D
+    s = _from_u8(msg[:, o:o + 4 * Ds], torch.float32, (R, Ds))
+    o += 4 * Ds
+    se = _from_u8(msg[:, o:o + 4], torch.int32, (R,))
+    pf = _from_u8(msg[:, o + 4:o + 8], torch.float32, (R,))
+    return d, s, se, pf
+
+
+def _pack_bwd_msg(gd, gs, gp):
+    """The backward's message: the FP8 input-gradient payload, its scales
+    and the per-row router-prob gradient."""
+    return torch.cat([_u8(gd), _u8(gs), _u8(gp.to(torch.float32)[:, None])],
+                     dim=1)
+
+
+def _unpack_bwd_msg(msg, D: int):
+    R, Ds = msg.shape[0], D // TILE
+    gd = _from_u8(msg[:, :D], torch.float8_e4m3fn, (R, D))
+    gs = _from_u8(msg[:, D:D + 4 * Ds], torch.float32, (R, Ds))
+    gp = _from_u8(msg[:, D + 4 * Ds:], torch.float32, (R,))
+    return gd, gs, gp
+
+
+def _chunk_geometry(recipe: Recipe, cfg: MoEConfig, T: int, n: int, EP: int,
+                    E_loc: int):
+    """(Tc, C_send, R, C_exp) of one chunk of T // n tokens: the
+    monolithic block's capacities at the chunk's size, C_exp rounded up
+    to 128 rows for the FP8 recipes (so a chunked FP8 block can hold more
+    padded rows than the monolithic one)."""
+    Tc = T // n
+    k = cfg.top_k
+    C_send = _round_up(max(int(Tc * k / EP * cfg.capacity_factor), 8), 8)
+    R = EP * C_send
+    C_exp = _round_up(max(R // E_loc, 8), 128 if recipe.is_fp8 else 8)
+    return Tc, C_send, R, C_exp
+
+
+def moe_block_overlapped(recipe: Recipe, cfg: MoEConfig, x, w_router, w13,
+                         w2, n_chunks: int = 2):
+    """moe_block with the chunked dispatch pipeline: the same signature and
+    returns, plus n_chunks (clamped to a divisor of T).  fp8_flow runs the
+    hand-written pipeline (``_OverlapFlow``; W8-resident weights its
+    forward alone), the baselines chunks of their own autograd Functions."""
+    T, D = x.shape
+    n = DispatchPlan(n_chunks=n_chunks, min_chunk_tokens=1).chunks_for(T)
+    with stage_annotation("router"):
+        p, ids, aux = router_topk(x, w_router, cfg.top_k)
+    if recipe.name == "fp8_flow":
+        record_entry_stats("q_entry_moe", x, scale_mode=recipe.scale_mode)
+        if isinstance(w13, QTensor) or isinstance(w2, QTensor):
+            y, drop, _ = _flow_fwd(recipe, cfg, n, x, p, ids, w13, w2)
+        else:
+            y, drop = _OverlapFlow.apply(recipe, cfg, n, x, p, ids, w13, w2)
+    else:
+        y, drop = _overlap_chunks_autodiff(recipe, cfg, n, x, p, ids, w13,
+                                           w2)
+    return y, {"aux_loss": aux, "drop_frac": drop}
+
+
+def _overlap_chunks_autodiff(recipe, cfg, n, x, p, ids, w13, w2):
+    """bf16 / blockwise / naive_fp8: the chunks built from the block's own
+    differentiable pieces, each keeping its recipe's casts at the dispatch
+    boundary (for the baselines the per-chunk casts ARE the cost the
+    paper counts)."""
+    T, D = x.shape
+    E_loc, k = cfg.n_experts, cfg.top_k
+    Tc, C_send, R, C_exp = _chunk_geometry(recipe, cfg, T, n, 1, E_loc)
+    ys, drops = [], []
+    for c in range(n):
+        xc, pc = x[c * Tc:(c + 1) * Tc], p[c * Tc:(c + 1) * Tc]
+        with stage_annotation("dispatch"):
+            rms, se, sa, dc = _dispatch_plan(ids[c * Tc:(c + 1) * Tc], k, 1,
+                                             E_loc, C_send)
+            if recipe.name == "naive_fp8":
+                recv_in = _a2a(fp8_dispatch_naive(recipe, xc, rms))
+            else:
+                recv_in = _a2a(_take_rows(xc.to(torch.bfloat16), rms))
+            recv_expert = _a2a(se)
+            recv_p = _a2a(_slot_probs(pc, sa))
+        with stage_annotation("expert"):
+            rme, ret = _expert_plan(recv_expert, E_loc, C_exp)
+            x_exp = _take_rows(recv_in, rme).reshape(E_loc, C_exp, D)
+            y_exp = expert_ffn(recipe, cfg.act, x_exp, w13, w2,
+                               out_tag="stage_expert_out")
+            p_exp = _take_rows(recv_p[:, None], rme).reshape(E_loc, C_exp)
+            y_exp = y_exp * p_exp[..., None].to(y_exp.dtype)
+        with stage_annotation("combine"):
+            y_back = _a2a(_take_rows(y_exp.reshape(E_loc * C_exp, D), ret))
+            ys.append(_segment_sum(y_back, torch.where(rms >= 0, rms, Tc),
+                                   Tc))
+        drops.append(dc)
+    y = torch.cat(ys, dim=0).to(x.dtype)
+    return y, torch.stack(drops).mean()
+
+
+def _flow_fwd(recipe, cfg, n, x, p, ids, w13, w2):
+    """fp8_flow's forward pipeline (the reference's ``_flow_fwd_impl``).
+    Returns (y, drop_frac, what the backward needs)."""
+    T, D = x.shape
+    E_loc, k = cfg.n_experts, cfg.top_k
+    Tc, C_send, R, C_exp = _chunk_geometry(recipe, cfg, T, n, 1, E_loc)
+    qw13, qw2 = _quant_weights(recipe, w13, w2)
+
+    with stage_annotation("dispatch"):
+        # ONE entry quantize for the whole block (the counted forward
+        # cast); each chunk gathers its rows
+        casts.record("quantize", "q_entry", x.numel())
+        q = ops.quantize_rowwise(
+            fault_injection.apply("activation", "q_entry", x))
+        plans = [_dispatch_plan(ids[c * Tc:(c + 1) * Tc], k, 1, E_loc,
+                                C_send) for c in range(n)]
+
+    def issue_dispatch(c):
+        rms, se, sa, _ = plans[c]
+        gmap = torch.where(rms >= 0, rms + c * Tc, -1)
+        qs = ops.fused_permute_pad(q, gmap)
+        pf = _slot_probs(p[c * Tc:(c + 1) * Tc], sa)
+        return _a2a(_pack_dispatch_msg(qs.data, qs.scale, se, pf))
+
+    with stage_annotation("dispatch"):
+        recv = issue_dispatch(0)
+    ys, saved = [], []
+    for c in range(n):
+        with stage_annotation("dispatch"):
+            # chunk c+1's message is issued before chunk c's FFN
+            nxt = issue_dispatch(c + 1) if c + 1 < n else None
+            d_r, s_r, e_r, p_r = _unpack_dispatch_msg(recv, D)
+        with stage_annotation("expert"):
+            rme, ret = _expert_plan(e_r, E_loc, C_exp)
+            qe = ops.fused_permute_pad(QTensor(d_r, s_r, row_tile(2)), rme)
+            qx_c = QTensor(qe.data.reshape(E_loc, C_exp, D),
+                           qe.scale.reshape(E_loc, C_exp, D // TILE),
+                           (1, 1, TILE))
+            mm_c = _masked_m_or_none(recipe, rme, E_loc, C_exp)
+            y_exp, (qx_c, qa_c, h_c) = ffn_fwd_fp8_core(
+                recipe, cfg.act, qx_c, qw13, qw2, mm_c,
+                out_tag="stage_expert_out")
+            p_exp = _take_rows(p_r[:, None], rme).reshape(E_loc, C_exp)
+            y_w = y_exp * p_exp[..., None].to(y_exp.dtype)
+        with stage_annotation("combine"):
+            y_back = _a2a(_take_rows(y_w.reshape(E_loc * C_exp, D), ret))
+            rms = plans[c][0]
+            ys.append(_segment_sum(y_back, torch.where(rms >= 0, rms, Tc),
+                                   Tc))
+        saved.append((rms, plans[c][2], rme, ret, qx_c, qa_c, h_c, p_exp,
+                      y_exp, mm_c))
+        recv = nxt
+    y = torch.cat(ys, dim=0).to(x.dtype)
+    drop = torch.stack([pl[3] for pl in plans]).mean()
+    return y, drop, (saved, qw13, qw2)
+
+
+class _OverlapFlow(torch.autograd.Function):
+    """fp8_flow's overlapped core with the reference's hand-written
+    backward pipeline (``_ocf_bwd``): a reverse combine a chunk (bf16),
+    ONE island quantize over every chunk's cotangent, then a chunk at a
+    time the FFN backward and the fused reverse message with the FP8
+    input gradient and the prob gradient, landed one chunk later.  The
+    ledger of the forward is re-entered in the backward (casts.py)."""
+
+    @staticmethod
+    def forward(ctx, recipe, cfg, n, x, p, ids, w13, w2):
+        ctx.ledger = casts.current()
+        y, drop, (saved, qw13, qw2) = _flow_fwd(recipe, cfg, n, x, p, ids,
+                                                w13, w2)
+        flat = [qw13, qw2]
+        for sv in saved:
+            flat += list(sv)
+        _save_q(ctx, *flat)
+        ctx.recipe, ctx.cfg, ctx.n = recipe, cfg, n
+        ctx.x_dtype, ctx.w_dtypes = x.dtype, (w13.dtype, w2.dtype)
+        ctx.mark_non_differentiable(drop)
+        return y, drop
+
+    @staticmethod
+    def backward(ctx, g_y, _g_drop):
+        flat = _saved_q(ctx)
+        qw13, qw2 = flat[:2]
+        saved = [flat[2 + 10 * c:12 + 10 * c] for c in range(ctx.n)]
+        with casts.use(ctx.ledger):
+            g_x, g_p, wg13, wg2 = _flow_bwd(ctx.recipe, ctx.cfg, ctx.n,
+                                            saved, qw13, qw2, g_y,
+                                            ctx.x_dtype)
+        wd13, wd2 = ctx.w_dtypes
+        return (None, None, None, g_x, g_p, None, wg13.to(wd13),
+                wg2.to(wd2))
+
+
+def _flow_bwd(recipe, cfg, n, saved, qw13, qw2, g_y, x_dtype):
+    T, D = g_y.shape
+    Tc, k = T // n, cfg.top_k
+    E_loc, C_exp, _ = saved[0][4].data.shape
+    S = E_loc * C_exp
+
+    # stage 1: each chunk's reverse combine (bf16)
+    g_yexp, g_pexp = [], []
+    for c in range(n):
+        rms, sa, rme, ret, qx_c, qa_c, h_c, p_exp, y_exp, mm_c = saved[c]
+        g_back = _take_rows(g_y[c * Tc:(c + 1) * Tc].to(torch.float32), rms)
+        g_ret = _a2a(g_back.to(torch.bfloat16))
+        g_yw = _take_rows(g_ret, rme).reshape(E_loc, C_exp, D)
+        g_yexp.append(g_yw * p_exp[..., None].to(g_yw.dtype))
+        g_pexp.append((g_yw.to(torch.float32)
+                       * y_exp.to(torch.float32)).sum(-1))
+        del g_back, g_ret, g_yw
+
+    # the ONE explicit backward cast (BF16 island -> FP8), hoisted out of
+    # the chunk loop.  The reference quantizes concat(g_yexp, axis=1) and
+    # slices it; row-wise scales make quantize(rows) independent of the
+    # rows' order, so the chunks are stacked on a leading axis instead and
+    # each chunk's slice stays contiguous: the same rows, bits and count.
+    qg_all = _q_row(recipe, torch.stack(g_yexp).reshape(n * E_loc, C_exp, D),
+                    "q_bwd_island")
+    del g_yexp
+    qg_d = qg_all.data.reshape(n, E_loc, C_exp, D)
+    qg_s = qg_all.scale.reshape(n, E_loc, C_exp, D // TILE)
+
+    # stage 2: a chunk at a time, the FFN backward and the fused reverse
+    # message; chunk c's message lands while chunk c+1's FFN backward runs
+    wg13 = wg2 = None
+    gx_chunks, gp_chunks = [None] * n, [None] * n
+
+    def land(c, msg):
+        rms, sa = saved[c][0], saved[c][1]
+        gd, gs, gp = _unpack_bwd_msg(msg, D)
+        casts.record("fused_dequantize", "dispatch_bwd", gd.numel())
+        g_rows = _dequantize_nocount(QTensor(gd, gs, row_tile(2)),
+                                     torch.bfloat16)
+        gx_chunks[c] = _segment_sum(g_rows, torch.where(rms >= 0, rms, Tc),
+                                    Tc).to(x_dtype)
+        gp_chunks[c] = _segment_sum(
+            gp[:, None], torch.where(sa >= 0, sa, Tc * k),
+            Tc * k)[:, 0].reshape(Tc, k)
+
+    pending = None
+    for c in range(n):
+        rms, sa, rme, ret, qx_c, qa_c, h_c, p_exp, y_exp, mm_c = saved[c]
+        qg_c = QTensor(qg_d[c], qg_s[c], qg_all.tile)
+        gxq, wg13_c, wg2_c = ffn_bwd_fp8_core(
+            recipe, cfg.act, qx_c, qa_c, qw13, qw2, qg_c, torch.float32,
+            torch.float32, masked_m=mm_c, h_saved=h_c)
+        wg13 = wg13_c if wg13 is None else wg13.add_(wg13_c)
+        wg2 = wg2_c if wg2 is None else wg2.add_(wg2_c)
+        del wg13_c, wg2_c
+        # the inverse expert-grouping permute (FP8-exact), then ONE fused
+        # reverse message: payload, scales and the prob gradients together
+        gq = ops.fused_permute_pad(
+            QTensor(gxq.data.reshape(S, D), gxq.scale.reshape(S, D // TILE),
+                    row_tile(2)), ret)
+        gp_r = _take_rows(g_pexp[c].reshape(S, 1), ret)[:, 0]
+        msg = _a2a(_pack_bwd_msg(gq.data, gq.scale, gp_r))
+        del gxq, gq
+        if pending is not None:
+            land(*pending)
+        pending = (c, msg)
+    land(*pending)
+    return (torch.cat(gx_chunks, dim=0), torch.cat(gp_chunks, dim=0),
+            wg13, wg2)

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import trace
+
 NEG_INF = -1e30
 
 
@@ -170,7 +172,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap,
                 block_k):
-        with torch.profiler.record_function("flash_fwd"):
+        with trace.annotate("flash_fwd"):
             out, lse = _flash_fwd(q, k, v, q_pos, kv_pos, causal, window,
                                   softcap, block_k)
         ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
@@ -181,7 +183,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
-        with torch.profiler.record_function("flash_bwd"):
+        with trace.annotate("flash_bwd"):
             dq, dk, dv = _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, g,
                                     *ctx.spec)
         return dq, dk, dv, None, None, None, None, None, None

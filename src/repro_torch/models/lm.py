@@ -41,7 +41,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linear import _bf16_matmul, _gelu_f32, dense_mlp
-from repro_torch.core.moe import MoEConfig, moe_block, moe_block_decode
+from repro_torch.core.moe import (MoEConfig, moe_block, moe_block_decode,
+                                  moe_block_decode_overlapped,
+                                  moe_block_overlapped)
 from repro_torch.core.quant import QTensor, tag_saveable
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import CHUNK_ELEMS, resolve_device
@@ -49,6 +51,7 @@ from repro_torch.models.layers import (apply_norm, attn_block,
                                        decode_attention, flash_attention,
                                        project_qkv, rmsnorm)
 from repro_torch.models.ssm import mamba2_block
+from repro_torch.obs.trace import stage_annotation
 from repro_torch.serve.paged_kv import (SCRATCH_PAGE, page_read,
                                         page_write_rows)
 from repro_torch.serve.w8 import w8_merge_gate
@@ -270,11 +273,16 @@ def _mlp_decode(cfg, p, x):
     return _bf16_matmul(a.to(x.dtype), p["w2"].to(x.dtype))
 
 
-def _moe_stage(cfg, recipe: Recipe, p, x, decode=False):
+def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, moe_overlap=None):
     """x (B, S, D) -> (B, S, D), aux loss.  Prefill runs ``moe_block``,
     decode ``moe_block_decode`` (the reference's EP/decode modes at EP=1);
     the shared experts add their MLP after the routed block, through
-    ``_mlp_stage`` or, in decode, ``_mlp_decode``."""
+    ``_mlp_stage`` or, in decode, ``_mlp_decode``.  With `moe_overlap` (a
+    ``core.moe.DispatchPlan``; the reference carries it on
+    ``ParallelPlan.moe_overlap``) prefill runs ``moe_block_overlapped`` at
+    ``chunks_for(T)`` chunks, with the shared experts issued before the
+    routed block, and decode ``moe_block_decode_overlapped`` at
+    ``decode_chunks_for(T)``.  None keeps the monolithic blocks."""
     B, S, D = x.shape
     mcfg = MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k, d_model=D,
                      d_ff=cfg.d_ff_expert, capacity_factor=cfg.capacity_factor,
@@ -285,13 +293,30 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False):
     else:
         E, Dl, g, F = we13.shape
         we13 = we13.reshape(E, Dl, g * F)
-    block = moe_block_decode if decode else moe_block
-    y, m = block(recipe, mcfg, x.reshape(B * S, D), p["w_router"], we13, we2)
+    xf = x.reshape(B * S, D)
+    shared = {"w13": p.get("ws13"), "w2": p.get("ws2")}
+    shared_out = None
+    if moe_overlap is None:
+        block = moe_block_decode if decode else moe_block
+        y, m = block(recipe, mcfg, xf, p["w_router"], we13, we2)
+    elif decode:
+        y, m = moe_block_decode_overlapped(
+            recipe, mcfg, xf, p["w_router"], we13, we2,
+            n_chunks=moe_overlap.decode_chunks_for(B * S))
+    else:
+        # the shared experts depend on x only: issued before the routed
+        # block, as the reference does under its overlap plan
+        if cfg.n_shared_experts:
+            shared_out = _mlp_stage(cfg, recipe, shared, x)
+        y, m = moe_block_overlapped(
+            recipe, mcfg, xf, p["w_router"], we13, we2,
+            n_chunks=moe_overlap.chunks_for(B * S))
     y = y.reshape(B, S, D)
     if cfg.n_shared_experts:
-        shared = {"w13": p["ws13"], "w2": p["ws2"]}
-        y = y + (_mlp_decode(cfg, shared, x) if decode
-                 else _mlp_stage(cfg, recipe, shared, x))
+        if shared_out is None:
+            shared_out = (_mlp_decode(cfg, shared, x) if decode
+                          else _mlp_stage(cfg, recipe, shared, x))
+        y = y + shared_out
     return y, m["aux_loss"]
 
 
@@ -314,19 +339,22 @@ def _train_layer_slices(stack_params, n: int):
 
 
 def stage_ln_attn(cfg, p, x, positions, window: int, causal: bool = True):
-    """Pre-norm + attention + residual add; the stage output is tagged for
-    the 'full' policy (train/memory.py)."""
-    h = apply_norm(cfg.norm, x, p, "ln1")
-    out, _ = attn_block(cfg, p, h, positions=positions, layer_window=window,
-                        causal=causal)
-    return tag_saveable(x + out, "stage_attn_out")
+    """Named stage 'attn': pre-norm + attention + residual add; the stage
+    output is tagged for the 'full' policy (train/memory.py)."""
+    with stage_annotation("attn"):
+        h = apply_norm(cfg.norm, x, p, "ln1")
+        out, _ = attn_block(cfg, p, h, positions=positions,
+                            layer_window=window, causal=causal)
+        return tag_saveable(x + out, "stage_attn_out")
 
 
-def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True):
+def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True,
+               moe_overlap=None):
     """One layer: the mixer (attention; a Mamba2 mixer for ``ssm``; both
     on the same normed input, averaged, for ``hybrid``), then the MoE
-    stage or the dense MLP (none for a mixer-only ssm layer).  Returns
-    (x, aux), aux None without a router."""
+    stage or the dense MLP (none for a mixer-only ssm layer; the dense
+    FFN is one 'expert' stage, as in the reference).  Returns (x, aux),
+    aux None without a router."""
     if kind in ("ssm", "hybrid"):
         h = apply_norm(cfg.norm, x, p, "ln1")
         mix, _, _ = mamba2_block(cfg, p, h)
@@ -342,9 +370,11 @@ def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True):
                           cfg.window if kind == "local" else 0, causal)
     h2 = tag_saveable(apply_norm(cfg.norm, x, p, "ln2"), "stage_ffn_in")
     if moe_layer:
-        mo, aux = _moe_stage(cfg, recipe, p, h2)
+        mo, aux = _moe_stage(cfg, recipe, p, h2, moe_overlap=moe_overlap)
         return x + mo, aux
-    return x + _mlp_stage(cfg, recipe, p, h2), None
+    with stage_annotation("expert"):
+        mo = _mlp_stage(cfg, recipe, p, h2)
+    return x + mo, None
 
 
 def _run_blocks(cfg, layer_fns, x):
@@ -370,13 +400,14 @@ def _run_blocks(cfg, layer_fns, x):
 
 
 def _run_stack(cfg, recipe, stack_params, pattern, n_layers, moe, x,
-               positions, causal=True):
+               positions, causal=True, moe_overlap=None):
     """The reference's stack as a loop over layer slices in checkpoint
     blocks; returns (x, the summed aux losses)."""
     pattern = _pattern_or_fallback(pattern, n_layers)
     fns = [functools.partial(_sub_layer, cfg, recipe,
                              pattern[i % len(pattern)], moe, p,
-                             positions=positions, causal=causal)
+                             positions=positions, causal=causal,
+                             moe_overlap=moe_overlap)
            for i, p in enumerate(_train_layer_slices(stack_params,
                                                      n_layers))]
     return _run_blocks(cfg, fns, x)
@@ -419,7 +450,8 @@ def _run_encoder(cfg, recipe, params, enc_input):
     return _final_norm(cfg, params, enc), aux
 
 
-def _run_encdec_decoder(cfg, recipe, params, x, positions, enc):
+def _run_encdec_decoder(cfg, recipe, params, x, positions, enc,
+                        moe_overlap=None):
     """The decoder stack with cross-attention: each layer's self-attention
     and MLP, then cross-attention to its projection of `enc`, added to
     the residual."""
@@ -427,7 +459,7 @@ def _run_encdec_decoder(cfg, recipe, params, x, positions, enc):
 
     def layer(p_self, p_cross, x):
         x, a = _sub_layer(cfg, recipe, "global", cfg.moe, p_self, x,
-                          positions)
+                          positions, moe_overlap=moe_overlap)
         h = rms_or_ln(cfg, x, p_cross)
         c_out, _ = attn_block(cfg, p_cross, h, positions=positions,
                               cross_kv=_project_cross_kv(cfg, p_cross, enc))
@@ -485,13 +517,15 @@ def xent(logits, targets, mask):
 
 
 def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
-            compute_loss: bool = True):
+            compute_loss: bool = True, moe_overlap=None):
     """batch: {'tokens' (B, S) int, 'targets' (B, S), optional 'mask'
     (B, S), optional 'prefix' (B, P, D) [the vision or audio frontend's
     stub embeddings, put in front of the tokens and cut off before the
     logits], 'enc_input' (B, S_enc, D) [an encoder-decoder's; required]}.
     Runs the encoder, the dense prologue, then the main stack.  Returns
-    (loss, metrics) or, with compute_loss=False, (logits, metrics)."""
+    (loss, metrics) or, with compute_loss=False, (logits, metrics).
+    `moe_overlap` (a ``core.moe.DispatchPlan``) runs the MoE layers through
+    the chunked blocks (``_moe_stage``)."""
     nd = _n_dense(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
@@ -514,10 +548,12 @@ def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
                           (cfg.pattern[0],), nd, False, x, positions)
         aux = aux + a
     if cfg.encdec:
-        x, a = _run_encdec_decoder(cfg, recipe, params, x, positions, enc)
+        x, a = _run_encdec_decoder(cfg, recipe, params, x, positions, enc,
+                                   moe_overlap)
     else:
         x, a = _run_stack(cfg, recipe, params["layers"], cfg.pattern,
-                          cfg.n_layers - nd, cfg.moe, x, positions)
+                          cfg.n_layers - nd, cfg.moe, x, positions,
+                          moe_overlap=moe_overlap)
     aux = aux + a
     x = _final_norm(cfg, params, x)
     if prefix is not None:
@@ -579,7 +615,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _decode_stack(cfg, recipe, stack_params, stack_kinds, moe, x, positions,
-                  pos, attn_c, ssm_c, cross_c=None, cross_params=None):
+                  pos, attn_c, ssm_c, cross_c=None, cross_params=None,
+                  moe_overlap=None):
     """One decode step through a stack: each layer's mixer against its
     cache slices (K/V rows and SSM states written in place), then
     cross-attention over ``cross`` (read, never written) for an
@@ -609,9 +646,10 @@ def _decode_stack(cfg, recipe, stack_params, stack_kinds, moe, x, positions,
         else:
             if ssm_c is not None:
                 convs.append(ssm_c["conv"][i])
-            mix, _ = attn_block(cfg, pi, h, positions=positions,
-                                layer_window=cfg.window if kind == "local"
-                                else 0, cache=kv, cache_pos=pos)
+            with stage_annotation("attn"):
+                mix, _ = attn_block(cfg, pi, h, positions=positions,
+                                    layer_window=cfg.window if kind == "local"
+                                    else 0, cache=kv, cache_pos=pos)
         x = x + mix
         if cross_params is not None:
             pc = layer_slice(cross_params, i)
@@ -623,19 +661,25 @@ def _decode_stack(cfg, recipe, stack_params, stack_kinds, moe, x, positions,
             x = x + c_out
         if not (kind == "ssm" and not cfg.d_ff):
             h2 = apply_norm(cfg.norm, x, pi, "ln2")
-            mo = _moe_stage(cfg, recipe, pi, h2, decode=True)[0] if moe \
-                else _mlp_decode(cfg, pi, h2)
+            if moe:
+                mo = _moe_stage(cfg, recipe, pi, h2, decode=True,
+                                moe_overlap=moe_overlap)[0]
+            else:
+                with stage_annotation("expert"):
+                    mo = _mlp_decode(cfg, pi, h2)
             x = x + mo
     return x, (torch.stack(convs) if ssm_c is not None else None)
 
 
 @torch.no_grad()
-def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos):
+def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos,
+                moe_overlap=None):
     """One decode step.  tokens (B, 1) int; pos: a scalar (one shared
     position, the fixed-batch path) or a (B,) tensor of per-request
     positions (cache rows [0, pos_b) hold the history).  The cache (from
     ``init_cache``) is updated in place but for the SSM conv histories,
-    which are replaced.  Returns (logits (B, 1, V), the cache)."""
+    which are replaced.  `moe_overlap`: as ``forward``'s, its decode
+    depth.  Returns (logits (B, 1, V), the cache)."""
     x = _embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
@@ -649,7 +693,8 @@ def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos):
     x, convs = _decode_stack(cfg, recipe, params["layers"], kinds[nd:],
                              cfg.moe, x, positions, pos,
                              cache.get("main_attn"), ssm_c,
-                             cache.get("cross"), params.get("cross_layers"))
+                             cache.get("cross"), params.get("cross_layers"),
+                             moe_overlap=moe_overlap)
     if convs is not None:
         new_cache["main_ssm"] = {"state": ssm_c["state"], "conv": convs}
     logits = _lm_logits(cfg, params, _final_norm(cfg, params, x))
@@ -661,7 +706,8 @@ def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos):
 # ---------------------------------------------------------------------------
 def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, moe, x, pool,
                      positions, page_idx, slot_idx, *, decode,
-                     page_tables=None, pos=None, history=False):
+                     page_tables=None, pos=None, history=False,
+                     moe_overlap=None):
     """Run a layer stack against its paged K/V pools (updated in place).
 
     decode=True reads the paged history through `page_tables` and masks by
@@ -680,37 +726,42 @@ def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, moe, x, pool,
         kc = {name: t[i] for name, t in pool["k"].items()}
         vc = {name: t[i] for name, t in pool["v"].items()}
         window = cfg.window if kind == "local" else 0
-        h = apply_norm(cfg.norm, x, pi, "ln1")
-        q, k, v = project_qkv(cfg, pi, h, positions)
-        page_write_rows(kc, k[:, 0] if decode else k[0], page_idx, slot_idx)
-        page_write_rows(vc, v[:, 0] if decode else v[0], page_idx, slot_idx)
-        if decode:
-            kd = page_read(kc, page_tables, q.dtype)
-            vd = page_read(vc, page_tables, q.dtype)
-            o = decode_attention(q, kd, vd, pos=pos, window=window,
-                                 softcap=cfg.attn_softcap)
-        elif history:
-            kd = page_read(kc, page_tables, q.dtype)
-            vd = page_read(vc, page_tables, q.dtype)
-            Skv = kd.shape[1]
-            bk = next(b for b in (256, 128, 64, 32, 16, 8, 4, 2, 1)
-                      if Skv % b == 0)
-            o = flash_attention(q, kd, vd, q_pos=positions,
-                                kv_pos=torch.arange(Skv, device=x.device),
-                                causal=True, window=window,
-                                softcap=cfg.attn_softcap, block_k=bk)
-        else:
-            o = flash_attention(q, k, v, q_pos=positions, kv_pos=positions,
-                                causal=True, window=window,
-                                softcap=cfg.attn_softcap)
-        B, S = x.shape[:2]
-        x = x + o.reshape(B, S, -1) @ pi["wo"].to(x.dtype)
+        with stage_annotation("attn"):
+            h = apply_norm(cfg.norm, x, pi, "ln1")
+            q, k, v = project_qkv(cfg, pi, h, positions)
+            page_write_rows(kc, k[:, 0] if decode else k[0], page_idx,
+                            slot_idx)
+            page_write_rows(vc, v[:, 0] if decode else v[0], page_idx,
+                            slot_idx)
+            if decode:
+                kd = page_read(kc, page_tables, q.dtype)
+                vd = page_read(vc, page_tables, q.dtype)
+                o = decode_attention(q, kd, vd, pos=pos, window=window,
+                                     softcap=cfg.attn_softcap)
+            elif history:
+                kd = page_read(kc, page_tables, q.dtype)
+                vd = page_read(vc, page_tables, q.dtype)
+                Skv = kd.shape[1]
+                bk = next(b for b in (256, 128, 64, 32, 16, 8, 4, 2, 1)
+                          if Skv % b == 0)
+                o = flash_attention(q, kd, vd, q_pos=positions,
+                                    kv_pos=torch.arange(Skv, device=x.device),
+                                    causal=True, window=window,
+                                    softcap=cfg.attn_softcap, block_k=bk)
+            else:
+                o = flash_attention(q, k, v, q_pos=positions,
+                                    kv_pos=positions, causal=True,
+                                    window=window, softcap=cfg.attn_softcap)
+            B, S = x.shape[:2]
+            x = x + o.reshape(B, S, -1) @ pi["wo"].to(x.dtype)
         h2 = apply_norm(cfg.norm, x, pi, "ln2")
         if moe:
-            mo, _ = _moe_stage(cfg, recipe, pi, h2, decode=decode)
+            mo, _ = _moe_stage(cfg, recipe, pi, h2, decode=decode,
+                               moe_overlap=moe_overlap)
         else:
-            mo = _mlp_decode(cfg, pi, h2) if decode \
-                else _mlp_stage(cfg, recipe, pi, h2)
+            with stage_annotation("expert"):
+                mo = _mlp_decode(cfg, pi, h2) if decode \
+                    else _mlp_stage(cfg, recipe, pi, h2)
         x = x + mo
     return x
 
@@ -736,12 +787,13 @@ def _final_norm(cfg, params, x):
 
 
 def paged_decode_step(cfg: ArchConfig, recipe: Recipe, params, pools,
-                      page_tables, tokens, pos, active):
+                      page_tables, tokens, pos, active, moe_overlap=None):
     """One continuous-batching decode step over paged pools.
 
     tokens (B, 1) int; pos (B,) per-request positions of this token; active
     (B,) bool (inactive slots write to the scratch page; their outputs are
-    garbage); page_tables (B, max_pages).  Returns logits (B, 1, V)."""
+    garbage); page_tables (B, max_pages).  `moe_overlap`: as
+    ``forward``'s, its decode depth.  Returns logits (B, 1, V)."""
     x = _embed_tokens(cfg, params, tokens)
     B = x.shape[0]
     pos = pos.to(torch.int64)
@@ -751,19 +803,21 @@ def paged_decode_step(cfg: ArchConfig, recipe: Recipe, params, pools,
                            SCRATCH_PAGE)
     x = _run_paged_stacks(cfg, recipe, params, pools, x, pos[:, None],
                           page_idx, pos % ps, decode=True,
-                          page_tables=page_tables, pos=pos)
+                          page_tables=page_tables, pos=pos,
+                          moe_overlap=moe_overlap)
     return _lm_logits(cfg, params, _final_norm(cfg, params, x))
 
 
 def paged_prefill(cfg: ArchConfig, recipe: Recipe, params, pools,
                   page_table_row, tokens, length: int, start: int = 0,
-                  history: bool = False):
+                  history: bool = False, moe_overlap=None):
     """Prefill ONE request's prompt chunk into its pages.
 
     tokens (1, S), right-padded to the bucket S; `length` valid tokens in
     this chunk at absolute offset `start`; rows >= length land on the
     scratch page.  history=True attends to the rows [0, start) already in
-    the pages.  Returns logits (1, 1, V) at position start + length - 1."""
+    the pages.  `moe_overlap`: as ``forward``'s.  Returns logits (1, 1, V)
+    at position start + length - 1."""
     x = _embed_tokens(cfg, params, tokens)
     S = x.shape[1]
     rel = torch.arange(S, device=x.device)
@@ -776,7 +830,8 @@ def paged_prefill(cfg: ArchConfig, recipe: Recipe, params, pools,
     page_idx = torch.where(rel < length, pages.to(torch.int64), SCRATCH_PAGE)
     x = _run_paged_stacks(cfg, recipe, params, pools, x, positions,
                           page_idx, positions % ps, decode=False,
-                          page_tables=page_table_row[None], history=history)
+                          page_tables=page_table_row[None], history=history,
+                          moe_overlap=moe_overlap)
     x = _final_norm(cfg, params, x)
     last = min(max(int(length) - 1, 0), S - 1)
     return _lm_logits(cfg, params, x[:, last:last + 1])

@@ -1,9 +1,9 @@
 """Structured event + metric sinks, and the Telemetry facade the train
 loop and the launchers talk to.
 
-A copy of ``repro.obs.sink``, with the host wall-clock ``Span`` that the
-reference keeps in ``obs/trace.py`` (the device annotations of that
-module come with ROADMAP.md, Queue 1, item 9).
+A copy of ``repro.obs.sink``.  ``Span``, the host wall-clock span, lives
+in ``obs/trace.py`` as in the reference and is re-exported here, so
+``from repro_torch.obs.sink import Span`` keeps working.
 
 Every record is one flat JSON-able dict with at least {"t": wall-clock
 seconds, "kind": <event kind>}.  Three sinks:
@@ -27,6 +27,7 @@ from collections import deque
 from typing import Dict, Iterable, List, Optional
 
 from repro_torch.obs.metrics import MS_BUCKETS, Registry
+from repro_torch.obs.trace import Span  # noqa: F401  (re-exported)
 
 
 class NullSink:
@@ -181,35 +182,6 @@ class Telemetry:
 
     def close(self) -> None:
         self.sink.close()
-
-
-class Span:
-    """Host-side wall-clock span; records into telemetry on exit.
-
-    Usage::
-
-        with tel.span("device_step") as sp:
-            ...work...
-        print(sp.ms)
-    """
-
-    __slots__ = ("tel", "name", "t0", "ms")
-
-    def __init__(self, tel, name: str):
-        self.tel, self.name = tel, name
-        self.t0 = 0.0
-        self.ms = 0.0
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.ms = (time.perf_counter() - self.t0) * 1e3
-        if self.tel is not None:
-            self.tel.histogram("span_ms", labels={"span": self.name}) \
-                .observe(self.ms)
-        return False
 
 
 def _render(kind: str, fields: dict) -> str:

@@ -110,14 +110,19 @@ class ServeEngine:
 
         eng = ServeEngine(cfg, recipe, params, ServeConfig(...), device="cuda")
         results = eng.run([Request(prompt=[...], max_new_tokens=8), ...])
+
+    `moe_overlap` (a ``core.moe.DispatchPlan``) runs the MoE layers of the
+    prefill and decode steps through the chunked blocks; None keeps the
+    monolithic ones.
     """
 
     def __init__(self, cfg: ArchConfig, recipe: Recipe, params,
                  ecfg: ServeConfig = ServeConfig(), device="cuda",
-                 telemetry=None):
+                 telemetry=None, moe_overlap=None):
         check_decode_recipe(recipe)
         self.device = resolve_device(device)
         self.cfg, self.recipe, self.ecfg = cfg, recipe, ecfg
+        self.moe_overlap = moe_overlap
         self.tel = telemetry if telemetry is not None else null_telemetry()
         if ecfg.role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"unknown role {ecfg.role!r}")
@@ -278,7 +283,8 @@ class ServeEngine:
             lg = paged_prefill(self.cfg, self.recipe, self.params, self.pools,
                                self._tensor(ptrow), self._tensor(tokens),
                                chunk, start=pf.prefill_pos,
-                               history=pf.prefill_pos > 0)
+                               history=pf.prefill_pos > 0,
+                               moe_overlap=self.moe_overlap)
             temp = torch.full((1,), float(pf.req.temperature),
                               device=self.device)
             out["prefill_tok"] = sample_tokens(lg[:, -1, :], temp,
@@ -300,7 +306,8 @@ class ServeEngine:
             lg = paged_decode_step(self.cfg, self.recipe, self.params,
                                    self.pools, self._tensor(pt),
                                    self._tensor(last[:, None]),
-                                   self._tensor(pos), self._tensor(active))
+                                   self._tensor(pos), self._tensor(active),
+                                   moe_overlap=self.moe_overlap)
             out["decode_toks"] = sample_tokens(lg[:, -1, :],
                                                self._tensor(temps),
                                                ecfg.top_k, self.gen)

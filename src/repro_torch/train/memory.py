@@ -69,6 +69,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import casts, quant
 from repro_torch.core.quant import BF16_STAGE_NAMES, FP8_SAVE_NAMES
+from repro_torch.obs import trace
 from repro_torch.runtime import fault_injection
 
 POLICIES = ("none", "full", "fp8_resident", "pair")
@@ -139,7 +140,7 @@ class _BlockContext:
         self._stack = contextlib.ExitStack()
         if self.recompute is not None:
             self.stash.cursor = {}
-            self._stack.enter_context(torch.profiler.record_function(
+            self._stack.enter_context(trace.annotate(
                 f"remat/{self.recompute}/recompute"))
             self._stack.enter_context(casts.use(None))
             self._stack.enter_context(quant.stats_muted())
@@ -209,11 +210,21 @@ class MemoryPlan:
     def checkpoint(self, f, *args):
         """(f(*args) under the policy's checkpoint, the block's stash).
         This is the only place in the port where ``torch.utils.checkpoint``
-        is invoked.  With autograd off (serving, evaluation) f runs as it
-        is: there is no backward to keep anything for."""
+        is invoked.  f runs inside the ``remat/<policy>`` range
+        (obs/trace.py), as the reference's body does inside its named
+        scope.  With autograd off (serving, evaluation) f runs as it is:
+        there is no backward to keep anything for."""
         stash = _Stash(_KEPT_NAMES[self.policy])
-        if self.policy == "none" or not torch.is_grad_enabled():
+        if self.policy == "none":
             return f(*args), stash
+
+        def named(*a):
+            # the reference's remat/<policy> scope over the block's body:
+            # its forward and its recompute both run inside it
+            with trace.annotate(f"remat/{self.policy}"):
+                return f(*a)
+        if not torch.is_grad_enabled():
+            return named(*args), stash
         fault = fault_injection.armed()
 
         def contexts():
@@ -221,7 +232,7 @@ class MemoryPlan:
                     _BlockContext(stash, self.policy, fault))
         # no random draw in a layer's forward: no RNG state to restore
         out = torch.utils.checkpoint.checkpoint(
-            f, *args, use_reentrant=False, context_fn=contexts,
+            named, *args, use_reentrant=False, context_fn=contexts,
             preserve_rng_state=False)
         return out, stash
 

@@ -45,12 +45,15 @@ from repro_torch.train import guards
 def make_train_step(cfg: ArchConfig, recipe: Recipe, opt: adamw.AdamWConfig,
                     *, grad_accum: int = 1, dist=None,
                     total_steps: int = 100_000, warmup_steps: int = 100,
-                    guard: Optional[guards.GuardPlan] = None):
+                    guard: Optional[guards.GuardPlan] = None,
+                    moe_overlap=None):
     """Returns train_step(state, batch) -> (state, metrics); state =
     {'params', 'opt'[, 'guard']} as ``init_train_state`` builds it.  With
     grad_accum > 1 every batch leaf has a leading (grad_accum,) axis.
     The function carries its plan as ``train_step.guard`` (None when
-    unguarded), which ``loop.run`` checks against its GuardPolicy."""
+    unguarded), which ``loop.run`` checks against its GuardPolicy.
+    `moe_overlap` (a ``core.moe.DispatchPlan``) runs the MoE layers through
+    the chunked blocks (``models.lm.forward``)."""
     if dist is not None:
         raise NotImplementedError(
             "the distributed train step (FP8 DP wire, ZeRO-1) is not ported "
@@ -64,7 +67,8 @@ def make_train_step(cfg: ArchConfig, recipe: Recipe, opt: adamw.AdamWConfig,
             else contextlib.nullcontext()
         with ctx:
             loss, metrics, grads = _local_grads(cfg, recipe, params, batch,
-                                                grad_accum, guard is not None)
+                                                grad_accum, guard is not None,
+                                                moe_overlap)
         lr_scale = schedules.warmup_cosine(
             state["opt"]["step"], total_steps=total_steps,
             warmup_steps=warmup_steps)
@@ -102,10 +106,10 @@ def _grads_of(params):
     return adamw.tree_map(take, params)
 
 
-def _forward_backward(cfg, recipe, params, mb, armed):
+def _forward_backward(cfg, recipe, params, mb, armed, moe_overlap=None):
     for p in adamw.tree_leaves(params):
         p.grad = None
-    loss, metrics = forward(cfg, recipe, params, mb)
+    loss, metrics = forward(cfg, recipe, params, mb, moe_overlap=moe_overlap)
     loss.backward()
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
@@ -117,18 +121,21 @@ def _forward_backward(cfg, recipe, params, mb, armed):
     return loss.detach(), metrics
 
 
-def _local_grads(cfg, recipe, params, batch, grad_accum: int, armed: bool):
+def _local_grads(cfg, recipe, params, batch, grad_accum: int, armed: bool,
+                 moe_overlap=None):
     """(loss, forward metrics, grads).  With grad_accum > 1 the
     microbatch grads are summed in f32 and divided by grad_accum, and the
     loss and metrics are averaged, as the reference's scan does."""
     if grad_accum == 1:
-        loss, metrics = _forward_backward(cfg, recipe, params, batch, armed)
+        loss, metrics = _forward_backward(cfg, recipe, params, batch, armed,
+                                          moe_overlap)
         return loss, metrics, _grads_of(params)
     gsum = lsum = None
     ms = []
     for m in range(grad_accum):
         mb = {k: v[m] for k, v in batch.items()}
-        loss, metrics = _forward_backward(cfg, recipe, params, mb, armed)
+        loss, metrics = _forward_backward(cfg, recipe, params, mb, armed,
+                                          moe_overlap)
         g = _grads_of(params)
         if gsum is None:
             gsum = adamw.tree_map(lambda a: a.to(torch.float32), g)

@@ -1661,3 +1661,125 @@ def test_copy_page_is_the_cow_copy_on_card(card):
     assert torch.equal(after[6], before[3])
     assert all(torch.equal(a, b) for i, (a, b) in enumerate(
         zip(after, before)) if i != 6)
+
+
+# ---------------------------------------------------------------------------
+# The chunked (overlapped) MoE block, the expected_m hint and the roofline
+# tally on the card.
+# ---------------------------------------------------------------------------
+def _ovl_inputs(dev, T=512, D=256, F=256, E=8, k=2):
+    from repro_torch.core.moe import MoEConfig
+    r = np.random.default_rng(11)
+    cfg = MoEConfig(n_experts=E, top_k=k, d_model=D, d_ff=F,
+                    capacity_factor=2.0)
+    x = torch.tensor(r.normal(size=(T, D)).astype(np.float32)).to(
+        torch.bfloat16)
+    wr = torch.tensor((r.normal(size=(D, E)) * 0.02).astype(np.float32))
+    w13 = torch.tensor((r.normal(size=(E, D, 2 * F)) * 0.05).astype(
+        np.float32)).to(torch.bfloat16)
+    w2 = torch.tensor((r.normal(size=(E, F, D)) * 0.05).astype(
+        np.float32)).to(torch.bfloat16)
+    return cfg, [t.to(dev) for t in (x, wr, w13, w2)]
+
+
+def _ovl_run(recipe, cfg, inputs, n):
+    from repro_torch.core import casts
+    from repro_torch.core.moe import moe_block, moe_block_overlapped
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    with casts.ledger() as led:
+        if n:
+            y, m = moe_block_overlapped(recipe, cfg, *leaves, n_chunks=n)
+        else:
+            y, m = moe_block(recipe, cfg, *leaves)
+        (y.to(torch.float32) ** 2).sum().backward()
+    return [y.detach()] + [t.grad for t in leaves], led, float(m["drop_frac"])
+
+
+def _cos(a, b):
+    a, b = a.double().cpu().ravel(), b.double().cpu().ravel()
+    return float(a @ b / max(float(a.norm() * b.norm()), 1e-300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+def test_overlapped_block_on_card(card, n):
+    from repro_torch import kernels
+    """fp8_flow's chunked block on the card: 2 casts, every output and
+    gradient at cosine >= 0.999 against the card's monolithic block and
+    against the CPU twins' chunked block; the masked recipe bit for bit
+    the padded one, through the masked kernels only."""
+    from repro_torch.core.recipes import get_recipe
+    cfg, ins = _ovl_inputs(card)
+    padded = get_recipe("fp8_flow")
+    masked = get_recipe("fp8_flow", masked_experts=True, swiglu_epilogue=True)
+    mono, _, _ = _ovl_run(padded, cfg, ins, 0)
+    kernels.reset_launches()
+    got, led, drop = _ovl_run(padded, cfg, ins, n)
+    assert kernels.LAUNCHES["grouped_gemm_fp8"] > 0
+    assert kernels.LAUNCHES["grouped_gemm_nt_fp8"] > 0
+    assert led.activation_casts() == 2 and drop == 0.0
+    cpu, _, _ = _ovl_run(padded, cfg, [t.cpu() for t in ins], n)
+    for a, b, c in zip(got, mono, cpu):
+        assert _cos(a, b) >= 0.999 and _cos(a, c) >= 0.999
+    kernels.reset_launches()
+    got_m, led_m, _ = _ovl_run(masked, cfg, ins, n)
+    assert kernels.LAUNCHES["grouped_gemm_fp8"] == 0
+    assert kernels.LAUNCHES["masked_grouped_gemm_swiglu_quant"] > 0
+    assert led_m.activation_casts() == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, got_m))
+
+
+@pytest.mark.gpu
+def test_expected_m_takes_the_padded_kernel_on_card(card):
+    """At expected_m >= C the masked wrappers launch the padded kernels
+    (LAUNCHES) and give the masked launch's bits; the fused SwiGLU GEMM-1
+    never falls back."""
+    from repro_torch import kernels
+    E, C, K, N = 4, 256, 256, 512
+    mm = torch.tensor([256, 40, 0, 130], dtype=torch.int32, device=card)
+    live = torch.arange(C, device=card)[None, :, None] < mm[:, None, None]
+    x = torch.where(live, torch.from_numpy(_x(61, E, C, K)).to(card), 0)
+    qx = ops.quantize_rowwise(x.reshape(E * C, K).to(torch.bfloat16))
+    qx = QTensor(qx.data.reshape(E, C, K), qx.scale.reshape(E, C, K // TILE),
+                 (1, 1, TILE))
+    qw = quantize_blockwise(torch.from_numpy(_x(62, E, K, N) * 0.05).to(card))
+    kernels.reset_launches()
+    m_nn = ops.grouped_gemm_fp8_masked(qx, qw, mm)
+    m_q = ops.grouped_gemm_fp8_masked_quant_out(qx, qw, mm)
+    assert kernels.LAUNCHES["masked_grouped_gemm_fp8"] == 1
+    assert kernels.LAUNCHES["masked_grouped_gemm_fp8_quant_out"] == 1
+    kernels.reset_launches()
+    p_nn = ops.grouped_gemm_fp8_masked(qx, qw, mm, expected_m=C)
+    p_q = ops.grouped_gemm_fp8_masked_quant_out(qx, qw, mm, expected_m=C)
+    ops.grouped_gemm_swiglu_quant_masked(qx, qw, mm, expected_m=C)
+    assert kernels.LAUNCHES["grouped_gemm_fp8"] == 1
+    assert kernels.LAUNCHES["grouped_gemm_fp8_quant_out"] == 1
+    assert kernels.LAUNCHES["masked_grouped_gemm_fp8"] == 0
+    assert kernels.LAUNCHES["masked_grouped_gemm_swiglu_quant"] == 1
+    assert torch.equal(m_nn.view(torch.int16), p_nn.view(torch.int16))
+    assert torch.equal(m_q.data.view(torch.uint8), p_q.data.view(torch.uint8))
+    assert torch.equal(m_q.scale, p_q.scale)
+
+
+@pytest.mark.gpu
+def test_tally_on_card_reports_the_cpu_kernels(card):
+    """The roofline tally of the chunked block's forward and backward: the
+    same kernels, launches and FLOPs on the card as the twins on the CPU,
+    and the same aten FLOPs."""
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.roofline import analysis
+    cfg, ins = _ovl_inputs(card)
+    out = {}
+    for where, xs in (("gpu", ins), ("cpu", [t.cpu() for t in ins])):
+        with analysis.tally() as t:
+            _ovl_run(get_recipe("fp8_flow"), cfg, xs, 2)
+        out[where] = t
+    kg, kc = out["gpu"].kernels(), out["cpu"].kernels()
+    assert kg.keys() == kc.keys()
+    for k in kg:
+        assert kg[k]["launches"] == kc[k]["launches"], k
+        assert kg[k]["flops"] == kc[k]["flops"], k
+    assert out["gpu"].gemm_flops == out["cpu"].gemm_flops
+    # the dispatch mode follows autograd onto its device thread: the
+    # router's backward matmuls are counted on the card as on the CPU
+    assert out["gpu"].aten_flops == out["cpu"].aten_flops > 0

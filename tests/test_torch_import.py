@@ -1,6 +1,7 @@
-"""repro_torch stands alone: every module (and the chip scripts) imports
-without jax or the JAX package, weights cross over with their bits, and
-asking for CUDA without a card raises instead of falling back."""
+"""repro_torch stands alone: every module (and the chip scripts and the
+port's examples) imports without jax or the JAX package, weights cross
+over with their bits, and asking for CUDA without a card raises instead
+of falling back."""
 import torch_threads  # noqa: F401  (first: one intra-op thread)
 import os
 import subprocess
@@ -36,9 +37,11 @@ configs |= {f"repro_torch.{m}" for m in (
     "runtime.fault_injection", "runtime.fault_tolerance",
     "checkpoint.checkpointing", "obs.metrics", "obs.sink",
     "dist.scale_sync", "serve.prefix_cache", "serve.transfer",
-    "serve.router", "obs.report")}
+    "serve.router", "obs.report", "obs.trace", "roofline.analysis")}
 assert configs <= set(names), sorted(configs - set(names))
 import chip_depths, chip_profile, chip_smoke
+sys.path.insert(0, "examples")
+import quickstart_torch, serve_moe_torch, train_moe_torch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

@@ -300,6 +300,60 @@ def test_masked_wrappers_launch_no_kernel_on_cpu():
     assert kernels.LAUNCHES == before
 
 
+@pytest.mark.parametrize("expected_m", [None, 7, 8, 200])
+def test_expected_m_hint_takes_the_padded_twin(monkeypatch, expected_m):
+    """The reference's expected_m hint (repro/kernels/ops.py:151-218): at
+    expected_m >= C the three masked wrappers call the padded twin (a spy
+    counts it) and give the masked result bit for bit; the fused SwiGLU
+    GEMM-1 takes the hint and never falls back."""
+    calls = Counter()
+
+    def spy(name):
+        fn = getattr(ops, name)
+
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+
+    for name in ("grouped_gemm_fp8_plain", "masked_grouped_gemm_fp8_plain",
+                 "grouped_gemm_nt_fp8_plain",
+                 "masked_grouped_gemm_nt_fp8_plain",
+                 "masked_grouped_gemm_swiglu_quant_plain"):
+        spy(name)
+    C = 8
+    mm = torch.tensor([8, 3], dtype=torch.int32)
+    x = _x(47, 2, C, 256)
+    x[1, 3:] = 0                          # the dispatch layout of mm
+    _, qx = _q(x, (1, 1, TILE))
+    _, qw = _q(_x(48, 2, 256, 256) * 0.05, (1, TILE, TILE))
+    a = _x(49, 2, 128, 128)
+    a[1, :, 3:] = 0
+    _, qa = _q(a, (1, 1, TILE))
+    kw = {} if expected_m is None else dict(expected_m=expected_m)
+    outs = {
+        "nn": ops.grouped_gemm_fp8_masked(qx, qw, mm, **kw),
+        "quant_out": ops.grouped_gemm_fp8_masked_quant_out(qx, qw, mm, **kw),
+        "nt": ops.grouped_gemm_nt_fp8_masked(qa, qa, mm, **kw),
+        "swiglu": ops.grouped_gemm_swiglu_quant_masked(qx, qw, mm, **kw)}
+    padded = expected_m is not None and expected_m >= C
+    nt_padded = expected_m is not None and expected_m >= 128
+    assert calls["grouped_gemm_fp8_plain"] == (2 if padded else 0)
+    assert calls["masked_grouped_gemm_fp8_plain"] == (0 if padded else 2)
+    assert calls["grouped_gemm_nt_fp8_plain"] == (1 if nt_padded else 0)
+    assert calls["masked_grouped_gemm_nt_fp8_plain"] == \
+        (0 if nt_padded else 1)
+    assert calls["masked_grouped_gemm_swiglu_quant_plain"] == 1
+    ref = {"nn": ops.grouped_gemm_fp8_masked(qx, qw, mm),
+           "quant_out": ops.grouped_gemm_fp8_masked_quant_out(qx, qw, mm),
+           "nt": ops.grouped_gemm_nt_fp8_masked(qa, qa, mm)}
+    assert torch.equal(outs["nn"], ref["nn"])
+    assert torch.equal(_bits(outs["quant_out"].data),
+                       _bits(ref["quant_out"].data))
+    assert torch.equal(outs["quant_out"].scale, ref["quant_out"].scale)
+    assert torch.equal(outs["nt"], ref["nt"])
+
+
 # ---------------------------------------------------------------------------
 # expert_ffn: the masked route against the reference's and the padded one.
 # ---------------------------------------------------------------------------
