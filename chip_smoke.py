@@ -236,6 +236,24 @@ Phases (any failure raises and the script exits non-zero):
      phase 3's trace served through the chunked blocks (its tokens);
  36. the expected_m hint at the train shapes: the padded kernels launched
      at expected_m >= C, the masked launches' bits;
+ 37. the expert-parallel path on an NCCL group of one rank (the card is
+     one; NCCL refuses two ranks on it): qwen3 (1 layer, StatePolicy())
+     trained with every dispatch and combine through all_to_all_single,
+     padded and masked, monolithic and at 2 chunks (async messages),
+     phase 35's group-less losses bit for bit; the collectives a step and
+     their bytes beside the roofline tally's; phase 3's trace served at
+     depth 4 through the prefill's all-to-alls and the decode combine's
+     all-reduce, its tokens bit for bit;
+ 38. the DistPlan step (FP8 DP wire, ZeRO-1) on that group: qwen3 1 layer
+     fp8 vs f32 wire (the reference's 5% / 1% bars), deepseek_v2_lite at
+     depth 4 f32 wire == the plain f32-state step bit for bit, fp8 within
+     the bars, a flipped wire byte flagged and recovered; 2 casts a MoE
+     block, the dp_wire / opt_state fused quantizes, wire bytes ==
+     wire_grad_bytes at a modelled world, adamw_update launches, ms, wire
+     ms, peak;
+ 39. compressed_psum of one qwen3 expert leaf: #1 twice, the error within
+     two e4m3 half-ulps of each row's amax, the first expert the plain
+     e4m3 twin's bit for bit (an e5m2 control printed and refused), ms;
   9. the {"kernels": [...]} summary line (the eleven kernels, #1's
      linear mode and the AdamW update, with the new shapes' rows), then
      the result line.
@@ -253,6 +271,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -395,7 +414,10 @@ PATH_RECIPES = {"serve": ("fp8_flow", {}),
                 "naive_train": ("naive_fp8", {}),
                 "overlap_serve": ("fp8_flow", {}),
                 "overlap_train": ("fp8_flow", {}),
-                "overlap_masked_train": ("fp8_flow", MASKED)}
+                "overlap_masked_train": ("fp8_flow", MASKED),
+                "ep_serve": ("fp8_flow", {}),
+                "ep_train": ("fp8_flow", {}),
+                "ep_masked_train": ("fp8_flow", MASKED)}
 
 
 def base_label(label: str) -> str:
@@ -1173,11 +1195,11 @@ SERVE_SHA256 = {"serve": ("03d9545e", "14e6"),
                 "bf16_serve": ("dab58147", "6c6d")}
 
 
-def make_serve(cfg, dev, label="serve", moe_overlap=None):
+def make_serve(cfg, dev, label="serve", plan=None):
     """The serve path's engine (random weights from seed 0: W8 for
     fp8_flow, bf16 for the bf16 recipe; FP8 KV; the MoE blocks chunked by
-    `moe_overlap`, a DispatchPlan) and its trace: 16 greedy requests,
-    prompts of 3-48 tokens, 16 new each."""
+    `plan`'s moe_overlap, a DispatchPlan, or over its mesh) and its trace:
+    16 greedy requests, prompts of 3-48 tokens, 16 new each."""
     from repro_torch.models.lm import init_params
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.scheduler import Request
@@ -1189,7 +1211,7 @@ def make_serve(cfg, dev, label="serve", moe_overlap=None):
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, recipe_for(label),
                       init_params(cfg, seed=0, device=dev), ecfg, device=dev,
-                      moe_overlap=moe_overlap)
+                      plan=plan)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name} n_layers={cfg.n_layers} d_model="
           f"{cfg.d_model} experts={cfg.n_experts} top{cfg.top_k} "
@@ -1232,18 +1254,18 @@ def pick_plan(plans):
     return full[len(full) // 2]
 
 
-def serve_path(cfg, dev, label="serve", padded_tokens=None,
-               moe_overlap=None):
+def serve_path(cfg, dev, label="serve", padded_tokens=None, plan=None):
     """The trace through the engine with the recipe of `label` (and the
-    chunked MoE blocks of `moe_overlap`); the masked recipe's tokens, and
-    the chunked blocks', must be padded_tokens exactly.  Returns
+    ParallelPlan `plan`: its chunked MoE blocks or its mesh); the masked
+    recipe's tokens, and those of a plan, must be padded_tokens exactly.
+    Returns
     (launches, tokens by request, the plans of a prefill and a decode step
     or None)."""
     from repro_torch import kernels
 
     masked = recipe_for(label).masked_experts
     torch.cuda.reset_peak_memory_stats()
-    eng, reqs = make_serve(cfg, dev, label, moe_overlap)
+    eng, reqs = make_serve(cfg, dev, label, plan)
     ecfg = eng.ecfg
     with recorded_plans() as plans:
         kernels.reset_launches()
@@ -1263,7 +1285,7 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None,
           "a token outside the vocabulary")
     check(eng.alloc.free_pages == ecfg.n_pages - 1, "pages were not returned")
     check_launches(label, launches)
-    if masked or moe_overlap is not None:
+    if masked or plan is not None:
         check(tokens == padded_tokens, f"the {label} pass generated other "
               "tokens than the padded pass")
     sha = hashlib.sha256(json.dumps(tokens).encode()).hexdigest()
@@ -1289,7 +1311,7 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None,
         kernels.reset_launches()
         paged_prefill(cfg, eng.recipe, eng.params, eng.pools, page_row,
                       torch.ones((1, 64), dtype=torch.int64, device=dev), 48,
-                      moe_overlap=moe_overlap)
+                      plan=eng.plan)
         per_step["prefill_bucket64"] = dict(kernels.LAUNCHES)
         kernels.reset_launches()
         paged_decode_step(cfg, eng.recipe, eng.params, eng.pools,
@@ -1297,7 +1319,7 @@ def serve_path(cfg, dev, label="serve", padded_tokens=None,
                           torch.ones((8, 1), dtype=torch.int64, device=dev),
                           torch.full((8,), 48, device=dev),
                           torch.ones((8,), dtype=torch.bool, device=dev),
-                          moe_overlap=moe_overlap)
+                          plan=eng.plan)
         per_step["decode_step_b8"] = dict(kernels.LAUNCHES)
     torch.cuda.synchronize()
     print(json.dumps({f"{label}_launches_per_step": per_step}))
@@ -3474,6 +3496,7 @@ def overlap_train_run(cfg, dev, label, n):
     from repro_torch.core.moe import DispatchPlan, _chunk_geometry
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.models.lm import ParallelPlan
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
@@ -3485,7 +3508,8 @@ def overlap_train_run(cfg, dev, label, n):
                                                min_chunk_tokens=1)
     recipe = recipe_for(label)
     state = init_train_state(cfg, opt, seed=0, device=dev)
-    step = make_train_step(cfg, recipe, opt, moe_overlap=plan)
+    step = make_train_step(cfg, recipe, opt,
+                           plan=ParallelPlan(moe_overlap=plan))
     batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
                                   global_batch=TRAIN_B), 0, device=dev)
     losses, step_ms, n_casts = [], [], []
@@ -3540,8 +3564,9 @@ def overlap_phase(cfg, dev, peaks, floor_ms, serve_tokens):
     plan).  qwen3 at depth 4 served with the chunked blocks (2 chunks a
     prefill and a decode step): phase 3's tokens exactly (no assignment
     can overflow at these sizes).  Returns (launches by path, timing
-    rows)."""
+    rows, the losses by run: 'mono', 'padded<n>', 'masked<n>')."""
     from repro_torch.core.moe import DispatchPlan
+    from repro_torch.models.lm import ParallelPlan
     t_phase = time.perf_counter()
     rows, launches, timings = {}, {}, {}
     mono, _ = overlap_train_run(cfg, dev, "overlap_train", None)
@@ -3571,7 +3596,7 @@ def overlap_phase(cfg, dev, peaks, floor_ms, serve_tokens):
                         min_decode_tokens=4)
     launches["overlap_serve"], _, _ = serve_path(
         serve_config(), dev, "overlap_serve", padded_tokens=serve_tokens,
-        moe_overlap=plan)
+        plan=ParallelPlan(moe_overlap=plan))
     print(json.dumps({"overlap": dict(
         config="qwen3_moe_235b full width, 1 layer, StatePolicy(), "
                f"{OVERLAP_STEPS} steps of 2 x 1024 tokens",
@@ -3586,7 +3611,9 @@ def overlap_phase(cfg, dev, peaks, floor_ms, serve_tokens):
                        for k in r} for n, r in rows.items()},
         serve_plan=dataclasses.asdict(plan),
         seconds=time.perf_counter() - t_phase)}))
-    return launches, timings
+    losses = {f"{k}{n}": r[k]["losses"] for n, r in rows.items() for k in r}
+    losses["mono"] = mono["losses"]
+    return launches, timings, losses
 
 
 def expected_m_phase(cfg, dev, mm):
@@ -3644,6 +3671,536 @@ def expected_m_phase(cfg, dev, mm):
         launches_expected_m_C=out[f"launches_{C}"], bitwise=True)}))
 
 
+# ---------------------------------------------------------------------------
+# Phases 37-39: the multi-GPU training path on an NCCL group of one rank.
+# This script needs one card, and NCCL refuses two ranks on one
+# device, so every collective runs at world 1: a real NCCL launch at full
+# width, which at one rank is a copy.  What differs between ranks is held
+# on the CPU (tests/test_torch_ep.py, test_torch_dist.py,
+# test_torch_dist_train.py, on gloo groups of 2 and 4).
+# ---------------------------------------------------------------------------
+EP_STEPS, WIRE_STEPS = OVERLAP_STEPS, 4
+# the reference's production model axis ((data, model) = (16, 16)): the
+# world the roofline's collective term is modelled at
+MODEL_WORLD = 16
+PATH_KERNELS.update({
+    "ep_train": PATH_KERNELS["train"],
+    "ep_masked_train": PATH_KERNELS["masked_train"],
+    "ep_serve": PATH_KERNELS["serve"],
+    "q3_wire_train": PATH_KERNELS["train"],
+    "dsv2_wire_train": PATH_KERNELS["dsv2_train"],
+    "compression": ("quantize_rowwise",)})
+
+
+def nccl_mesh():
+    """A world of one rank on NCCL (launch/mesh.py), met through a
+    FileStore under build/."""
+    from repro_torch.launch.mesh import init_mesh
+    store = ROOT / "build" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    t0 = time.perf_counter()
+    mesh = init_mesh(1, 1, device="cuda", store=str(store), rank=0,
+                     timeout_s=300)
+    print(json.dumps({"nccl_mesh": dict(
+        backend=torch.distributed.get_backend(), world=mesh.world,
+        shape=mesh.shape, nccl_version=".".join(
+            str(v) for v in torch.cuda.nccl.version()),
+        socket_ifname=os.environ.get("NCCL_SOCKET_IFNAME"),
+        seconds=time.perf_counter() - t0)}))
+    return mesh
+
+
+def ep_train_run(cfg, dev, label, n, mesh):
+    """overlap_train_run's EP_STEPS steps (qwen3 1 layer, StatePolicy(),
+    the same batch and schedule), the MoE blocks' all-to-alls and the
+    gradient all-reduce on `mesh`'s NCCL groups, monolithic (n None) or
+    chunked at n.  The collectives of each step by kind; the last step
+    under roofline.tally() (its collective bytes)."""
+    from repro_torch import kernels
+    from repro_torch.core import casts
+    from repro_torch.core.moe import DispatchPlan
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist import comm
+    from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.models.lm import ParallelPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline import analysis as roofline
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=1e-3, state_policy=StatePolicy())
+    dp = None if n is None else DispatchPlan(n_chunks=n, min_chunk_tokens=1)
+    state = init_train_state(cfg, opt, seed=0, device=dev, mesh=mesh)
+    step = make_train_step(cfg, recipe_for(label), opt,
+                           plan=ParallelPlan(mesh=mesh, moe_overlap=dp))
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B), 0, device=dev)
+    losses, step_ms, colls, n_casts = [], [], [], []
+    kernels.reset_launches()
+    for i in range(EP_STEPS):
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tally = roofline.tally() if i == EP_STEPS - 1 else \
+            contextlib.nullcontext()
+        with tally as t, casts.ledger() as led:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        colls.append(comm.counts())
+        n_casts.append(led.activation_casts())
+    launches = dict(kernels.LAUNCHES)
+    buf = t.coll_buffer_bytes
+    row = dict(
+        n_chunks=n, recipe=recipe_for(label).name, losses=losses,
+        step_ms=step_ms, ms_per_step_warm=statistics.mean(step_ms[1:-1])
+        if EP_STEPS > 2 else step_ms[-1],
+        collectives_per_step=colls[0], tally_step_ms=step_ms[-1],
+        tally_coll_buffer_bytes=buf, tally_coll_by_kind=t.coll,
+        roofline_coll_bytes_world1=t.coll_bytes(1),
+        roofline_coll_bytes_modelled=t.coll_bytes(MODEL_WORLD),
+        modelled_world=MODEL_WORLD,
+        activation_casts_per_step=n_casts,
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+    check(all(c == 2 for c in n_casts), f"{label} n={n}: casts {n_casts}")
+    check(colls[0]["all-to-all"]["calls"] > 0,
+          f"{label} n={n}: no all-to-all in a step")
+    check(buf == sum(v["bytes"] for v in colls[-1].values()),
+          f"{label} n={n}: the tally's collective bytes {buf} are not the "
+          f"wrappers' {colls[-1]}")
+    check_launches(label, launches)
+    del state, step, batch, m
+    torch.cuda.empty_cache()
+    return row
+
+
+def ep_phase(cfg, dev, mesh, groupless, serve_tokens):
+    """Phase 37: qwen3 (1 layer, full width, StatePolicy()) trained with
+    every dispatch and combine through all_to_all_single on an NCCL group
+    of one rank (and the gradients through its f32 all-reduce), padded
+    and masked, monolithic and chunked at 2: the losses phase 35's
+    group-less runs gave, bit for bit (a one-rank all-to-all is a copy);
+    the collectives a step, and their bytes beside the roofline tally's.
+    Then phase 3's trace served at depth 4 with the prefill's all-to-alls
+    and moe_block_decode's combine all-reduce on the group: phase 3's
+    tokens bit for bit."""
+    from repro_torch.dist import comm
+    from repro_torch.models.lm import ParallelPlan
+    t_phase = time.perf_counter()
+    launches, rows = {}, {}
+    for label, n, want in (("ep_train", None, "mono"),
+                           ("ep_masked_train", None, "mono"),
+                           ("ep_train", 2, "padded2"),
+                           ("ep_masked_train", 2, "masked2")):
+        row = ep_train_run(cfg, dev, label, n, mesh)
+        check(row["losses"] == groupless[want],
+              f"{label} n={n}: losses {row['losses']} on the NCCL group, "
+              f"{groupless[want]} without one")
+        print(json.dumps({"ep_train": dict(label=label, **row)}))
+        rows[f"{label}_{n or 'mono'}"] = row
+        launches[label] = row["launches"]
+    comm.reset_counts()
+    launches["ep_serve"], _, _ = serve_path(
+        serve_config(), dev, "ep_serve", padded_tokens=serve_tokens,
+        plan=ParallelPlan(mesh=mesh))
+    serve_coll = comm.counts()
+    check(serve_coll["all-reduce"]["calls"] > 0
+          and serve_coll["all-to-all"]["calls"] > 0,
+          f"ep_serve: collectives {serve_coll}")
+    print(json.dumps({"ep": dict(
+        config="qwen3_moe_235b full width, 1 layer, StatePolicy(), "
+               f"{EP_STEPS} steps of 2 x 1024 tokens; served at depth 4",
+        world=mesh.world, backend="nccl",
+        by_run={k: dict(ms=r["ms_per_step_warm"], losses=r["losses"],
+                        collectives=r["collectives_per_step"],
+                        coll_buffer_bytes=r["tally_coll_buffer_bytes"],
+                        peak_gib=r["max_memory_allocated_gib"])
+                for k, r in rows.items()},
+        serve_collectives=serve_coll,
+        seconds=time.perf_counter() - t_phase)}))
+    return launches
+
+
+def wire_train_run(cfg, dev, label, mesh, wire, policy, *, guard=False,
+                   fault=None):
+    """WIRE_STEPS steps of `cfg` (fp8_flow) on make_batch's batches 0..,
+    the reference test's settings (lr 3e-3, 400 total steps, warmup 5):
+    the DistPlan step for a `wire` on `mesh` (the state from `policy`),
+    the plain group-less step for None (`policy` the AdamW state).  Each
+    step's loss, ms, wire ms (CUDA events around every reduce-scatter,
+    sensitive all-reduce and ZeRO-1 gather), the reduce-scatters' and the
+    gathers' collective bytes (held to wire_grad_bytes and, at each
+    bucket's param width, wire_param_bytes), activation casts and tags,
+    adamw_update launches; `fault` (a kind) armed at step 1."""
+    from repro_torch import kernels
+    from repro_torch.core import casts
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist import comm, grad_comm
+    from repro_torch.dist.opt_state import bucket_dtype
+    from repro_torch.dist.plan import (DistPlan, build_layout,
+                                       flatten_with_paths)
+    from repro_torch.models.lm import ParallelPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import fault_injection as fi
+    from repro_torch.train.guards import GuardPlan
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gplan = GuardPlan() if guard else None
+    if wire is None:
+        f32 = policy.m == policy.v == policy.master == "f32"
+        opt = AdamWConfig(lr=3e-3, state_policy=None if f32 else policy)
+        dist, plan, smesh = None, ParallelPlan(), None
+    else:
+        opt = AdamWConfig(lr=3e-3)
+        dist = DistPlan(wire=wire, policy=policy)
+        plan, smesh = ParallelPlan(mesh=mesh), mesh
+    state = init_train_state(cfg, opt, seed=0, device=dev, dist=dist,
+                             mesh=smesh, guard=gplan)
+    step = make_train_step(cfg, recipe_for("train"), opt, dist=dist,
+                           plan=plan, total_steps=400, warmup_steps=5,
+                           guard=gplan)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B)
+    rs_bytes = {k: 0 for k in comm.KINDS}
+    ag_bytes = {k: 0 for k in comm.KINDS}
+    events = []
+    wrapped = {}
+    for name in ("reduce_scatter_bucket", "reduce_sensitive",
+                 "all_gather_shard"):
+        orig = getattr(grad_comm, name)
+
+        def timed(*a, _orig=orig, _name=name, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            before = comm.counts()
+            e0.record()
+            out = _orig(*a, **kw)
+            e1.record()
+            events.append((e0, e1))
+            into = {"reduce_scatter_bucket": rs_bytes,
+                    "all_gather_shard": ag_bytes}.get(_name)
+            if into is not None:
+                for k, v in comm.counts().items():
+                    into[k] += v["bytes"] - before[k]["bytes"]
+            return out
+        wrapped[name] = orig
+        setattr(grad_comm, name, timed)
+    losses, step_ms, wire_ms, n_casts, flags = [], [], [], [], []
+    tags, adamw = set(), []
+    try:
+        for i in range(WIRE_STEPS):
+            batch = make_batch(data, i, device=dev)
+            kernels.reset_launches()
+            events.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            armed = fi.Fault(fault, i) if fault and i == 1 else None
+            with casts.ledger() as led, fi.activate(armed):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            wire_ms.append(sum(a.elapsed_time(b) for a, b in events))
+            n_casts.append(led.activation_casts())
+            tags |= {f"{k}:{t}" for (k, t) in led.by_tag()}
+            adamw.append(kernels.LAUNCHES["adamw_update"])
+            if guard:
+                flags.append(int(m["guard_flags"]))
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        for name, orig in wrapped.items():
+            setattr(grad_comm, name, orig)
+    layout = build_layout(state["params"], dist) if dist else None
+    row = dict(
+        wire=wire, policy=dataclasses.asdict(policy), losses=losses,
+        step_ms=step_ms, ms_per_step_warm=statistics.mean(step_ms[1:]),
+        wire_ms=wire_ms, wire_ms_warm=statistics.mean(wire_ms[1:]),
+        activation_casts_per_step=n_casts, adamw_update_launches=adamw,
+        guard_flags=flags, rs_bytes_per_step=rs_bytes,
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches, tags=sorted(tags))
+    if layout is not None:
+        rows = [b.rows for b in layout.buckets]
+        row.update(buckets=len(rows), sensitive=len(layout.sensitive),
+                   wire_rows=sum(rows))
+        # what the wire's buffers would put on the interconnect in a
+        # world of MODEL_WORLD replicas, against the reference's model
+        sent = sum(comm.wire_factor(k, MODEL_WORLD) * v / WIRE_STEPS
+                   for k, v in rs_bytes.items())
+        want = sum(grad_comm.wire_grad_bytes(r * 128, MODEL_WORLD, wire)
+                   for r in rows)
+        row.update(wire_bytes_modelled=sent, wire_grad_bytes=want)
+        # the guard adds one int32 all-reduce a bucket (its flag), which
+        # the reference's model leaves out
+        check(guard or abs(sent - want) <= 1e-6 * want,
+              f"{label} {wire}: wire bytes {sent} vs wire_grad_bytes {want}")
+        # the ZeRO-1 gather sends a bucket in its param dtype (f32 where an
+        # f32 leaf shares it; the reference's model counts 2 B)
+        leaves = [t for _, t in flatten_with_paths(state["params"])]
+        widths = [bucket_dtype(b, leaves).itemsize for b in layout.buckets]
+        gathered = comm.wire_factor("all-gather", MODEL_WORLD) * \
+            ag_bytes["all-gather"] / WIRE_STEPS
+        want_ag = sum(grad_comm.wire_param_bytes(r * 128, MODEL_WORLD, w)
+                      for r, w in zip(rows, widths))
+        row.update(gather_bytes_modelled=gathered,
+                   wire_param_bytes=want_ag, f32_buckets=widths.count(4))
+        check(abs(gathered - want_ag) <= 1e-6 * want_ag,
+              f"{label} {wire}: gather bytes {gathered} vs wire_param_bytes "
+              f"{want_ag}")
+    want_casts = casts_per_step(cfg, "fp8_flow")
+    check(all(c == want_casts for c in n_casts),
+          f"{label} {wire}: casts {n_casts}, expected {want_casts}")
+    explicit = {t.split(":")[1] for t in tags
+                if t.split(":")[0] in ("quantize", "dequantize")
+                and not t.split(":")[1].startswith("q_w")}
+    check(explicit == {"q_entry", "q_bwd_island"},
+          f"{label} {wire}: explicit cast tags {sorted(tags)}")
+    if wire is not None:
+        check("fused_quantize:opt_state" in tags or policy.m != "e4m3",
+              f"{label}: no opt_state quantize {sorted(tags)}")
+        check(wire != "fp8" or "fused_quantize:dp_wire" in tags,
+              f"{label}: no dp_wire quantize {sorted(tags)}")
+    check(all(a > 0 for a in adamw), f"{label}: adamw_update {adamw}")
+    check(all(np.isfinite(losses)), f"{label} {wire}: losses {losses}")
+    check_launches(label, launches)
+    del state, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def dp_wire_phase(dev, mesh):
+    """Phase 38: the DistPlan step (FP8 DP wire, ZeRO-1) on the NCCL group
+    of one rank, WIRE_STEPS steps each.  qwen3_moe_235b 1 layer at full
+    width, StatePolicy(): the fp8 wire against the f32 wire (the f32
+    state with the owned f32 gradient does not fit one card at this
+    width), each step within 5% and the mean of the last 2 within 1%.
+    deepseek_v2_lite at depth 4 (dense layers, shared experts, sensitive
+    leaves): the f32 wire with the f32 state equal to the plain f32-state
+    step bit for bit (its norm adds the leaves in the plain step's
+    order), the fp8 wire with StatePolicy() against it at the same bars,
+    and payload_bitflip at step 1 flagged (WIRE_SCALE), recovered through
+    the bf16 fallback with the clean run's loss after it within 1%.  The
+    cast ledger unchanged by the wire (2 a MoE block / dense MLP a step,
+    tags {q_entry, q_bwd_island}, dp_wire and opt_state fused); the
+    reduce-scatters' bytes equal wire_grad_bytes at a modelled world; ms
+    a step, wire ms, peak GiB, adamw_update launches."""
+    from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.train.guards import WIRE_SCALE
+    t_phase = time.perf_counter()
+    split, f32 = StatePolicy(), StatePolicy(m="f32", v="f32", master="f32")
+    rows, launches = {}, {}
+
+    def bars(fp8, ref, what):
+        a, b = np.array(fp8["losses"]), np.array(ref["losses"])
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        last = float(abs(a[-2:].mean() - b[-2:].mean()) / b[-2:].mean())
+        check(rel < 0.05 and last < 0.01,
+              f"{what}: fp8 wire {a} vs {b}: max {rel}, last-2 mean {last}")
+        return dict(max_step_rel=rel, last2_mean_rel=last)
+
+    q3 = train_config()
+    rows["q3_fp8"] = wire_train_run(q3, dev, "q3_wire_train", mesh, "fp8",
+                                    split)
+    rows["q3_f32_wire_split"] = wire_train_run(q3, dev, "q3_wire_train",
+                                               mesh, "f32", split)
+    q3_bars = bars(rows["q3_fp8"], rows["q3_f32_wire_split"], "qwen3")
+    launches["q3_wire_train"] = rows["q3_fp8"]["launches"]
+    dcfg = arch_config("deepseek_v2_lite", DSV2_TRAIN_LAYERS)
+    rows["dsv2_plain_f32"] = wire_train_run(dcfg, dev, "dsv2_wire_train",
+                                            mesh, None, f32)
+    rows["dsv2_f32"] = wire_train_run(dcfg, dev, "dsv2_wire_train", mesh,
+                                      "f32", f32)
+    check(rows["dsv2_f32"]["losses"] == rows["dsv2_plain_f32"]["losses"],
+          f"dsv2: f32 wire {rows['dsv2_f32']['losses']} vs plain "
+          f"{rows['dsv2_plain_f32']['losses']}")
+    rows["dsv2_fp8"] = wire_train_run(dcfg, dev, "dsv2_wire_train", mesh,
+                                      "fp8", split, guard=True)
+    dsv2_bars = bars(rows["dsv2_fp8"], rows["dsv2_f32"], "dsv2")
+    rows["dsv2_fp8_bitflip"] = wire_train_run(
+        dcfg, dev, "dsv2_wire_train", mesh, "fp8", split, guard=True,
+        fault="payload_bitflip")
+    fl = rows["dsv2_fp8_bitflip"]["guard_flags"]
+    check([bool(f & WIRE_SCALE) for f in fl] ==
+          [i == 1 for i in range(WIRE_STEPS)], f"bitflip: flags {fl}")
+    check(not any(f & WIRE_SCALE for f in rows["dsv2_fp8"]["guard_flags"]),
+          "the clean fp8 run flagged the wire")
+    hit, clean = (np.array(rows[k]["losses"]) for k in
+                  ("dsv2_fp8_bitflip", "dsv2_fp8"))
+    check(np.all(np.abs(hit - clean) <= 0.01 * np.abs(clean)),
+          f"bitflip run {hit} vs clean {clean}")
+    launches["dsv2_wire_train"] = rows["dsv2_fp8"]["launches"]
+    for k, r in rows.items():
+        print(json.dumps({"dp_wire_run": dict(run=k, **r)}))
+    print(json.dumps({"dp_wire": dict(
+        world=mesh.world, backend="nccl", steps=WIRE_STEPS,
+        qwen3_bars=q3_bars, dsv2_bars=dsv2_bars,
+        dsv2_f32_wire_equals_plain="bit for bit",
+        summary={k: dict(ms=r["ms_per_step_warm"],
+                         wire_ms=r["wire_ms_warm"],
+                         peak_gib=r["max_memory_allocated_gib"],
+                         adamw_update=r["adamw_update_launches"][-1],
+                         losses=r["losses"])
+                 for k, r in rows.items()},
+        seconds=time.perf_counter() - t_phase)}))
+    return launches
+
+
+def psum_twin_controls(x, got):
+    """compressed_psum at one rank in plain PyTorch on x: quantize,
+    dequantize, the one-rank sum, re-quantize, dequantize, with the e4m3
+    twin of #1 and with an e5m2 cast on the same po2 scheme.  Returns
+    whether each equals `got` bit for bit and each one's largest error of
+    a 128-row's amax."""
+    from repro_torch.core.fp8 import po2_scale
+    from repro_torch.kernels.quantize import quantize_rowwise_plain
+
+    def e5m2(rows):
+        t = rows.reshape(rows.shape[0], -1, 128)
+        scale = po2_scale(t.abs().amax(-1), 57344.0)
+        return ((t / scale[..., None]).to(torch.float8_e5m2)
+                .reshape(rows.shape), scale)
+
+    def twin(quant):
+        def rt(rows):
+            d, sc = quant(rows)
+            return (d.to(torch.float32).reshape(d.shape[0], -1, 128)
+                    * sc[..., None]).reshape(rows.shape)
+        rows = x.reshape(-1, 128)
+        return rt(rt(rows)).reshape(x.shape).to(x.dtype)
+
+    a = x.reshape(-1, 128).to(torch.float32)
+    amax = a.abs().amax(1).clamp(min=1e-30)
+    out = {}
+    for name, quant in (("e4m3", quantize_rowwise_plain), ("e5m2", e5m2)):
+        y = twin(quant)
+        out[f"{name}_bitwise"] = bool(torch.equal(
+            y.view(torch.int16), got.view(torch.int16)))
+        err = (y.reshape(-1, 128).to(torch.float32) - a).abs().amax(1)
+        out[f"{name}_max_err_of_row_amax"] = float((err / amax).max())
+    return out
+
+
+def compression_phase(dev, mesh):
+    """Phase 39: compressed_psum (runtime/compression.py) of one qwen3
+    expert leaf's gradient (128 x 4096 x 3072 bf16) over the NCCL group:
+    two launches of #1 (the quantize and the re-quantize), timed with CUDA
+    events.  The error is within two e4m3 half-ulps of each 128-row's
+    amax (2 x 2^-4; an e4m3 po2 quantization errs by at most 1/17 of the
+    amax, so two by at most 35/289).  An e5m2 wire would stay within
+    that bound too at one rank (at most 1/9), so the wire's precision is
+    held by the bits: the first expert's sum equals the plain e4m3 twin's
+    (quantize_rowwise_plain, dequantize, sum, re-quantize) bit for bit,
+    and the same twin with an e5m2 cast is printed as the control that
+    this check refuses."""
+    from repro_torch import kernels
+    from repro_torch.runtime.compression import compressed_psum
+    cfg = train_config()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((cfg.n_experts, cfg.d_model, 2 * cfg.d_ff_expert),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    compressed_psum(x[:1], mesh.data_group)            # warm
+    ms = []
+    for i in range(3):
+        kernels.reset_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = compressed_psum(x, mesh.data_group)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        launches = dict(kernels.LAUNCHES)
+        if i < 2:
+            del out
+    worst = 0.0
+    xr, orr = x.reshape(-1, 128), out.reshape(-1, 128)
+    for r in range(0, xr.shape[0], 1 << 20):
+        a = xr[r:r + (1 << 20)].to(torch.float32)
+        d = (orr[r:r + (1 << 20)].to(torch.float32) - a).abs().amax(1)
+        amax = a.abs().amax(1).clamp(min=1e-30)
+        worst = max(worst, float((d / amax).max()))
+    bound = 2 * 2 ** -4
+    check(worst <= bound, f"compressed_psum: error {worst} of amax")
+    check(launches["quantize_rowwise"] == 2,
+          f"compressed_psum launches {launches}")
+    check_launches("compression", launches)
+    control = psum_twin_controls(x[:1], out[:1])
+    check(mesh.world != 1 or control["e4m3_bitwise"],
+          f"compressed_psum: the first expert is not the e4m3 twin's "
+          f"{control}")
+    check(not control["e5m2_bitwise"],
+          f"compressed_psum: an e5m2 cast passes the bitwise check")
+    print(json.dumps({"compression": dict(
+        shape=list(x.shape), dtype="bfloat16", world=mesh.world,
+        ms=ms, ms_warm=statistics.mean(ms[1:]), max_err_of_row_amax=worst,
+        bound=bound, controls=control, launches=launches)}))
+    del x, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _two_rank_child(rank, store, out):
+    import traceback
+    try:
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group(
+            "nccl", store=torch.distributed.FileStore(store, 2), rank=rank,
+            world_size=2)
+        t = torch.ones(4, device="cuda")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        Path(f"{out}.{rank}").write_text(f"ok {t.tolist()}")
+    except BaseException:   # noqa: BLE001 -- reported to the parent
+        Path(f"{out}.{rank}").write_text(traceback.format_exc()[-2000:])
+
+
+def nccl_two_ranks_probe():
+    """Two NCCL ranks on the one card (``--nccl-two-ranks``): what NCCL
+    says.  Not a phase of the default run."""
+    import torch.multiprocessing as mp
+    d = ROOT / "build"
+    d.mkdir(parents=True, exist_ok=True)
+    store, out = d / "nccl_two_store", d / "nccl_two_out"
+    for f in (store, Path(f"{out}.0"), Path(f"{out}.1")):
+        if f.exists():
+            f.unlink()
+    ctx = mp.get_context("spawn")
+    ps = [ctx.Process(target=_two_rank_child, args=(r, str(store), str(out)))
+          for r in range(2)]
+    for p in ps:
+        p.start()
+    for p in ps:
+        p.join(120)
+        if p.is_alive():
+            p.kill()
+    said = {r: Path(f"{out}.{r}").read_text()
+            if Path(f"{out}.{r}").exists() else "no result"
+            for r in range(2)}
+    print(json.dumps({"nccl_two_ranks_one_card": dict(
+        exit_codes=[p.exitcode for p in ps], ranks=said)}))
+
+
+def multi_gpu_phases(dev, groupless, serve_tokens):
+    """Phases 37-39 on one NCCL group; returns their launches by path."""
+    from repro_torch.launch.mesh import close_mesh
+    mesh = nccl_mesh()
+    try:
+        launches = ep_phase(train_config(), dev, mesh, groupless,
+                            serve_tokens)
+        launches.update(dp_wire_phase(dev, mesh))
+        launches["compression"] = compression_phase(dev, mesh)
+    finally:
+        close_mesh()
+    return launches
+
+
 def qtensor_of(d, s):
     """A row-tiled (E, C, K) QTensor of payload d and scales s."""
     from repro_torch.core.quant import QTensor
@@ -3692,6 +4249,23 @@ def main() -> int:
     print(json.dumps({"launch_floor_ms": floor_ms, "what": "time_ms of "
                       "zero_() on a one-element tensor: a graph-replayed "
                       "launch that moves ~0 bytes"}))
+    if "--nccl-two-ranks" in sys.argv:
+        nccl_two_ranks_probe()
+    if "--multi-gpu" in sys.argv:
+        # phases 37-39 alone, after what they compare with: phase 3's
+        # tokens and phase 35's group-less losses
+        _, tokens, _ = serve_path(serve_config(), dev)
+        tcfg = train_config()
+        groupless = {"mono": overlap_train_run(tcfg, dev, "overlap_train",
+                                               None)[0]["losses"]}
+        for name in ("padded", "masked"):
+            label = "overlap_train" if name == "padded" else \
+                "overlap_masked_train"
+            groupless[f"{name}2"] = overlap_train_run(tcfg, dev, label,
+                                                      2)[0]["losses"]
+        multi_gpu_phases(dev, groupless, tokens)
+        print("chip_smoke --multi-gpu: phases 37-39 passed")
+        return 0
     cfg = serve_config()
     timings = kernel_checks(cfg, PEAKS, dev, floor_ms)
     launches = {}
@@ -3865,11 +4439,15 @@ def main() -> int:
     # stage ranges, the roofline, the chunked MoE blocks and the
     # expected_m hint (phases 33-36)
     stage_and_roofline_phase(dev, train_losses, serve_tokens)
-    ovl_launches, ovl_timings = overlap_phase(tcfg, dev, PEAKS, floor_ms,
-                                              serve_tokens)
+    ovl_launches, ovl_timings, ovl_losses = overlap_phase(
+        tcfg, dev, PEAKS, floor_ms, serve_tokens)
     launches.update(ovl_launches)
     add_rows(timings, ovl_timings)
     expected_m_phase(tcfg, dev, train_plan)
+
+    # the multi-GPU training path on an NCCL group of one rank (phases
+    # 37-39)
+    launches.update(multi_gpu_phases(dev, ovl_losses, serve_tokens))
 
     from repro_torch.kernels import (adamw_update, fp8_transpose,
                                      fused_permute_pad, fused_swiglu_quant,

@@ -1,14 +1,30 @@
-"""The MoE block, EP = 1: router -> dispatch -> expert grouping ->
-grouped expert FFN -> combine, forward and backward, for every recipe.
+"""The MoE block: router -> dispatch (all-to-all) -> expert grouping ->
+grouped expert FFN -> combine (all-to-all), forward and backward, for
+every recipe, at any expert-parallel size.
 
-Counterpart of the EP = 1 subset of ``repro.core.moe``.  With one
-expert-parallel rank every all-to-all and psum of the reference is an
-identity, so it is left out; the routing plans, the capacities and the
-drop rules are kept bit for bit, because they decide which assignments
-drop (core/moe.py:279, :283, :503 in the reference; the 128-row rounding
-of C_exp is part of that).  The plans use stable argsorts, and their
-scatters hit duplicate indices only on the scratch slot that is sliced
-off, as in the reference.
+Counterpart of ``repro.core.moe``'s EP blocks.  ``MoEConfig.ep_group``
+(a ``torch.distributed`` group: the mesh's ``model`` axis) holds the EP
+ranks; each holds E_loc = E / EP experts (the leading axis of w13 / w2)
+and its own T tokens.  Every all-to-all of the reference
+(``jax.lax.all_to_all(split_axis=0, concat_axis=0)``, its ``:232-241``)
+is ``dist/comm.all_to_all`` over a contiguous (EP * C, ...) tensor, and
+the decode combine's psum an all-reduce.  With no group (EP = 1, no
+mesh) each is the identity, as the reference's are with no expert axis;
+with a group, even of one rank, each launches.  The routing plans, the
+capacities (C_send and C_exp, the reference's ``:276-283``) and the drop
+rules are kept bit for bit, because they decide which assignments drop
+(the 128-row rounding of C_exp is part of that).  The plans use stable
+argsorts, and their scatters hit duplicate indices only on the scratch
+slot that is sliced off, as in the reference.
+
+An all-to-all with a gradient sits in ``_AllToAll``, whose backward is
+the same all-to-all of the cotangents (with equal blocks it is its own
+inverse): fp8_flow's dispatch sends the e4m3 payload and its scales both
+ways, so the input gradient crosses back as e4m3 plus scales; the bf16
+rows, the router probabilities and the combine carry bf16 / f32
+cotangents.  The expert weights' gradients stay local sums: the train
+step sums them over the ``data`` axis (the reference's ``dp_axes`` Wgrad
+psum).
 
 The dispatch follows the recipe, as in the reference: fp8_flow sends FP8
 both ways (``dispatch_quantize``, then ``permute_q`` into the expert
@@ -45,6 +61,7 @@ from repro_torch.core.linear import (_q_row, _quant_weights, _save_q,
 from repro_torch.core.quant import (QTensor, _dequantize_nocount,
                                     record_entry_stats, row_tile)
 from repro_torch.core.recipes import Recipe
+from repro_torch.dist import comm
 from repro_torch.kernels import ops
 from repro_torch.obs.trace import stage_annotation
 from repro_torch.runtime import fault_injection
@@ -58,6 +75,25 @@ class MoEConfig:
     d_ff: int                      # per-expert hidden (F); w13 is (K, 2F)
     capacity_factor: float = 1.25
     act: str = "swiglu"
+    # the expert-parallel group (the mesh's 'model' axis); None = EP 1
+    ep_group: object = dataclasses.field(default=None, compare=False)
+
+
+def _ep(cfg: MoEConfig, w13=None):
+    """(group, EP, this rank's index in it, E_loc); checks that E splits
+    evenly and that the resident expert weights hold E_loc experts."""
+    group = cfg.ep_group
+    EP = comm.size(group)
+    E_loc = cfg.n_experts // EP
+    if E_loc * EP != cfg.n_experts:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"{EP} expert-parallel ranks")
+    if w13 is not None:
+        held = (w13.data if isinstance(w13, QTensor) else w13).shape[0]
+        if held != E_loc:
+            raise ValueError(f"w13 holds {held} experts; EP = {EP} needs "
+                             f"E_loc = {E_loc}")
+    return group, EP, comm.rank(group), E_loc
 
 
 def _round_up(x: int, m: int) -> int:
@@ -184,6 +220,40 @@ def _segment_sum(rows, seg, n: int):
 
 
 # ---------------------------------------------------------------------------
+# The all-to-all with its VJP.
+# ---------------------------------------------------------------------------
+class _AllToAll(torch.autograd.Function):
+    """All-to-all of one or more tensors over a group; the backward sends
+    the cotangents the same way back (an e4m3 cotangent as its bytes)."""
+
+    @staticmethod
+    def forward(ctx, group, *ts):
+        ctx.group = group
+        outs = tuple(comm.all_to_all(t, group) for t in ts)
+        return outs if len(outs) > 1 else outs[0]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + tuple(None if g is None
+                               else comm.all_to_all(g, ctx.group)
+                               for g in gs)
+
+
+def a2a(t, group):
+    """Differentiable all-to-all of t (the identity with no group)."""
+    return t if group is None else _AllToAll.apply(group, t)
+
+
+def a2a_q(q: QTensor, group) -> QTensor:
+    """A QTensor's payload and scales through the differentiable
+    all-to-all (two collectives, as the reference's two)."""
+    if group is None:
+        return q
+    data, scale = _AllToAll.apply(group, q.data, q.scale)
+    return QTensor(data, scale, q.tile)
+
+
+# ---------------------------------------------------------------------------
 # QTensor permute and the dispatch boundary, each with its explicit VJP.
 # ---------------------------------------------------------------------------
 class _PermuteQ(torch.autograd.Function):
@@ -243,41 +313,44 @@ def dispatch_quantize(recipe: Recipe, x, row_map) -> QTensor:
 
 class _FP8DispatchNaive(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, recipe, x, row_map):
+    def forward(ctx, recipe, x, row_map, group):
         ctx.save_for_backward(row_map)
-        ctx.T, ctx.x_dtype = x.shape[0], x.dtype
+        ctx.T, ctx.x_dtype, ctx.group = x.shape[0], x.dtype, group
         casts.record("quantize", "q_entry", x.numel())
         x = fault_injection.apply("activation", "q_entry", x)
         q = ops.fused_permute_pad(ops.quantize_rowwise(x, recipe.scale_mode),
                                   row_map)
+        q = QTensor(comm.all_to_all(q.data, group),
+                    comm.all_to_all(q.scale, group), q.tile)
         return dequantize_exit(recipe, q)
 
     @staticmethod
     def backward(ctx, g):
         (row_map,) = ctx.saved_tensors
+        g = comm.all_to_all(g.to(torch.bfloat16), ctx.group)  # bf16 comm
         seg = torch.where(row_map >= 0, row_map, ctx.T)
-        return None, _segment_sum(g.to(torch.bfloat16), seg,
-                                  ctx.T).to(ctx.x_dtype), None
+        return None, _segment_sum(g, seg, ctx.T).to(ctx.x_dtype), None, None
 
 
-def fp8_dispatch_naive(recipe: Recipe, x, row_map) -> torch.Tensor:
-    """naive_fp8 (Fig. 2c): quantize -> permute+pad -> (the FP8 send, an
-    identity at EP = 1) -> dequantize, two explicit casts (``q_entry``,
+def fp8_dispatch_naive(recipe: Recipe, x, row_map, group=None
+                       ) -> torch.Tensor:
+    """naive_fp8 (Fig. 2c): quantize -> permute+pad -> the FP8 all-to-all
+    (payload and scales) -> dequantize, two explicit casts (``q_entry``,
     ``dq_post_dispatch``): the Q/DQ-around-comm pair of Table 1.  The
-    backward stays bf16 (DeepSeek keeps the backward comm in BF16): the
-    gradient rows summed per source token in f32."""
-    return _FP8DispatchNaive.apply(recipe, x, row_map)
+    backward stays bf16 (DeepSeek keeps the backward comm in BF16): a bf16
+    all-to-all, then the gradient rows summed per source token in f32."""
+    return _FP8DispatchNaive.apply(recipe, x, row_map, group)
 
 
 # ---------------------------------------------------------------------------
 # The prefill MoE block.
 # ---------------------------------------------------------------------------
 def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
-    """x (T, D) tokens; w13 (E, D, 2F), w2 (E, F, D) (QTensors when W8
-    resident).  Returns (y (T, D), metrics)."""
+    """x (T, D) this rank's tokens; w13 (E_loc, D, 2F), w2 (E_loc, F, D)
+    this rank's experts (QTensors when W8 resident); w_router (D, E)
+    replicated.  Returns (y (T, D), metrics)."""
     T, D = x.shape
-    EP = 1
-    E_loc = cfg.n_experts // EP
+    group, EP, _, E_loc = _ep(cfg, w13)
     k = cfg.top_k
     C_send = _round_up(max(int(T * k / EP * cfg.capacity_factor), 8), 8)
     R = EP * C_send
@@ -292,16 +365,21 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
 
     with stage_annotation("dispatch"):
         if recipe.name == "fp8_flow":
-            recv_in = dispatch_quantize(recipe, x, row_map_send)
+            recv_in = a2a_q(dispatch_quantize(recipe, x, row_map_send),
+                            group)
             record_entry_stats("q_entry_moe", x, scale_mode=recipe.scale_mode)
         elif recipe.name == "naive_fp8":
-            recv_in = fp8_dispatch_naive(recipe, x, row_map_send)
+            recv_in = fp8_dispatch_naive(recipe, x, row_map_send, group)
         else:                               # bf16 / blockwise: bf16 rows
-            recv_in = _take_rows(x.to(torch.bfloat16), row_map_send)
-        p_flat = _slot_probs(p, slot_assign)
+            recv_in = a2a(_take_rows(x.to(torch.bfloat16), row_map_send),
+                          group)
+        # the expert ids and the probabilities ride all-to-alls of their
+        # own, as in the reference
+        recv_expert = comm.all_to_all(slot_expert, group)
+        p_flat = a2a(_slot_probs(p, slot_assign), group)
 
     with stage_annotation("expert"):
-        row_map_exp, ret_map = _expert_plan(slot_expert, E_loc, C_exp)
+        row_map_exp, ret_map = _expert_plan(recv_expert, E_loc, C_exp)
         if recipe.name == "fp8_flow":
             q_exp = permute_q(recipe, recv_in, row_map_exp, ret_map)
             ffn_in = QTensor(q_exp.data.reshape(E_loc, C_exp, D),
@@ -318,15 +396,18 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
         y_exp = y_exp * p_exp[..., None].to(y_exp.dtype)
 
     with stage_annotation("combine"):
-        y_ret = _take_rows(y_exp.reshape(E_loc * C_exp, D), ret_map)
+        y_back = a2a(_take_rows(y_exp.reshape(E_loc * C_exp, D), ret_map),
+                     group)
         seg = torch.where(row_map_send >= 0, row_map_send, T)
-        y = _segment_sum(y_ret, seg, T)
+        y = _segment_sum(y_back, seg, T)
     return y.to(x.dtype), {"aux_loss": aux, "drop_frac": drop_frac}
 
 
 # ---------------------------------------------------------------------------
-# The decode MoE block as its three stages (router -> dispatch -> expert;
-# the combine psum of the reference is an identity at EP = 1).
+# The decode MoE block as its stages (router -> dispatch -> expert ->
+# combine).  The batch is replicated over the EP ranks; each computes its
+# resident experts' assignments and the combine is an all-reduce (the
+# reference's psum over ep_axis).
 # ---------------------------------------------------------------------------
 # The reference cannot decode blockwise or naive_fp8: its decode router
 # hands the FFN a QTensor for every FP8 recipe (repro/core/moe.py:433-438),
@@ -398,12 +479,13 @@ def decode_stage_expert(recipe: Recipe, cfg: MoEConfig, ffn_in, w13,
 def _decode_pipeline(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2,
                      n_chunks: int):
     """The staged decode program at pipeline depth n_chunks (the
-    reference's ``_decode_pipeline`` at one EP rank): the router and the
-    entry quantize over the whole batch, then each chunk's dispatch and
-    expert stages; the combine, the reference's psum over the EP ranks, is
-    the identity here, so it only joins the chunks' rows."""
+    reference's ``_decode_pipeline``): the router and the entry quantize
+    over the whole batch, then each chunk's dispatch and expert stages;
+    chunk c's combine all-reduce is issued as soon as its partial exists
+    and is in flight while chunk c+1 computes.  The drop count is summed
+    over the EP ranks against the global T * k."""
     T, D = x.shape
-    E_loc = cfg.n_experts
+    group, EP, r, E_loc = _ep(cfg, w13)
     k = cfg.top_k
     n = DispatchPlan(decode_chunks=n_chunks,
                      min_decode_tokens=1).decode_chunks_for(T)
@@ -412,8 +494,8 @@ def _decode_pipeline(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2,
 
     with stage_annotation("router"):
         p, aux, local_e, xq = decode_stage_router(recipe, cfg, x, w_router,
-                                                  0, E_loc)
-    ys, drops = [], None
+                                                  r, E_loc)
+    pend, drops = [], None
     for c in range(n):
         with stage_annotation("dispatch"):
             ffn_in, rme, tok_loc, nv, nk = decode_stage_dispatch(
@@ -424,17 +506,19 @@ def _decode_pipeline(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2,
                                         p[c * Tc:(c + 1) * Tc], rme, tok_loc,
                                         Tc)
         with stage_annotation("combine"):
-            ys.append(y_loc)
+            pend.append(comm.all_reduce_async(y_loc, group))
         drops = nv - nk if drops is None else drops + (nv - nk)
     with stage_annotation("combine"):
+        ys = [h.wait() for h in pend]
         y = torch.cat(ys, dim=0) if n > 1 else ys[0]
+        drops = comm.all_reduce_(drops.reshape(1).clone(), group)[0]
     drop_frac = drops / (T * k)
     return y.to(x.dtype), {"aux_loss": aux, "drop_frac": drop_frac}
 
 
 def moe_block_decode(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
-    """Decode-time MoE over a small batch: the staged pipeline at depth 1
-    (one EP rank, so the reference's combine psum is the identity)."""
+    """Decode-time MoE over a small batch, replicated over the EP ranks:
+    the staged pipeline at depth 1 (one synchronous combine)."""
     return _decode_pipeline(recipe, cfg, x, w_router, w13, w2, n_chunks=1)
 
 
@@ -448,16 +532,17 @@ def moe_block_decode_overlapped(recipe: Recipe, cfg: MoEConfig, x, w_router,
 
 
 # ---------------------------------------------------------------------------
-# The chunked (overlapped) dispatch pipeline at EP = 1.
+# The chunked (overlapped) dispatch pipeline.
 #
 # The reference's moe_block_overlapped splits the token block into n_chunks
 # and software-pipelines them: chunk c+1's fused dispatch message is issued
-# before chunk c's grouped FFN, so an all-to-all can hide behind compute.
-# One card has no collective to hide; the port keeps the pipeline's
-# dataflow exactly (one uint8 message a chunk, the per-chunk plans and
-# capacities, the block-level casts) with the identity _a2a, which is
-# where the all-to-all goes once the expert axis spans cards (ROADMAP.md,
-# Queue 1, item 7).
+# before chunk c's grouped FFN, so its all-to-all hides behind compute.
+# fp8_flow's pipeline sends each chunk's one uint8 message (payload,
+# scales, expert ids, probabilities) with async_op=True and waits on it
+# only where it is unpacked; each chunk's combine is in flight while the
+# next chunk's FFN runs, and lands one chunk later; the backward's fused
+# reverse messages likewise.  Waiting before a read keeps the results
+# those of the synchronous all-to-alls, bit for bit.
 #
 # Quantization stays block-level: ONE entry quantize over the whole block
 # (chunks gather its rows: row-tile scales are row-local) and ONE backward
@@ -489,16 +574,6 @@ class DispatchPlan:
         cap = max(1, min(self.decode_chunks,
                          T // max(self.min_decode_tokens, 1)))
         return max(d for d in range(1, cap + 1) if T % d == 0)
-
-
-def _a2a(t, ep: int = 1):
-    """The dispatch / combine all-to-all over the expert ranks: the
-    identity at EP = 1, as the reference's is with no expert axis."""
-    if ep != 1:
-        raise NotImplementedError(
-            "the expert-parallel all-to-all (EP > 1) is not ported yet "
-            "(ROADMAP.md, Queue 1, item 7)")
-    return t
 
 
 def _u8(t):
@@ -591,20 +666,21 @@ def _overlap_chunks_autodiff(recipe, cfg, n, x, p, ids, w13, w2):
     boundary (for the baselines the per-chunk casts ARE the cost the
     paper counts)."""
     T, D = x.shape
-    E_loc, k = cfg.n_experts, cfg.top_k
-    Tc, C_send, R, C_exp = _chunk_geometry(recipe, cfg, T, n, 1, E_loc)
+    group, EP, _, E_loc = _ep(cfg, w13)
+    k = cfg.top_k
+    Tc, C_send, R, C_exp = _chunk_geometry(recipe, cfg, T, n, EP, E_loc)
     ys, drops = [], []
     for c in range(n):
         xc, pc = x[c * Tc:(c + 1) * Tc], p[c * Tc:(c + 1) * Tc]
         with stage_annotation("dispatch"):
-            rms, se, sa, dc = _dispatch_plan(ids[c * Tc:(c + 1) * Tc], k, 1,
+            rms, se, sa, dc = _dispatch_plan(ids[c * Tc:(c + 1) * Tc], k, EP,
                                              E_loc, C_send)
             if recipe.name == "naive_fp8":
-                recv_in = _a2a(fp8_dispatch_naive(recipe, xc, rms))
+                recv_in = fp8_dispatch_naive(recipe, xc, rms, group)
             else:
-                recv_in = _a2a(_take_rows(xc.to(torch.bfloat16), rms))
-            recv_expert = _a2a(se)
-            recv_p = _a2a(_slot_probs(pc, sa))
+                recv_in = a2a(_take_rows(xc.to(torch.bfloat16), rms), group)
+            recv_expert = comm.all_to_all(se, group)
+            recv_p = a2a(_slot_probs(pc, sa), group)
         with stage_annotation("expert"):
             rme, ret = _expert_plan(recv_expert, E_loc, C_exp)
             x_exp = _take_rows(recv_in, rme).reshape(E_loc, C_exp, D)
@@ -613,7 +689,8 @@ def _overlap_chunks_autodiff(recipe, cfg, n, x, p, ids, w13, w2):
             p_exp = _take_rows(recv_p[:, None], rme).reshape(E_loc, C_exp)
             y_exp = y_exp * p_exp[..., None].to(y_exp.dtype)
         with stage_annotation("combine"):
-            y_back = _a2a(_take_rows(y_exp.reshape(E_loc * C_exp, D), ret))
+            y_back = a2a(_take_rows(y_exp.reshape(E_loc * C_exp, D), ret),
+                         group)
             ys.append(_segment_sum(y_back, torch.where(rms >= 0, rms, Tc),
                                    Tc))
         drops.append(dc)
@@ -625,8 +702,9 @@ def _flow_fwd(recipe, cfg, n, x, p, ids, w13, w2):
     """fp8_flow's forward pipeline (the reference's ``_flow_fwd_impl``).
     Returns (y, drop_frac, what the backward needs)."""
     T, D = x.shape
-    E_loc, k = cfg.n_experts, cfg.top_k
-    Tc, C_send, R, C_exp = _chunk_geometry(recipe, cfg, T, n, 1, E_loc)
+    group, EP, _, E_loc = _ep(cfg, w13)
+    k = cfg.top_k
+    Tc, C_send, R, C_exp = _chunk_geometry(recipe, cfg, T, n, EP, E_loc)
     qw13, qw2 = _quant_weights(recipe, w13, w2)
 
     with stage_annotation("dispatch"):
@@ -635,7 +713,7 @@ def _flow_fwd(recipe, cfg, n, x, p, ids, w13, w2):
         casts.record("quantize", "q_entry", x.numel())
         q = ops.quantize_rowwise(
             fault_injection.apply("activation", "q_entry", x))
-        plans = [_dispatch_plan(ids[c * Tc:(c + 1) * Tc], k, 1, E_loc,
+        plans = [_dispatch_plan(ids[c * Tc:(c + 1) * Tc], k, EP, E_loc,
                                 C_send) for c in range(n)]
 
     def issue_dispatch(c):
@@ -643,16 +721,25 @@ def _flow_fwd(recipe, cfg, n, x, p, ids, w13, w2):
         gmap = torch.where(rms >= 0, rms + c * Tc, -1)
         qs = ops.fused_permute_pad(q, gmap)
         pf = _slot_probs(p[c * Tc:(c + 1) * Tc], sa)
-        return _a2a(_pack_dispatch_msg(qs.data, qs.scale, se, pf))
+        return comm.all_to_all(
+            _pack_dispatch_msg(qs.data, qs.scale, se, pf), group,
+            async_op=True)
+
+    ys, saved = [None] * n, []
+
+    def land_combine(c, pending):
+        rms = plans[c][0]
+        ys[c] = _segment_sum(pending.wait(), torch.where(rms >= 0, rms, Tc),
+                             Tc)
 
     with stage_annotation("dispatch"):
         recv = issue_dispatch(0)
-    ys, saved = [], []
+    combine = None
     for c in range(n):
         with stage_annotation("dispatch"):
-            # chunk c+1's message is issued before chunk c's FFN
+            # chunk c+1's message is in flight during chunk c's FFN
             nxt = issue_dispatch(c + 1) if c + 1 < n else None
-            d_r, s_r, e_r, p_r = _unpack_dispatch_msg(recv, D)
+            d_r, s_r, e_r, p_r = _unpack_dispatch_msg(recv.wait(), D)
         with stage_annotation("expert"):
             rme, ret = _expert_plan(e_r, E_loc, C_exp)
             qe = ops.fused_permute_pad(QTensor(d_r, s_r, row_tile(2)), rme)
@@ -666,13 +753,19 @@ def _flow_fwd(recipe, cfg, n, x, p, ids, w13, w2):
             p_exp = _take_rows(p_r[:, None], rme).reshape(E_loc, C_exp)
             y_w = y_exp * p_exp[..., None].to(y_exp.dtype)
         with stage_annotation("combine"):
-            y_back = _a2a(_take_rows(y_w.reshape(E_loc * C_exp, D), ret))
-            rms = plans[c][0]
-            ys.append(_segment_sum(y_back, torch.where(rms >= 0, rms, Tc),
-                                   Tc))
-        saved.append((rms, plans[c][2], rme, ret, qx_c, qa_c, h_c, p_exp,
-                      y_exp, mm_c))
+            # chunk c's combine flies during chunk c+1's FFN; chunk c-1's
+            # lands now
+            pend = comm.all_to_all(
+                _take_rows(y_w.reshape(E_loc * C_exp, D), ret), group,
+                async_op=True)
+            if combine is not None:
+                land_combine(*combine)
+            combine = (c, pend)
+        saved.append((plans[c][0], plans[c][2], rme, ret, qx_c, qa_c, h_c,
+                      p_exp, y_exp, mm_c))
         recv = nxt
+    with stage_annotation("combine"):
+        land_combine(*combine)
     y = torch.cat(ys, dim=0).to(x.dtype)
     drop = torch.stack([pl[3] for pl in plans]).mean()
     return y, drop, (saved, qw13, qw2)
@@ -717,20 +810,26 @@ class _OverlapFlow(torch.autograd.Function):
 def _flow_bwd(recipe, cfg, n, saved, qw13, qw2, g_y, x_dtype):
     T, D = g_y.shape
     Tc, k = T // n, cfg.top_k
+    group = cfg.ep_group
     E_loc, C_exp, _ = saved[0][4].data.shape
     S = E_loc * C_exp
 
-    # stage 1: each chunk's reverse combine (bf16)
+    # stage 1: each chunk's reverse combine (bf16), every chunk's message
+    # issued first, each landed in turn
+    rev = [comm.all_to_all(
+        _take_rows(g_y[c * Tc:(c + 1) * Tc].to(torch.float32),
+                   saved[c][0]).to(torch.bfloat16), group, async_op=True)
+        for c in range(n)]
     g_yexp, g_pexp = [], []
     for c in range(n):
         rms, sa, rme, ret, qx_c, qa_c, h_c, p_exp, y_exp, mm_c = saved[c]
-        g_back = _take_rows(g_y[c * Tc:(c + 1) * Tc].to(torch.float32), rms)
-        g_ret = _a2a(g_back.to(torch.bfloat16))
+        g_ret = rev[c].wait()
+        rev[c] = None
         g_yw = _take_rows(g_ret, rme).reshape(E_loc, C_exp, D)
         g_yexp.append(g_yw * p_exp[..., None].to(g_yw.dtype))
         g_pexp.append((g_yw.to(torch.float32)
                        * y_exp.to(torch.float32)).sum(-1))
-        del g_back, g_ret, g_yw
+        del g_ret, g_yw
 
     # the ONE explicit backward cast (BF16 island -> FP8), hoisted out of
     # the chunk loop.  The reference quantizes concat(g_yexp, axis=1) and
@@ -776,11 +875,12 @@ def _flow_bwd(recipe, cfg, n, saved, qw13, qw2, g_y, x_dtype):
             QTensor(gxq.data.reshape(S, D), gxq.scale.reshape(S, D // TILE),
                     row_tile(2)), ret)
         gp_r = _take_rows(g_pexp[c].reshape(S, 1), ret)[:, 0]
-        msg = _a2a(_pack_bwd_msg(gq.data, gq.scale, gp_r))
+        msg = comm.all_to_all(_pack_bwd_msg(gq.data, gq.scale, gp_r),
+                              group, async_op=True)
         del gxq, gq
         if pending is not None:
-            land(*pending)
+            land(pending[0], pending[1].wait())
         pending = (c, msg)
-    land(*pending)
+    land(pending[0], pending[1].wait())
     return (torch.cat(gx_chunks, dim=0), torch.cat(gp_chunks, dim=0),
             wg13, wg2)

@@ -29,8 +29,8 @@ their tensor, max-merged across records.  PyTorch runs eagerly, so the
 records are plain tensors on the device and need none of the reference's
 threading through scans and shard_maps; the sites record outside the
 autograd Functions (``core/linear.dense_mlp``, ``core/moe.moe_block``),
-plain reductions that run only while armed.  The ``dp_wire`` row stays
-zero until the DP wire is ported (ROADMAP.md, Queue 1, item 7).
+plain reductions that run only while armed.  The ``dp_wire`` row is the
+DP wire's bucket quantize (``dist/grad_comm.quantize_bucket``).
 """
 from __future__ import annotations
 

@@ -10,13 +10,50 @@ can give (|e| <= 126):
                                                bit pattern: no float op
 
 The KV-page migration wire (``serve/transfer.py``) uses the bit forms, so
-its codec runs no floating-point arithmetic at all.  ``agree_amax``,
-``agreed_po2_scale`` and ``wire_anomaly`` belong to the FP8 DP gradient
-wire and come with multi-GPU training (ROADMAP.md, Queue 1, item 7).
+its codec runs no floating-point arithmetic at all.
+
+The FP8 DP gradient wire agrees its scales across the replicas before
+any of them quantizes (the reference's ``:24-86``): ``agree_amax`` takes
+the per-row amax's MAX over the data group, so every replica quantizes a
+bucket row with the SAME po2 scale, and the e4m3 payloads sum exactly
+after an exact dequantize.  ``wire_anomaly`` is the wire guard's check of
+a received message, made the same on every replica by a MAX.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.fp8 import E4M3_MAX, po2_scale
+from repro_torch.dist import comm
+
+
+def agree_amax(amax: torch.Tensor, group) -> torch.Tensor:
+    """MAX over the data group: every replica sees the global per-row
+    amax.  No group (one replica) is the identity."""
+    if group is None:
+        return amax
+    return comm.all_reduce_(amax.contiguous(), group, "max")
+
+
+def agreed_po2_scale(x_rows: torch.Tensor, group,
+                     fmt_max: float = E4M3_MAX) -> torch.Tensor:
+    """The per-row agreed po2 scale (rows, 1) of a (rows, TILE) bucket,
+    the same on every replica of the group by construction."""
+    amax = x_rows.abs().amax(dim=-1, keepdim=True).to(torch.float32)
+    return po2_scale(agree_amax(amax, group), fmt_max)
+
+
+def wire_anomaly(exp: torch.Tensor, payload: torch.Tensor, group,
+                 exp_limit: int) -> torch.Tensor:
+    """The wire guard's predicate on a RECEIVED message, before the
+    dequantize-sum: True (a bool device scalar) when an exponent is absurd
+    (|e| > exp_limit) or a payload byte decodes to NaN (e4m3fn's only
+    non-finite codes, 0x7f / 0xff); MAX over the group makes it the same
+    on every replica."""
+    bad_exp = (exp.to(torch.int32).abs() > exp_limit).any()
+    codes = payload.view(torch.uint8) & 0x7F
+    bad = bad_exp | (codes == 0x7F).any()
+    return comm.agree_max_int(bad.to(torch.int32), group) > 0
 
 
 def scale_to_exp_i8(scale: torch.Tensor) -> torch.Tensor:

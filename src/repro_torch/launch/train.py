@@ -1,4 +1,5 @@
-"""Training launcher: the train loop of any recipe on one device.
+"""Training launcher: the train loop of any recipe on one device or a
+world of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v2_lite \\
       --reduced --device cuda [--recipe {bf16,blockwise,naive_fp8,fp8_flow}] \\
@@ -6,11 +7,30 @@
       [--grad-accum N] [--guard [--guard-spike-factor F] \\
       [--guard-rollback-after K] [--guard-demote-steps N]] [--elastic] \\
       [--remat-policy {none,full,fp8_resident,pair}] \\
+      [--dist-wire {off,fp8,bf16,f32}] [--ep N] \\
       [--obs-jsonl PATH] [--obs-prom PATH]
 
-The flags are the reference launcher's (``repro.launch.train``) that one
-device runs, plus ``--device`` (``cuda``: the hand-written kernels;
-``cpu``: their plain twins).  The steps run through ``train.loop.run``:
+  # four ranks (gloo on the CPU, NCCL on cards): torchrun sets the world
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --reduced --device cpu --dist-wire fp8 --steps 4 --global-batch 8
+
+The flags are the reference launcher's (``repro.launch.train``), plus
+``--device`` (``cuda``: the hand-written kernels; ``cpu``: their plain
+twins) and ``--ep``.  The world comes from torchrun's variables when they
+are set, else it is one rank; a mesh of (world / ep, ep) ranks is built
+(``launch/mesh.py``) whenever the world is larger than one, ``--ep`` is
+larger than one or a wire is asked for, through a FileStore in a
+temporary directory at world 1.  Each rank trains on its share of every
+global batch (``launch/sharding.py``).
+
+- ``--dist-wire fp8|bf16|f32``: the DistPlan step (the FP8 DP gradient
+  wire and ZeRO-1; DistPlan's FP8-split state), over the data axis; it
+  refuses ``--ep`` > 1, as the reference's does.  ``--dist-schedule
+  stream`` raises (multi-GPU training part 2).
+- ``--ep N``: the expert-parallel all-to-all over N ranks of the model
+  axis (each holds E / N experts), gradients all-reduced in f32.
+
+The steps run through ``train.loop.run``:
 
 - ``--ckpt-dir``: async checkpoints every 50 steps, restart from the
   newest complete one.
@@ -25,9 +45,7 @@ device runs, plus ``--device`` (``cuda``: the hand-written kernels;
 - ``--obs-jsonl`` / ``--obs-prom``: structured telemetry as JSONL, and a
   Prometheus text snapshot of the registry at exit.
 
-``--dist-wire`` other than ``off`` raises (the FP8 DP wire and ZeRO-1:
-ROADMAP.md, Queue 1, item 7).  The optimizer is
-the reference launcher's ``AdamWConfig(lr=...)``: f32 state, 16 bytes a
+The optimizer is the reference launcher's ``AdamWConfig(lr=...)``: f32 state, 16 bytes a
 parameter with the bf16 weights and gradients; ``AdamWConfig(
 state_policy=StatePolicy())`` (the FP8-split state, ~9 bytes) is reached
 through ``repro_torch.train.train_step``, as ``chip_smoke.py`` does.
@@ -44,10 +62,18 @@ PERF.md section 4.
 """
 import argparse
 import dataclasses
+import os
+import shutil
+import tempfile
 
 from repro_torch.configs import get_arch
 from repro_torch.core.recipes import RECIPES, get_recipe
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.dist.grad_comm import wire_grad_bytes
+from repro_torch.dist.plan import DistPlan, build_layout
+from repro_torch.launch.mesh import close_mesh, init_mesh
+from repro_torch.launch.sharding import shard_batch
+from repro_torch.models.lm import ParallelPlan
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.fault_tolerance import ElasticTrainer
 from repro_torch.train.guards import GuardPlan, GuardPolicy
@@ -70,8 +96,15 @@ def main(argv=None):
                     help="cuda (the kernels) or cpu (their plain twins)")
     ap.add_argument("--dist-wire", default="off",
                     choices=["off", "fp8", "bf16", "f32"],
-                    help="explicit DP gradient wire + ZeRO-1 (not ported: "
-                         "only 'off' runs)")
+                    help="explicit DP gradient wire + ZeRO-1 (repro_torch."
+                         "dist): fp8 = e4m3 payload + po2 exponents in one "
+                         "uint8 message per bucket; bf16/f32 = the same "
+                         "bucketed reduce-scatter with a plain payload")
+    ap.add_argument("--dist-schedule", default="posthoc",
+                    choices=["posthoc", "stream"],
+                    help="DP wire schedule (stream: not ported yet)")
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel ranks (the mesh's model axis)")
     ap.add_argument("--remat-policy", default=None,
                     choices=["none", "full", "fp8_resident", "pair"],
                     help="activation-residency plan (default: the config's, "
@@ -104,10 +137,29 @@ def main(argv=None):
                          "the metrics registry at exit")
     args = ap.parse_args(argv)
 
-    if args.dist_wire != "off":
-        raise NotImplementedError(
-            "--dist-wire: the FP8 DP gradient wire and ZeRO-1 are not ported "
-            "yet (ROADMAP.md, Queue 1, item 7)")
+    dist = DistPlan(wire=args.dist_wire, schedule=args.dist_schedule) \
+        if args.dist_wire != "off" else None
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world % args.ep:
+        raise ValueError(f"--ep {args.ep} does not divide the world {world}")
+    mesh = store_dir = None
+    if world > 1 or args.ep > 1 or dist is not None:
+        store = None
+        if "RANK" not in os.environ:
+            store_dir = tempfile.mkdtemp(prefix="repro_torch_store_")
+            store = os.path.join(store_dir, "store")
+        mesh = init_mesh(world // args.ep, args.ep, device=args.device,
+                         store=store)
+    try:
+        return _run(args, dist, mesh)
+    finally:
+        if mesh is not None:
+            close_mesh()
+        if store_dir is not None:
+            shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _run(args, dist, mesh):
     from repro_torch.obs.sink import JsonlSink, Telemetry, null_telemetry
     if args.obs_jsonl is not None or args.obs_prom is not None:
         sinks = (JsonlSink(args.obs_jsonl),) if args.obs_jsonl else ()
@@ -132,15 +184,31 @@ def main(argv=None):
     opt = AdamWConfig(lr=args.lr)
     guard = GuardPlan(spike_factor=args.guard_spike_factor) \
         if args.guard else None
+    dev = args.device if mesh is None else mesh.device
     print(f"[train] {args.arch} ({cfg.n_params() / 1e9:.2f}B params) "
           f"recipe={recipe.name} remat={cfg.remat_policy} "
-          f"device={args.device}")
-    state = init_train_state(cfg, opt, seed=0, device=args.device,
-                             guard=guard)
+          f"device={dev} mesh={None if mesh is None else mesh.shape}")
+    plan = ParallelPlan(mesh=mesh)
+    state = init_train_state(cfg, opt, seed=0, device=dev, guard=guard,
+                             dist=dist, mesh=mesh)
+    if dist is not None:
+        layout = build_layout(state["params"], dist)
+        n_dp = mesh.shape[dist.axis]
+        gbytes = sum(wire_grad_bytes(b.rows * 128, n_dp, dist.wire)
+                     for b in layout.buckets)
+        print(f"[train] dist wire={dist.wire} schedule={dist.schedule} "
+              f"zero1 over '{dist.axis}' x{n_dp}: {len(layout.buckets)} "
+              f"buckets, {len(layout.sensitive)} sensitive leaves, "
+              f"~{gbytes / 2**20:.2f} MiB grad bytes/step/device")
+        tel.record("wire_layout", wire=dist.wire, schedule=dist.schedule,
+                   n_dp=n_dp, n_buckets=len(layout.buckets),
+                   n_sensitive=len(layout.sensitive),
+                   n_leaves=layout.n_leaves, fp8_elems=layout.fp8_elems,
+                   wire_rows=layout.wire_rows, grad_bytes_per_step=gbytes)
     warmup = max(args.steps // 10, 1)
     step = make_train_step(cfg, recipe, opt, grad_accum=args.grad_accum,
                            total_steps=args.steps, warmup_steps=warmup,
-                           guard=guard)
+                           guard=guard, dist=dist, plan=plan)
     policy = fallback = None
     if guard is not None:
         policy = GuardPolicy(rollback_after=args.guard_rollback_after,
@@ -151,7 +219,8 @@ def main(argv=None):
         if recipe.name != "bf16":
             fallback = make_train_step(
                 cfg, get_recipe("bf16"), opt, grad_accum=args.grad_accum,
-                total_steps=args.steps, warmup_steps=warmup, guard=guard)
+                total_steps=args.steps, warmup_steps=warmup, guard=guard,
+                dist=dist, plan=plan)
         print(f"[train] guardrails armed: spike_factor="
               f"{args.guard_spike_factor} rollback_after="
               f"{args.guard_rollback_after} demote_steps="
@@ -163,7 +232,9 @@ def main(argv=None):
                            grad_accum=args.grad_accum,
                            ckpt_dir=args.ckpt_dir, elastic=elastic,
                            guard_policy=policy, fallback_step=fallback,
-                           telemetry=tel, log_every=1)
+                           telemetry=tel, log_every=1,
+                           batch_fn=None if mesh is None else
+                           (lambda b: shard_batch(b, mesh)))
     if not hist:
         print(f"[train] done: nothing to run (restored past step "
               f"{args.steps - 1})")

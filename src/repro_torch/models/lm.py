@@ -35,7 +35,9 @@ indexed store into the cache tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -89,6 +91,61 @@ def _paged_stacks(cfg: ArchConfig):
 
 def _n_dense(cfg: ArchConfig) -> int:
     return cfg.n_dense_layers if cfg.moe else 0
+
+
+# ---------------------------------------------------------------------------
+# The parallel plan (the reference's ParallelPlan, lm.py:36-72).
+# ---------------------------------------------------------------------------
+_NEXT_SLICE = ("multi-GPU training part 2 (ROADMAP.md, Queue 1, item 7: TP "
+               "experts, FSDP and the staged layer program)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelPlan:
+    """How a run maps onto the mesh (``launch/mesh.Mesh``; None = one
+    process, every collective the identity).
+
+    dp_axes      axes sharding the batch: ('data',), the mesh's one data
+                 axis (the port's Megatron layout splits the global batch
+                 over every rank, the reference's ``token_axes_moe``:
+                 launch/sharding.py); any other value raises
+    tp_axis      the expert-parallel axis: 'model'; any other raises
+    moe_mode     'ep' (experts sharded over tp_axis); 'tp' raises
+    moe_overlap  a ``core.moe.DispatchPlan``: the chunked MoE blocks
+    fsdp_axis, mlp_tp, stage_layers: the reference's other levers; they
+                 raise until the next slice ports them."""
+    mesh: object = None
+    dp_axes: tuple = ("data",)
+    tp_axis: str = "model"
+    moe_mode: str = "ep"
+    moe_overlap: Optional[object] = None
+    fsdp_axis: Optional[str] = None
+    mlp_tp: bool = False
+    stage_layers: bool = False
+
+    def __post_init__(self):
+        for what, on in (("moe_mode='tp'", self.moe_mode == "tp"),
+                         ("fsdp_axis", self.fsdp_axis is not None),
+                         ("mlp_tp", self.mlp_tp),
+                         ("stage_layers", self.stage_layers)):
+            if on:
+                raise NotImplementedError(
+                    f"ParallelPlan {what} is not ported yet: {_NEXT_SLICE}")
+        if self.moe_mode != "ep":
+            raise ValueError(f"unknown moe_mode {self.moe_mode!r}")
+        if tuple(self.dp_axes) != ("data",) or self.tp_axis != "model":
+            raise ValueError(
+                f"the mesh has one data axis and one model axis "
+                f"(launch/mesh.py): dp_axes=('data',), tp_axis='model'; got "
+                f"{self.dp_axes!r}, {self.tp_axis!r}")
+
+    @property
+    def ep_group(self):
+        """The expert-parallel group (None: no mesh, or no groups)."""
+        return None if self.mesh is None else self.mesh.group(self.tp_axis)
+
+
+NO_PLAN = ParallelPlan()
 
 
 # ---------------------------------------------------------------------------
@@ -273,20 +330,23 @@ def _mlp_decode(cfg, p, x):
     return _bf16_matmul(a.to(x.dtype), p["w2"].to(x.dtype))
 
 
-def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, moe_overlap=None):
+def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, plan=None):
     """x (B, S, D) -> (B, S, D), aux loss.  Prefill runs ``moe_block``,
-    decode ``moe_block_decode`` (the reference's EP/decode modes at EP=1);
-    the shared experts add their MLP after the routed block, through
-    ``_mlp_stage`` or, in decode, ``_mlp_decode``.  With `moe_overlap` (a
-    ``core.moe.DispatchPlan``; the reference carries it on
-    ``ParallelPlan.moe_overlap``) prefill runs ``moe_block_overlapped`` at
-    ``chunks_for(T)`` chunks, with the shared experts issued before the
-    routed block, and decode ``moe_block_decode_overlapped`` at
-    ``decode_chunks_for(T)``.  None keeps the monolithic blocks."""
+    decode ``moe_block_decode`` (the reference's 'ep' and 'decode' modes)
+    over the plan's expert-parallel group (none without a mesh); the
+    shared experts add their MLP after the routed block, through
+    ``_mlp_stage`` or, in decode, ``_mlp_decode``.  With
+    ``plan.moe_overlap`` (a ``core.moe.DispatchPlan``) prefill runs
+    ``moe_block_overlapped`` at ``chunks_for(T)`` chunks, with the shared
+    experts issued before the routed block, and decode
+    ``moe_block_decode_overlapped`` at ``decode_chunks_for(T)``.  None
+    keeps the monolithic blocks."""
     B, S, D = x.shape
+    plan = NO_PLAN if plan is None else plan
+    moe_overlap = plan.moe_overlap
     mcfg = MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k, d_model=D,
                      d_ff=cfg.d_ff_expert, capacity_factor=cfg.capacity_factor,
-                     act=cfg.act)
+                     act=cfg.act, ep_group=plan.ep_group)
     we13, we2 = p["we13"], p["we2"]
     if isinstance(we13, QTensor):
         we13 = w8_merge_gate(we13)
@@ -349,7 +409,7 @@ def stage_ln_attn(cfg, p, x, positions, window: int, causal: bool = True):
 
 
 def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True,
-               moe_overlap=None):
+               plan=None):
     """One layer: the mixer (attention; a Mamba2 mixer for ``ssm``; both
     on the same normed input, averaged, for ``hybrid``), then the MoE
     stage or the dense MLP (none for a mixer-only ssm layer; the dense
@@ -370,7 +430,7 @@ def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True,
                           cfg.window if kind == "local" else 0, causal)
     h2 = tag_saveable(apply_norm(cfg.norm, x, p, "ln2"), "stage_ffn_in")
     if moe_layer:
-        mo, aux = _moe_stage(cfg, recipe, p, h2, moe_overlap=moe_overlap)
+        mo, aux = _moe_stage(cfg, recipe, p, h2, plan=plan)
         return x + mo, aux
     with stage_annotation("expert"):
         mo = _mlp_stage(cfg, recipe, p, h2)
@@ -400,14 +460,14 @@ def _run_blocks(cfg, layer_fns, x):
 
 
 def _run_stack(cfg, recipe, stack_params, pattern, n_layers, moe, x,
-               positions, causal=True, moe_overlap=None):
+               positions, causal=True, plan=None):
     """The reference's stack as a loop over layer slices in checkpoint
     blocks; returns (x, the summed aux losses)."""
     pattern = _pattern_or_fallback(pattern, n_layers)
     fns = [functools.partial(_sub_layer, cfg, recipe,
                              pattern[i % len(pattern)], moe, p,
                              positions=positions, causal=causal,
-                             moe_overlap=moe_overlap)
+                             plan=plan)
            for i, p in enumerate(_train_layer_slices(stack_params,
                                                      n_layers))]
     return _run_blocks(cfg, fns, x)
@@ -451,7 +511,7 @@ def _run_encoder(cfg, recipe, params, enc_input):
 
 
 def _run_encdec_decoder(cfg, recipe, params, x, positions, enc,
-                        moe_overlap=None):
+                        plan=None):
     """The decoder stack with cross-attention: each layer's self-attention
     and MLP, then cross-attention to its projection of `enc`, added to
     the residual."""
@@ -459,7 +519,7 @@ def _run_encdec_decoder(cfg, recipe, params, x, positions, enc,
 
     def layer(p_self, p_cross, x):
         x, a = _sub_layer(cfg, recipe, "global", cfg.moe, p_self, x,
-                          positions, moe_overlap=moe_overlap)
+                          positions, plan=plan)
         h = rms_or_ln(cfg, x, p_cross)
         c_out, _ = attn_block(cfg, p_cross, h, positions=positions,
                               cross_kv=_project_cross_kv(cfg, p_cross, enc))
@@ -517,15 +577,18 @@ def xent(logits, targets, mask):
 
 
 def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
-            compute_loss: bool = True, moe_overlap=None):
+            compute_loss: bool = True, plan=None):
     """batch: {'tokens' (B, S) int, 'targets' (B, S), optional 'mask'
     (B, S), optional 'prefix' (B, P, D) [the vision or audio frontend's
     stub embeddings, put in front of the tokens and cut off before the
     logits], 'enc_input' (B, S_enc, D) [an encoder-decoder's; required]}.
     Runs the encoder, the dense prologue, then the main stack.  Returns
     (loss, metrics) or, with compute_loss=False, (logits, metrics).
-    `moe_overlap` (a ``core.moe.DispatchPlan``) runs the MoE layers through
-    the chunked blocks (``_moe_stage``)."""
+    `plan` (a ``ParallelPlan``) maps the MoE layers onto the mesh's
+    expert-parallel group and carries the chunked blocks' DispatchPlan
+    (``_moe_stage``).  On a mesh the batch is this rank's share and the
+    loss is its mean (the train step averages the ranks')."""
+    plan = NO_PLAN if plan is None else plan
     nd = _n_dense(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
@@ -549,11 +612,11 @@ def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
         aux = aux + a
     if cfg.encdec:
         x, a = _run_encdec_decoder(cfg, recipe, params, x, positions, enc,
-                                   moe_overlap)
+                                   plan)
     else:
         x, a = _run_stack(cfg, recipe, params["layers"], cfg.pattern,
                           cfg.n_layers - nd, cfg.moe, x, positions,
-                          moe_overlap=moe_overlap)
+                          plan=plan)
     aux = aux + a
     x = _final_norm(cfg, params, x)
     if prefix is not None:
@@ -616,7 +679,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 def _decode_stack(cfg, recipe, stack_params, stack_kinds, moe, x, positions,
                   pos, attn_c, ssm_c, cross_c=None, cross_params=None,
-                  moe_overlap=None):
+                  plan=None):
     """One decode step through a stack: each layer's mixer against its
     cache slices (K/V rows and SSM states written in place), then
     cross-attention over ``cross`` (read, never written) for an
@@ -663,7 +726,7 @@ def _decode_stack(cfg, recipe, stack_params, stack_kinds, moe, x, positions,
             h2 = apply_norm(cfg.norm, x, pi, "ln2")
             if moe:
                 mo = _moe_stage(cfg, recipe, pi, h2, decode=True,
-                                moe_overlap=moe_overlap)[0]
+                                plan=plan)[0]
             else:
                 with stage_annotation("expert"):
                     mo = _mlp_decode(cfg, pi, h2)
@@ -673,13 +736,14 @@ def _decode_stack(cfg, recipe, stack_params, stack_kinds, moe, x, positions,
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos,
-                moe_overlap=None):
+                plan=None):
     """One decode step.  tokens (B, 1) int; pos: a scalar (one shared
     position, the fixed-batch path) or a (B,) tensor of per-request
     positions (cache rows [0, pos_b) hold the history).  The cache (from
     ``init_cache``) is updated in place but for the SSM conv histories,
-    which are replaced.  `moe_overlap`: as ``forward``'s, its decode
-    depth.  Returns (logits (B, 1, V), the cache)."""
+    which are replaced.  `plan`: as ``forward``'s, its decode depth.
+    Returns (logits (B, 1, V), the cache)."""
+    plan = NO_PLAN if plan is None else plan
     x = _embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
@@ -694,7 +758,7 @@ def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos,
                              cfg.moe, x, positions, pos,
                              cache.get("main_attn"), ssm_c,
                              cache.get("cross"), params.get("cross_layers"),
-                             moe_overlap=moe_overlap)
+                             plan=plan)
     if convs is not None:
         new_cache["main_ssm"] = {"state": ssm_c["state"], "conv": convs}
     logits = _lm_logits(cfg, params, _final_norm(cfg, params, x))
@@ -707,7 +771,7 @@ def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos,
 def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, moe, x, pool,
                      positions, page_idx, slot_idx, *, decode,
                      page_tables=None, pos=None, history=False,
-                     moe_overlap=None):
+                     plan=None):
     """Run a layer stack against its paged K/V pools (updated in place).
 
     decode=True reads the paged history through `page_tables` and masks by
@@ -757,7 +821,7 @@ def _run_paged_stack(cfg, recipe, stack_params, stack_kinds, moe, x, pool,
         h2 = apply_norm(cfg.norm, x, pi, "ln2")
         if moe:
             mo, _ = _moe_stage(cfg, recipe, pi, h2, decode=decode,
-                               moe_overlap=moe_overlap)
+                               plan=plan)
         else:
             with stage_annotation("expert"):
                 mo = _mlp_decode(cfg, pi, h2) if decode \
@@ -787,13 +851,14 @@ def _final_norm(cfg, params, x):
 
 
 def paged_decode_step(cfg: ArchConfig, recipe: Recipe, params, pools,
-                      page_tables, tokens, pos, active, moe_overlap=None):
+                      page_tables, tokens, pos, active, plan=None):
     """One continuous-batching decode step over paged pools.
 
     tokens (B, 1) int; pos (B,) per-request positions of this token; active
     (B,) bool (inactive slots write to the scratch page; their outputs are
-    garbage); page_tables (B, max_pages).  `moe_overlap`: as
-    ``forward``'s, its decode depth.  Returns logits (B, 1, V)."""
+    garbage); page_tables (B, max_pages).  `plan`: as ``forward``'s, its
+    decode depth.  Returns logits (B, 1, V)."""
+    plan = NO_PLAN if plan is None else plan
     x = _embed_tokens(cfg, params, tokens)
     B = x.shape[0]
     pos = pos.to(torch.int64)
@@ -804,20 +869,21 @@ def paged_decode_step(cfg: ArchConfig, recipe: Recipe, params, pools,
     x = _run_paged_stacks(cfg, recipe, params, pools, x, pos[:, None],
                           page_idx, pos % ps, decode=True,
                           page_tables=page_tables, pos=pos,
-                          moe_overlap=moe_overlap)
+                          plan=plan)
     return _lm_logits(cfg, params, _final_norm(cfg, params, x))
 
 
 def paged_prefill(cfg: ArchConfig, recipe: Recipe, params, pools,
                   page_table_row, tokens, length: int, start: int = 0,
-                  history: bool = False, moe_overlap=None):
+                  history: bool = False, plan=None):
     """Prefill ONE request's prompt chunk into its pages.
 
     tokens (1, S), right-padded to the bucket S; `length` valid tokens in
     this chunk at absolute offset `start`; rows >= length land on the
     scratch page.  history=True attends to the rows [0, start) already in
-    the pages.  `moe_overlap`: as ``forward``'s.  Returns logits (1, 1, V)
-    at position start + length - 1."""
+    the pages.  `plan`: as ``forward``'s.  Returns logits (1, 1, V) at
+    position start + length - 1."""
+    plan = NO_PLAN if plan is None else plan
     x = _embed_tokens(cfg, params, tokens)
     S = x.shape[1]
     rel = torch.arange(S, device=x.device)
@@ -831,7 +897,7 @@ def paged_prefill(cfg: ArchConfig, recipe: Recipe, params, pools,
     x = _run_paged_stacks(cfg, recipe, params, pools, x, positions,
                           page_idx, positions % ps, decode=False,
                           page_tables=page_table_row[None], history=history,
-                          moe_overlap=moe_overlap)
+                          plan=plan)
     x = _final_norm(cfg, params, x)
     last = min(max(int(length) - 1, 0), S - 1)
     return _lm_logits(cfg, params, x[:, last:last + 1])

@@ -175,19 +175,33 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, lr_scale=1.0, *,
         gnorm = global_norm(grads)
     clip = clip_factor(cfg, gnorm)
     b1c, b2c = bias_corrections(cfg, step)
-    lr = float(np.float32(cfg.lr) * np.float32(lr_scale))
+    lr = lr_at(cfg, lr_scale)
     p_leaves = tree_leaves(params)
     n = len(p_leaves)
     leaves = zip(p_leaves, g_leaves, _state_leaves(state, "m", n),
                  _state_leaves(state, "v", n),
                  _state_leaves(state, "master", n))
     for p, g, m, v, master in leaves:
-        pf, gf = p.detach().reshape(-1), g.reshape(-1)
-        for s in range(0, pf.numel(), CHUNK_ELEMS):
-            k = min(CHUNK_ELEMS, pf.numel() - s)
-            ops.adamw_update(cfg, lr, b1c, b2c, gf[s:s + k], clip,
-                             _state_chunk(m, s, k), _state_chunk(v, s, k),
-                             _state_chunk(master, s, k), pf[s:s + k],
-                             flags=skip, skip_mask=skip_mask)
+        update_leaf(cfg, lr, b1c, b2c, p, g, clip, m, v, master, skip,
+                    skip_mask)
     state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def update_leaf(cfg: AdamWConfig, lr: float, b1c: float, b2c: float, p, g,
+                clip, m, v, master, skip=None, skip_mask: int = 0) -> None:
+    """One leaf (or one ZeRO-1 flat shard) updated in place, one
+    ``ops.adamw_update`` call a CHUNK_ELEMS chunk."""
+    pf, gf = p.detach().reshape(-1), g.reshape(-1)
+    for s in range(0, pf.numel(), CHUNK_ELEMS):
+        k = min(CHUNK_ELEMS, pf.numel() - s)
+        ops.adamw_update(cfg, lr, b1c, b2c, gf[s:s + k], clip,
+                         _state_chunk(m, s, k), _state_chunk(v, s, k),
+                         _state_chunk(master, s, k), pf[s:s + k],
+                         flags=skip, skip_mask=skip_mask)
+
+
+def lr_at(cfg: AdamWConfig, lr_scale) -> float:
+    """The step's learning rate as apply_updates takes it (f32 product)."""
+    return float(np.float32(cfg.lr) * np.float32(lr_scale))

@@ -29,9 +29,18 @@ executes while it runs, inside ``tally()``:
   kernels; the aten ops around them can still differ where the port takes
   a device's own route (the segment sum, the CPU's f32 bf16-products).
 
-The collective term waits for multi-GPU (ROADMAP.md, Queue 1, item 7):
-on one card ``coll_bytes`` is 0.  ``collective_bytes(hlo_text)`` is not
-ported: its input is HLO text.
+The collective term counts what the collective wrappers of
+``dist/comm.py`` hand to ``torch.distributed`` (the dispatch and combine
+messages of the MoE blocks, the DP wire's bucket messages and amax
+agreement, the ZeRO-1 gather, the plain step's gradient all-reduce): each
+call records its kind and buffer bytes in the open tally.  ``coll_bytes``
+is what one rank of a modelled world of ``n_chips`` ranks puts on the
+interconnect for those buffers, the ring factors of
+``dist/comm.wire_factor`` (all-to-all and all-gather (n-1)/n, all-reduce
+2(n-1)/n), the model ``dist/grad_comm.wire_grad_bytes`` uses; on one card
+(n_chips = 1) that is 0 whatever the buffers, which
+``Tally.coll_buffer_bytes`` still reports.  ``collective_bytes(hlo_text)``
+is not ported: its input is HLO text.
 """
 from __future__ import annotations
 
@@ -50,6 +59,8 @@ PEAK_FLOPS_BF16 = 989e12
 PEAK_FLOPS_FP8 = 1979e12
 PEAK_FLOPS_F32 = 67e12
 HBM_BW = 3.35e12
+# NVLink 4 on the H100 SXM: 900 GB/s bidirectional over 18 links (NVIDIA
+# H100 data sheet), 450 GB/s in one direction
 NVLINK_BW = 450e9
 # the bound of a kernel row (chip_smoke.py): bytes/s and each input type's
 # peak
@@ -85,6 +96,7 @@ class Tally:
     def __init__(self):
         self.aten = {}                 # op -> [flops, bytes, calls]
         self._kernels = {}             # name -> [flops list, bytes list]
+        self.coll = {}                 # collective kind -> [calls, bytes]
         self._depth = 0
 
     # -- recording --------------------------------------------------------
@@ -115,6 +127,11 @@ class Tally:
             yield
         finally:
             self._depth -= 1
+
+    def _collective(self, kind, nbytes):
+        rec = self.coll.setdefault(kind, [0, 0])
+        rec[0] += 1
+        rec[1] += nbytes
 
     # -- reading (one host read for the counts kept on the device) ---------
     @staticmethod
@@ -155,6 +172,17 @@ class Tally:
                                      for k in self.kernels().values())
 
     @property
+    def coll_buffer_bytes(self) -> float:
+        """Bytes of the buffers handed to collectives (every kind)."""
+        return float(sum(r[1] for r in self.coll.values()))
+
+    def coll_bytes(self, n_chips: int) -> float:
+        """Bytes one rank of an n_chips world sends for those buffers."""
+        from repro_torch.dist.comm import wire_factor
+        return float(sum(wire_factor(k, n_chips) * r[1]
+                         for k, r in self.coll.items()))
+
+    @property
     def gemm_flops(self) -> float:
         """The grouped-GEMM kernels' FLOPs and aten's (matmuls)."""
         ks = self.kernels()
@@ -189,6 +217,14 @@ def tally():
             yield t
     finally:
         _ACTIVE = None
+
+
+def collective(kind: str, nbytes: int) -> None:
+    """What a collective wrapper (``dist/comm.py``) calls: with a tally
+    open, the call's kind and buffer bytes are recorded."""
+    t = _ACTIVE
+    if t is not None:
+        t._collective(kind, nbytes)
 
 
 def kernel(name: str, counts):
@@ -256,10 +292,12 @@ class Roofline:
 
 def analyze_tally(t: Tally, *, model_flops_global: float,
                   n_chips: int = 1) -> Roofline:
-    """The reference's ``analyze`` on a tally's counts (one card: no
-    collective bytes)."""
-    return Roofline(flops=t.flops, hbm_bytes=t.hbm_bytes, coll_bytes=0.0,
-                    coll_by_kind={}, model_flops=model_flops_global / n_chips,
+    """The reference's ``analyze`` on a tally's counts; the collective
+    term at a world of n_chips ranks (0 at one)."""
+    return Roofline(flops=t.flops, hbm_bytes=t.hbm_bytes,
+                    coll_bytes=t.coll_bytes(n_chips),
+                    coll_by_kind={k: r[1] for k, r in t.coll.items()},
+                    model_flops=model_flops_global / n_chips,
                     n_chips=n_chips)
 
 

@@ -7,9 +7,11 @@ Three families:
   numeric   a NaN into the first element of an entry quantize's input
             (``nan_activation``, at the ``q_entry`` sites: the dense entry
             and the MoE dispatch, before kernel #1 on the card and before
-            its twin on the CPU).  The wire kinds (``payload_bitflip``,
-            ``wire_scale``) need the FP8 DP wire and raise (ROADMAP.md,
-            Queue 1, item 7).
+            its twin on the CPU); on the FP8 DP wire (``dp_wire``, in
+            ``dist/grad_comm.quantize_bucket``) a flipped payload byte
+            (``payload_bitflip``: 0x7f, e4m3fn's NaN) or a poisoned
+            bucket exponent (``wire_scale``: int8 127, a scale of
+            2^127), which the wire guard catches on the received message.
   host      a simulated host failure: flips the HealthMonitor's `failed`
             bit so ``ElasticTrainer``'s re-mesh path fires.
   disk      checkpoint corruption on the filesystem: rewrite a shard's
@@ -36,7 +38,6 @@ NUMERIC_KINDS = ("nan_activation", "payload_bitflip", "wire_scale")
 DISK_KINDS = ("ckpt_corrupt", "ckpt_truncate")
 HOST_KINDS = ("host_failure",)
 KINDS = NUMERIC_KINDS + DISK_KINDS + HOST_KINDS
-WIRE_KINDS = ("payload_bitflip", "wire_scale")
 
 # numeric fault kind -> the hook point it fires at
 _POINT_OF = {"nan_activation": "activation",
@@ -67,10 +68,6 @@ _ACTIVE: contextvars.ContextVar[Optional[Fault]] = contextvars.ContextVar(
 @contextlib.contextmanager
 def activate(fault: Optional[Fault]):
     """Arm `fault` for the duration of a call."""
-    if fault is not None and fault.kind in WIRE_KINDS:
-        raise NotImplementedError(
-            f"fault {fault.kind!r} needs the FP8 DP gradient wire, which is "
-            "not ported yet (ROADMAP.md, Queue 1, item 7)")
     tok = _ACTIVE.set(fault)
     try:
         yield
@@ -86,14 +83,21 @@ def armed() -> Optional[Fault]:
 
 def apply(point: str, tag: str, x: torch.Tensor) -> torch.Tensor:
     """Hook call sites: returns `x` poisoned (a new tensor) iff the armed
-    fault targets this (point, tag); `x` itself otherwise."""
+    fault targets this (point, tag); `x` itself otherwise.  The first
+    element becomes NaN (an activation), the byte 0x7f (a wire payload)
+    or 127 (a wire exponent)."""
     f = _ACTIVE.get()
     if f is None or _POINT_OF.get(f.kind) != point:
         return x
     if f.site and f.site != tag:
         return x
     out = x.clone()
-    out.reshape(-1)[0] = float("nan")
+    if point == "activation":
+        out.reshape(-1)[0] = float("nan")
+    elif point == "wire_payload":
+        out.view(torch.uint8).reshape(-1)[0] = 0x7F
+    else:
+        out.reshape(-1)[0] = 127
     return out
 
 
@@ -137,6 +141,11 @@ class FaultStepper:
     def guard(self):
         """The wrapped step's GuardPlan, which ``loop.run`` checks."""
         return getattr(self._raw, "guard", None)
+
+    @property
+    def shardings(self):
+        """The wrapped step's state shardings on a mesh (None off one)."""
+        return getattr(self._raw, "shardings", None)
 
     def for_step(self, step: int):
         fault = self._plan.numeric_for(step)

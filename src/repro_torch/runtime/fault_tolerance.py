@@ -12,8 +12,10 @@ Three mechanisms, simulated in one process as the reference's are:
    dropped and the caller restores the latest checkpoint.  On one card
    the re-mesh is this bookkeeping and the checkpoint rewind (the data
    pipeline is a pure function of (step, shard), so no data is lost or
-   duplicated); a mesh of several cards waits for multi-GPU training
-   (ROADMAP.md, Queue 1, item 7).
+   duplicated).  The train loop restores a ZeRO-1 checkpoint onto another
+   DP size (``train.loop``'s ``restore_shardings``); re-meshing the live
+   process groups of a multi-rank run is not ported (the reference's is
+   this bookkeeping too).
 
 3. **Straggler mitigation**: a slow host's data shard is re-assigned
    round-robin to healthy hosts for the next step (`reassign_shards`).

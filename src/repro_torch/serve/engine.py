@@ -41,7 +41,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import check_decode_recipe
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import paged_decode_step, paged_prefill
+from repro_torch.models.lm import (NO_PLAN, paged_decode_step,
+                                   paged_prefill)
 from repro_torch.obs.metrics import po2_buckets
 from repro_torch.obs.sink import null_telemetry
 from repro_torch.serve.paged_kv import (PageAllocator, copy_page,
@@ -111,18 +112,25 @@ class ServeEngine:
         eng = ServeEngine(cfg, recipe, params, ServeConfig(...), device="cuda")
         results = eng.run([Request(prompt=[...], max_new_tokens=8), ...])
 
-    `moe_overlap` (a ``core.moe.DispatchPlan``) runs the MoE layers of the
-    prefill and decode steps through the chunked blocks; None keeps the
-    monolithic ones.
+    `plan` (``models.lm.ParallelPlan``): its ``moe_overlap`` (a
+    ``core.moe.DispatchPlan``) runs the MoE layers of the prefill and
+    decode steps through the chunked blocks (None keeps the monolithic
+    ones), and its mesh runs them over the expert-parallel group (the prefill's all-to-alls, the
+    decode combine's all-reduce); serving across ranks (each rank its
+    experts) comes with multi-GPU training part 2 (ROADMAP.md).
     """
 
     def __init__(self, cfg: ArchConfig, recipe: Recipe, params,
                  ecfg: ServeConfig = ServeConfig(), device="cuda",
-                 telemetry=None, moe_overlap=None):
+                 telemetry=None, plan=None):
         check_decode_recipe(recipe)
         self.device = resolve_device(device)
         self.cfg, self.recipe, self.ecfg = cfg, recipe, ecfg
-        self.moe_overlap = moe_overlap
+        self.plan = NO_PLAN if plan is None else plan
+        if self.plan.mesh is not None and self.plan.mesh.world > 1:
+            raise NotImplementedError(
+                "serving across ranks comes with multi-GPU training part 2 "
+                "(ROADMAP.md, Queue 1, item 7); a mesh of one rank runs")
         self.tel = telemetry if telemetry is not None else null_telemetry()
         if ecfg.role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"unknown role {ecfg.role!r}")
@@ -283,8 +291,7 @@ class ServeEngine:
             lg = paged_prefill(self.cfg, self.recipe, self.params, self.pools,
                                self._tensor(ptrow), self._tensor(tokens),
                                chunk, start=pf.prefill_pos,
-                               history=pf.prefill_pos > 0,
-                               moe_overlap=self.moe_overlap)
+                               history=pf.prefill_pos > 0, plan=self.plan)
             temp = torch.full((1,), float(pf.req.temperature),
                               device=self.device)
             out["prefill_tok"] = sample_tokens(lg[:, -1, :], temp,
@@ -307,7 +314,7 @@ class ServeEngine:
                                    self.pools, self._tensor(pt),
                                    self._tensor(last[:, None]),
                                    self._tensor(pos), self._tensor(active),
-                                   moe_overlap=self.moe_overlap)
+                                   plan=self.plan)
             out["decode_toks"] = sample_tokens(lg[:, -1, :],
                                                self._tensor(temps),
                                                ecfg.top_k, self.gen)

@@ -23,8 +23,18 @@ What differs comes from PyTorch's in-place updates:
 - **The cast-ledger snapshot** of a step callable is taken on its first
   real call (the reference traces it abstractly with ``jax.eval_shape``).
 
-``restore_shardings`` (re-sharding on restore) waits for multi-GPU
-training (ROADMAP.md, Queue 1, item 7).
+- **Checkpoints on a mesh.**  A step on a mesh carries its state's
+  shardings (``train_step.shardings``): a DistPlan step's replicas hold
+  their own rows of the flat optimizer state
+  (``dist.opt_state.Zero1Shardings``), a plain step's ranks their own
+  experts (``launch.sharding.MeshShardings``).  A save gathers the full
+  logical state (every rank joins the gather) and one rank writes it; a
+  restore reads the full state into a full-size template and copies this
+  rank's part out.  ``restore_shardings`` names the layout to cut for,
+  the step's own by default: a ZeRO-1 checkpoint saved at one DP size
+  restores at another that divides ``DistPlan.shard_multiple``, and a
+  plain one at another EP size, bit for bit.  Every rank waits at a
+  barrier for a write to land before it looks for a checkpoint.
 """
 from __future__ import annotations
 
@@ -43,14 +53,21 @@ from repro_torch.runtime import fault_injection
 from repro_torch.runtime.fault_tolerance import ElasticTrainer
 
 
-def _restore_latest_valid(ckpt_dir, state, log_fn, tel=None):
+def _restore_latest_valid(ckpt_dir, state, log_fn, tel=None,
+                          shardings=None):
     """The newest complete checkpoint that passes the integrity checks,
-    copied into `state`; a corrupt step (CheckpointCorruptError) is logged
-    and skipped, so one poisoned shard cannot wedge the rollback path.
-    Returns (state, step) or None."""
+    copied into `state` (through the `shardings`' full-size template for
+    a state sharded over a mesh); a corrupt step (CheckpointCorruptError)
+    is logged and skipped, so one poisoned shard cannot wedge the
+    rollback path.  Returns (state, step) or None."""
     for s in reversed(checkpointing.completed_steps(ckpt_dir)):
         try:
-            st, _ = checkpointing.restore(ckpt_dir, state, step=s)
+            if shardings is None:
+                st, _ = checkpointing.restore(ckpt_dir, state, step=s)
+            else:
+                full, _ = checkpointing.restore(
+                    ckpt_dir, shardings.template(state), step=s)
+                st = shardings.shard(full, state)
             return st, s
         except checkpointing.CheckpointCorruptError as e:
             msg = (f"[loop] checkpoint step_{s} failed integrity check "
@@ -93,6 +110,18 @@ def fetch_metrics(metrics) -> dict:
     return out
 
 
+def save_state(ckpt_dir, step, state, shardings=None, async_=False):
+    """checkpointing.save of the state, or on a mesh of its gathered full
+    state by the shardings' writer (the other ranks join the gather and
+    write nothing: None)."""
+    if shardings is None:
+        return checkpointing.save(ckpt_dir, step, state, async_=async_)
+    full = shardings.full(state)
+    if not shardings.writer:
+        return None
+    return checkpointing.save(ckpt_dir, step, full, async_=async_)
+
+
 def _sync(state) -> None:
     leaves = tree_leaves(state["params"])
     if leaves and leaves[0].is_cuda:
@@ -106,7 +135,7 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
         restore_shardings=None, log_fn=print, guard_policy=None,
         fallback_step: Optional[Callable] = None,
         fault_plan: Optional[fault_injection.FaultPlan] = None,
-        telemetry=None):
+        telemetry=None, batch_fn: Optional[Callable] = None):
     """Runs `n_steps`, restarting from the latest checkpoint if present.
     `fail_injector(step, elastic)` lets tests simulate host failures and
     stragglers.  Batches are ``make_batch(data_cfg, step)`` on the device
@@ -129,11 +158,15 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
     telemetry (``obs.sink.Telemetry``) collects typed events, per-step
     metric samples (from the one fetch a step), host spans and cast-ledger
     snapshots.  None -> a null handle: the same behaviour, nothing kept.
-    Returns (state, history)."""
-    if restore_shardings is not None:
-        raise NotImplementedError(
-            "restore_shardings (re-sharding a checkpoint onto a mesh) waits "
-            "for multi-GPU training (ROADMAP.md, Queue 1, item 7)")
+
+    restore_shardings (``dist.opt_state.Zero1Shardings`` or
+    ``launch.sharding.MeshShardings``) cuts a restored checkpoint for a
+    layout; the step's own (``train_step.shardings``) by default.
+    batch_fn maps each global batch to what the step takes
+    (``launch.sharding.shard_batch`` on a mesh).  Returns (state,
+    history)."""
+    shardings = restore_shardings if restore_shardings is not None \
+        else getattr(train_step, "shardings", None)
     if guard_policy is not None:
         for fn in (train_step, fallback_step):
             plan = getattr(fn, "guard", None)
@@ -153,7 +186,8 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
 
     start = 0
     if ckpt_dir is not None and checkpointing.latest_step(ckpt_dir) is not None:
-        res = _restore_latest_valid(ckpt_dir, state, log_fn, tel)
+        res = _restore_latest_valid(ckpt_dir, state, log_fn, tel,
+                                    shardings)
         if res is not None:
             state, rstep = res
             start = rstep + 1
@@ -173,6 +207,8 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
         if pending_save is not None:
             pending_save.join()     # re-raises a failed background write
             pending_save = None
+        if shardings is not None:   # the writer's save has landed
+            shardings.barrier()
 
     step = start
     while step < n_steps:
@@ -187,6 +223,8 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
                        f"(checkpoint step_{poisoned})",
                        step=step, fault=disk.kind, ckpt_step=poisoned)
         batch = make_batch(data_cfg, step, device=device)
+        if batch_fn is not None:        # e.g. this rank's share on a mesh
+            batch = batch_fn(batch)
         if grad_accum > 1:
             batch = {k: a.reshape(grad_accum, a.shape[0] // grad_accum,
                                   *a.shape[1:]) for k, a in batch.items()}
@@ -242,6 +280,10 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
 
         if guard_policy is not None:
             flags = int(host_metrics.get("guard_flags", 0))
+            if flags and shardings is not None:
+                # the flags are agreed: every rank looks for a checkpoint
+                # after the same landed write
+                _join_pending()
             have_ckpt = ckpt_dir is not None and \
                 bool(checkpointing.completed_steps(ckpt_dir))
             verdict = guard_policy.observe(step, flags, log_fn,
@@ -254,7 +296,8 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
                     state["guard"] = prev_guard
                 if verdict.rollback and have_ckpt:
                     _join_pending()
-                    res = _restore_latest_valid(ckpt_dir, state, log_fn, tel)
+                    res = _restore_latest_valid(ckpt_dir, state, log_fn,
+                                                tel, shardings)
                     if res is not None:
                         state, rstep = res
                         _event("rollback",
@@ -291,7 +334,8 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
                     _join_pending()
                 if ckpt_dir is not None and \
                         checkpointing.latest_step(ckpt_dir) is not None:
-                    res = _restore_latest_valid(ckpt_dir, state, log_fn, tel)
+                    res = _restore_latest_valid(ckpt_dir, state, log_fn,
+                                                tel, shardings)
                     if res is not None:
                         state, rstep = res
                         # rewind so the optimizer steps between the
@@ -316,8 +360,8 @@ def run(train_step: Callable, state, data_cfg: DataConfig, *,
                    step=step, loss=loss, dt_ms=dt * 1e3)
         if ckpt_dir is not None and step % ckpt_every == 0 and step > 0:
             _join_pending()
-            pending_save = checkpointing.save(ckpt_dir, step, state,
-                                              async_=True)
+            pending_save = save_state(ckpt_dir, step, state, shardings,
+                                      async_=True)
             tel.record("ckpt_save", step=step)
             tel.counter("ckpt_saves_total").inc()
         step += 1

@@ -1783,3 +1783,100 @@ def test_tally_on_card_reports_the_cpu_kernels(card):
     # the dispatch mode follows autograd onto its device thread: the
     # router's backward matmuls are counted on the card as on the CPU
     assert out["gpu"].aten_flops == out["cpu"].aten_flops > 0
+
+
+# ---------------------------------------------------------------------------
+# The multi-GPU path's collectives on an NCCL group of one rank (one card:
+# NCCL refuses two ranks on one device), and the DP wire's pieces on it.
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl(card, tmp_path):
+    from repro_torch.launch.mesh import close_mesh, init_mesh
+    mesh = init_mesh(1, 1, device="cuda", store=str(tmp_path / "store"),
+                     timeout_s=120)
+    yield mesh
+    close_mesh()
+
+
+@pytest.mark.gpu
+def test_all_to_all_is_the_identity_on_card(nccl):
+    """At one rank the all-to-all (dist/comm.py, the MoE blocks') is
+    a copy: e4m3 payloads, their f32 scales, bf16 rows and a packed uint8
+    message come back byte for byte, synchronously and in flight."""
+    from repro_torch.dist import comm
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pay = torch.randint(0, 256, (256, 4096), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    for t in (pay.view(torch.float8_e4m3fn),
+              torch.rand((256, 32), generator=g, device="cuda"),
+              torch.randn((256, 4096), generator=g, device="cuda").to(
+                  torch.bfloat16), pay):
+        for async_op in (False, True):
+            got = comm.all_to_all(t, nccl.model_group, async_op=async_op)
+            got = got.wait() if async_op else got
+            assert got.dtype == t.dtype and got.data_ptr() != t.data_ptr()
+            iv = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+            assert torch.equal(got.view(iv[t.element_size()]),
+                               t.view(iv[t.element_size()]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["fp8", "bf16", "f32"])
+def test_wire_reduce_scatter_equals_the_cpu_twin_on_card(nccl, wire):
+    """reduce_scatter_bucket on the card (NCCL, one replica) and on the
+    CPU (no group) from the same bucket: the same owned rows bit for bit
+    (the agreed scale is the row's own, the dequantize exact)."""
+    from repro_torch.dist import grad_comm
+    g = torch.from_numpy(_x(5, 4096, TILE, spread=2.0))
+    got = grad_comm.reduce_scatter_bucket(g.cuda(), nccl.data_group, 1, wire)
+    want = grad_comm.reduce_scatter_bucket(g, None, 1, wire)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pol", ["split", "f32"])
+def test_flat_bucket_update_kernel_equals_its_twin_on_card(card, pol,
+                                                           monkeypatch):
+    """flat_bucket_update on an owned (rows, TILE) shard runs the
+    adamw_update kernel (one launch a chunk) and leaves every byte of the
+    shard's params, m, v and master equal to its twin's on the card."""
+    from repro_torch import kernels
+    from repro_torch.dist import opt_state as ost
+    from repro_torch.optim.adamw import AdamWConfig
+    rows = 3 * 4096 + 64
+    policy = ost.StatePolicy() if pol == "split" else \
+        ost.StatePolicy(m="f32", v="f32", master="f32")
+    r = np.random.default_rng(6)
+    p = torch.from_numpy(r.normal(size=(rows, TILE)).astype(np.float32)
+                         * 0.02).to(torch.bfloat16)
+    g = torch.from_numpy(r.normal(size=(rows, TILE)).astype(np.float32)
+                         * 1e-3)
+    m0 = torch.from_numpy(r.normal(size=(rows, TILE)).astype(np.float32)
+                          * 1e-4)
+    v0 = torch.from_numpy(r.random((rows, TILE)).astype(np.float32) * 1e-6)
+
+    def state(dev):
+        return {"m": ost.encode(policy.m, m0.to(dev)),
+                "v": ost.encode(policy.v, v0.to(dev)),
+                "master": ost.encode(policy.master, p.to(dev))}
+    from repro_torch.kernels.adamw_update import adamw_update_plain
+    opt = AdamWConfig(lr=1e-3)
+    out = {}
+    for route in ("kernel", "twin"):
+        if route == "twin":
+            monkeypatch.setattr(ops, "adamw_update_cuda", adamw_update_plain)
+        st, ps = state("cuda"), p.cuda().reshape(-1).clone()
+        kernels.reset_launches()
+        ost.flat_bucket_update(opt, st, g.cuda(), torch.tensor(
+            0.5, device="cuda"), 1e-3, 0.1, 0.05, ps)
+        out[route] = (ps, st, kernels.LAUNCHES["adamw_update"])
+    assert out["kernel"][2] >= 1 and out["twin"][2] == 0
+    assert torch.equal(out["kernel"][0].view(torch.int16),
+                       out["twin"][0].view(torch.int16))
+    for k in ("m", "v", "master"):
+        a, b = out["kernel"][1][k], out["twin"][1][k]
+        for x, y in ((a.data, b.data), (a.scale, b.scale)) \
+                if isinstance(a, QTensor) else ((a, b),):
+            iv = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+            assert torch.equal(x.view(iv[x.element_size()]),
+                               y.view(iv[y.element_size()])), k

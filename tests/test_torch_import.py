@@ -1,5 +1,7 @@
-"""repro_torch stands alone: every module (and the chip scripts and the
-port's examples) imports without jax or the JAX package, weights cross
+"""repro_torch stands alone: every module (the multi-GPU ones too: the
+mesh, the sharding, the collectives, the DP wire and its plan, the FP8
+psum), the chip scripts and the port's examples import without jax or
+the JAX package, weights cross
 over with their bits, and asking for CUDA without a card raises instead
 of falling back."""
 import torch_threads  # noqa: F401  (first: one intra-op thread)
@@ -37,7 +39,9 @@ configs |= {f"repro_torch.{m}" for m in (
     "runtime.fault_injection", "runtime.fault_tolerance",
     "checkpoint.checkpointing", "obs.metrics", "obs.sink",
     "dist.scale_sync", "serve.prefix_cache", "serve.transfer",
-    "serve.router", "obs.report", "obs.trace", "roofline.analysis")}
+    "serve.router", "obs.report", "obs.trace", "roofline.analysis",
+    "launch.mesh", "launch.sharding", "dist.comm", "dist.plan",
+    "dist.grad_comm", "runtime.compression")}
 assert configs <= set(names), sorted(configs - set(names))
 import chip_depths, chip_profile, chip_smoke
 sys.path.insert(0, "examples")

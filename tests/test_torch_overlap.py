@@ -123,11 +123,32 @@ def test_packed_messages_are_the_references_bytes():
     assert np.array_equal(gs.numpy(), s) and np.array_equal(gp2.numpy(), gp)
 
 
-def test_expert_parallel_a2a_waits_for_multi_gpu():
+def test_expert_parallel_a2a_waits_for_multi_gpu(tmp_path):
+    """The all-to-all is the identity with no group (it launches nothing)
+    and, since the expert-parallel slice, a collective on a group: on a
+    one-rank gloo group (an FP8 message as its bytes) it returns a copy
+    with every byte, synchronous or in flight.  Its EP > 1 behaviour is
+    tests/test_torch_ep.py's."""
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import close_mesh, init_mesh
     x = torch.ones(4, 8)
-    assert moe._a2a(x) is x
-    with pytest.raises(NotImplementedError, match="item 7"):
-        moe._a2a(x, ep=2)
+    assert comm.all_to_all(x, None) is x
+    assert comm.all_to_all(x, None, async_op=True).wait() is x
+    mesh = init_mesh(1, 1, device="cpu", store=str(tmp_path / "store"),
+                     timeout_s=60)
+    try:
+        comm.reset_counts()
+        q = torch.arange(256, dtype=torch.uint8).reshape(4, 64).view(
+            torch.float8_e4m3fn)
+        got = comm.all_to_all(q, mesh.model_group)
+        assert got is not q and got.dtype == torch.float8_e4m3fn
+        assert torch.equal(got.view(torch.uint8), q.view(torch.uint8))
+        back = comm.all_to_all(x, mesh.model_group, async_op=True).wait()
+        assert torch.equal(back, x)
+        assert comm.counts()["all-to-all"] == {"calls": 2,
+                                               "bytes": 256 + 4 * 8 * 4}
+    finally:
+        close_mesh()
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +362,7 @@ def _qwen3_forward(cfg, params, batch, moe_overlap):
     try:
         with casts.ledger() as led:
             loss, _ = lm.forward(cfg, get_recipe("fp8_flow"), params, batch,
-                                 moe_overlap=moe_overlap)
+                                 plan=lm.ParallelPlan(moe_overlap=moe_overlap))
             loss.backward()
     finally:
         lm.moe_block_overlapped = orig

@@ -139,7 +139,7 @@ def test_moe_train_step_gemm_flops_are_analytic(n_chunks):
         if n_chunks else None
     with analysis.tally() as t:
         loss, _ = lm.forward(cfg, get_recipe("fp8_flow"), params, batch,
-                             moe_overlap=plan)
+                             plan=lm.ParallelPlan(moe_overlap=plan))
         loss.backward()
     n = max(n_chunks, 1)
     rc = get_recipe("fp8_flow")

@@ -282,9 +282,25 @@ def test_fault_ladder_gives_the_reference_loops_events(tmp_path, ladder):
 
 
 def test_wire_faults_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        with fi.activate(fi.Fault("payload_bitflip", 0)):
-            pass
+    """The wire faults arm now (they raised before the FP8 DP wire was
+    ported): under payload_bitflip the wire's quantize writes 0x7f (e4m3's
+    NaN) into its payload's first byte, under wire_scale the exponent 127,
+    as the reference's hook does; with nothing armed the bucket is clean.
+    tests/test_torch_dist_train.py shows the guard catching both."""
+    from repro_torch.dist import grad_comm
+    g = torch.linspace(-1.0, 1.0, 4 * 128).reshape(4, 128)
+    clean_pay, clean_exp = grad_comm.quantize_bucket(g, None)
+    with fi.activate(fi.Fault("payload_bitflip", 0)):
+        pay, exp = grad_comm.quantize_bucket(g, None)
+    assert int(pay.view(torch.uint8).reshape(-1)[0]) == 0x7F
+    assert torch.equal(pay.view(torch.uint8).reshape(-1)[1:],
+                       clean_pay.view(torch.uint8).reshape(-1)[1:])
+    assert torch.equal(exp, clean_exp)
+    with fi.activate(fi.Fault("wire_scale", 0)):
+        pay, exp = grad_comm.quantize_bucket(g, None)
+    assert int(exp.reshape(-1)[0]) == 127
+    assert torch.equal(pay.view(torch.uint8), clean_pay.view(torch.uint8))
+    assert int(clean_pay.view(torch.uint8).reshape(-1)[0]) != 0x7F
 
 
 # ---------------------------------------------------------------------------

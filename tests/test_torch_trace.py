@@ -70,8 +70,9 @@ def test_forward_shows_every_stage(moe_overlap):
     batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=64,
                                   global_batch=2), 0, device="cpu")
     with torch.no_grad():
-        keys = _keys(lambda: lm.forward(cfg, get_recipe("fp8_flow"), params,
-                                        batch, moe_overlap=moe_overlap))
+        keys = _keys(lambda: lm.forward(
+            cfg, get_recipe("fp8_flow"), params, batch,
+            plan=lm.ParallelPlan(moe_overlap=moe_overlap)))
     assert STAGE_KEYS <= keys, sorted(STAGE_KEYS - keys)
     assert "remat/full" in keys
 

@@ -212,10 +212,14 @@ def test_warmup_cosine_matches_reference(step):
 
 
 def test_unported_training_options_raise():
-    """`dist` still raises, naming its Queue 1 item; the guard, gradient
-    accumulation, save_h and the FP8-split state now build and run a
-    step (tests/test_torch_guards.py, test_torch_runtime.py and
-    test_torch_opt_state.py hold them to the reference), and so does the
+    """What is still unported raises, naming its slice: the streaming
+    wire schedule (``DistPlan(schedule='stream')``, ``--dist-schedule
+    stream``) and a DistPlan step without a mesh; the FP8 DP wire itself
+    (``--dist-wire fp8``, at world 1 on a gloo group) now trains
+    (tests/test_torch_dist_train.py holds it to the reference's bars), as
+    do the guard, gradient accumulation, save_h and the FP8-split state
+    (tests/test_torch_guards.py, test_torch_runtime.py and
+    test_torch_opt_state.py hold them to the reference), and the
     launcher under each `--remat-policy` (tests/test_torch_remat.py holds
     the policies to the reference)."""
     from repro_torch.configs import get_arch
@@ -224,11 +228,18 @@ def test_unported_training_options_raise():
     from repro_torch.train.train_step import init_train_state
     cfg = get_arch("qwen15_05b").reduced()
     recipe = get_recipe("fp8_flow")
+    from repro_torch.dist.plan import DistPlan
+    with pytest.raises(ValueError, match="plan.mesh"):
+        make_train_step(cfg, recipe, adamw.AdamWConfig(), dist=DistPlan())
     with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        make_train_step(cfg, recipe, adamw.AdamWConfig(), dist=object())
+        DistPlan(schedule="stream")
     from repro_torch.launch.train import main
     with pytest.raises(NotImplementedError, match="item 7"):
-        main(["--reduced", "--device", "cpu", "--dist-wire", "fp8"])
+        main(["--reduced", "--device", "cpu", "--dist-wire", "fp8",
+              "--dist-schedule", "stream"])
+    wired = main(["--reduced", "--device", "cpu", "--dist-wire", "fp8",
+                  "--steps", "1", "--seq-len", "32", "--global-batch", "2"])
+    assert len(wired) == 1 and np.isfinite(wired[0])
     losses = {policy: main(["--reduced", "--device", "cpu",
                             "--remat-policy", policy, "--steps", "1",
                             "--seq-len", "32", "--global-batch", "2"])

@@ -1,0 +1,228 @@
+"""What each CPU rank of the port's multi-rank tests runs
+(``torch_dist_harness.run_ranks`` spawns them).  Torch only: a spawned
+rank imports this module, not the test module and its jax."""
+import numpy as np
+import torch
+
+from repro_torch.core import casts, moe
+from repro_torch.core.recipes import get_recipe
+
+
+def recipe_of(name):
+    if name == "masked":
+        return get_recipe("fp8_flow", masked_experts=True,
+                          swiglu_epilogue=True)
+    return get_recipe(name)
+
+
+def np32(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+def ep_block(mesh, spec, arrays, cases):
+    """Each case ('recipe|ep|kind|n') of the port's EP blocks on this
+    rank's share: its tokens (train blocks; decode blocks see the whole
+    replicated batch), its E / EP experts, the full router.  Returns, per
+    case, the local output, drop fraction, gradients of the local
+    sum(y**2) (the global loss is their sum), the activation casts and
+    the collectives' calls by kind."""
+    from repro_torch.dist import comm
+    x, xd, wr, w13, w2 = arrays
+    E, topk, cf = spec
+    ep, m = mesh.ep, mesh.model_index
+    e_loc = E // ep
+    out = []
+    for case in cases:
+        name, _, kind, n = case.split("|")
+        n = int(n)
+        recipe = recipe_of(name)
+        cfg = moe.MoEConfig(n_experts=E, top_k=topk, d_model=x.shape[1],
+                            d_ff=w2.shape[1], capacity_factor=cf,
+                            ep_group=mesh.model_group)
+        decode = kind.startswith("decode")
+        T = (xd if decode else x).shape[0]
+        rows = slice(None) if decode else slice(m * T // ep,
+                                                (m + 1) * T // ep)
+        xs = torch.tensor((xd if decode else x)[rows]).to(torch.bfloat16)
+        wrt = torch.tensor(wr)
+        w13t = torch.tensor(w13[m * e_loc:(m + 1) * e_loc])
+        w2t = torch.tensor(w2[m * e_loc:(m + 1) * e_loc])
+        comm.reset_counts()
+        if decode:
+            blk = moe.moe_block_decode if kind == "decode" else \
+                (lambda *a: moe.moe_block_decode_overlapped(*a, n_chunks=n))
+            with torch.no_grad():
+                y, met = blk(recipe, cfg, xs, wrt, w13t, w2t)
+            out.append(dict(y=np32(y), drop=float(met["drop_frac"]),
+                            coll=comm.counts()))
+            continue
+        for t in (xs, wrt, w13t, w2t):
+            t.requires_grad_()
+        with casts.ledger() as led:
+            if kind == "mono":
+                y, met = moe.moe_block(recipe, cfg, xs, wrt, w13t, w2t)
+            else:
+                y, met = moe.moe_block_overlapped(recipe, cfg, xs, wrt, w13t,
+                                                  w2t, n_chunks=n)
+            (y.to(torch.float32) ** 2).sum().backward()
+        out.append(dict(y=np32(y), drop=float(met["drop_frac"]),
+                        gx=np32(xs.grad), gwr=np32(wrt.grad),
+                        gw13=np32(w13t.grad), gw2=np32(w2t.grad),
+                        casts=led.activation_casts(), coll=comm.counts()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training on a mesh.
+# ---------------------------------------------------------------------------
+def tree_np(tree):
+    """A state tree's tensors as numpy bytes views (bit comparisons)."""
+    from repro_torch.checkpoint.checkpointing import _flatten
+    out = {}
+    for p, leaf in _flatten(tree):
+        if torch.is_tensor(leaf):
+            t = leaf.detach().contiguous()
+            out[p] = t.view({1: torch.uint8, 2: torch.int16,
+                             4: torch.int32}[t.element_size()]).numpy().copy()
+        else:
+            out[p] = leaf
+    return out
+
+
+def train(mesh, arch, recipe_name, wire, n_steps, *, state_policy=None,
+          seq_len=64, global_batch=8, lr=3e-3, ep_cf=None, guard=False,
+          faults=(), ckpt_dir=None, ckpt_every=50, full_state=False,
+          n_total=None, init_grads=False, min_fp8_size=2048):
+    """`n_steps` steps of `arch` (reduced) on this rank's share of the
+    global batches through loop.run: the DistPlan step for a `wire`, the
+    plain step for None (f32 all-reduce; EP over the mesh's model axis).
+    Returns the losses, the guard flags, the drop fractions and expert
+    overflows the MoE blocks saw, the activation casts of the first step,
+    the ledger's tags, and the params (gathered experts) as bytes, with
+    `full_state` the gathered optimizer state as bytes, and with
+    `init_grads` the plain step's reduced f32 gradients of the first
+    global batch at the initial params (gathered experts), of the loss
+    without the router's aux term (a mean of each rank's on a mesh)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.plan import DistPlan
+    from repro_torch.launch.sharding import gather_expert_leaf, shard_batch
+    from repro_torch.models.lm import ParallelPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import fault_injection as fi
+    from repro_torch.train import guards as G
+    from repro_torch.train.loop import run
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_arch(arch).reduced()
+    if ep_cf is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=ep_cf)
+    recipe = recipe_of(recipe_name)
+    if wire is None:
+        opt = AdamWConfig(lr=lr, state_policy=state_policy)
+        dist = None
+    else:
+        opt = AdamWConfig(lr=lr)
+        dist = DistPlan(wire=wire, policy=state_policy,
+                        min_fp8_size=min_fp8_size)
+    gplan = G.GuardPlan() if guard else None
+    state = init_train_state(cfg, opt, seed=0, device="cpu", dist=dist,
+                             mesh=mesh, guard=gplan)
+    step = make_train_step(cfg, recipe, opt, dist=dist,
+                           plan=ParallelPlan(mesh=mesh),
+                           total_steps=n_total or 400, warmup_steps=5,
+                           guard=gplan)
+    flags, gnorms = [], []
+
+    def flagged(st, batch, _step=step):
+        st, m = _step(st, batch)
+        gnorms.append(float(m["grad_norm"]))
+        if "guard_flags" in m:
+            flags.append(int(m["guard_flags"]))
+        return st, m
+    flagged.guard = step.guard
+    flagged.shardings = getattr(step, "shardings", None)
+    step = flagged
+    if faults:
+        step = fi.FaultPlan(tuple(fi.Fault(k, s) for k, s in faults)
+                            ).wrap(step)
+    res = {}
+    if init_grads:
+        from repro_torch.data.pipeline import make_batch
+        from repro_torch.train.train_step import _local_grads, reduce_grads
+        batch = shard_batch(make_batch(DataConfig(
+            vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch), 0,
+            device="cpu"), mesh)
+        from repro_torch.models import lm
+        coef, lm.AUX_LOSS_COEF = lm.AUX_LOSS_COEF, 0.0
+        _, _, g = _local_grads(cfg, recipe, state["params"], batch, 1, False,
+                               ParallelPlan(mesh=mesh))
+        lm.AUX_LOSS_COEF = coef
+        g = reduce_grads(g, mesh) if mesh.has_groups else g
+        res["grads"] = {k: np32(gather_expert_leaf(v, mesh)
+                                if k in ("we13", "we2") else v)
+                        for k, v in g["layers"].items()}
+    drops, overflow = [], []
+    d0, e0 = moe._dispatch_plan, moe._expert_plan
+
+    def dplan(ids, k, EP, E_loc, C):
+        r = d0(ids, k, EP, E_loc, C)
+        drops.append(float(r[3]))
+        return r
+
+    def eplan(recv, E_loc, C):
+        r = e0(recv, E_loc, C)
+        overflow.append(int((recv >= 0).sum() - (r[0] >= 0).sum()))
+        return r
+
+    moe._dispatch_plan, moe._expert_plan = dplan, eplan
+    policy = G.GuardPolicy() if guard else None
+    logs = []
+    with casts.ledger() as led:
+        state, hist = run(step, state, DataConfig(
+            vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch),
+            n_steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+            log_fn=logs.append, guard_policy=policy,
+            batch_fn=lambda b: shard_batch(b, mesh))
+    moe._dispatch_plan, moe._expert_plan = d0, e0
+    params = {}
+    for k, v in state["params"].items():
+        if isinstance(v, dict):
+            params[k] = {n: gather_expert_leaf(t.detach(), mesh)
+                         if n in ("we13", "we2") else t
+                         for n, t in v.items()}
+        else:
+            params[k] = v
+    res.update(losses=[h["loss"] for h in hist], drops=drops, flags=flags,
+               gnorms=gnorms,
+               overflow=overflow, params=tree_np(params),
+               casts=led.activation_casts(),
+               tags=sorted(f"{k}:{t}" for (k, t) in led.by_tag()),
+               logs=logs)
+    if full_state:
+        z = getattr(step, "shardings", None)
+        res["opt"] = tree_np(z.full(state)["opt"] if z is not None
+                             else state["opt"])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The DP wire's pieces.
+# ---------------------------------------------------------------------------
+def wire_rank(mesh, grads, wires):
+    """reduce_scatter_bucket of this replica's bucket (grads[rank]) for
+    each wire; compressed_psum of the same rows.  Returns the owned rows,
+    the sum, and the collectives' calls and bytes."""
+    from repro_torch.dist import comm, grad_comm
+    from repro_torch.runtime.compression import compressed_psum
+    g = torch.from_numpy(grads[mesh.rank])
+    n = mesh.dp
+    out = {}
+    for wire in wires:
+        comm.reset_counts()
+        out[wire] = grad_comm.reduce_scatter_bucket(
+            g.clone(), mesh.data_group, n, wire).numpy()
+        out[f"coll_{wire}"] = comm.counts()
+    out["psum"] = compressed_psum(g.clone(), mesh.data_group).numpy()
+    return out

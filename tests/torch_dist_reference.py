@@ -1,0 +1,151 @@
+"""The reference's multi-device functions, run for the port's multi-rank
+tests in a process of its own (``torch_dist_harness.run_reference``):
+
+  python tests/torch_dist_reference.py TASK IN.npz OUT.npz
+
+with XLA_FLAGS forcing the host devices.  Tasks:
+
+  ep_blocks        the EP MoE blocks (moe_block, moe_block_overlapped,
+                   moe_block_decode, moe_block_decode_overlapped) in a
+                   jitted check_vma=False shard_map over a (1, EP) mesh,
+                   as tests/test_torch_overlap.py runs them: the output,
+                   the drop fraction and the gradients of sum(y**2) by x,
+                   w_router, w13 and w2 (train blocks), each case named in
+                   the input's `cases`
+  reduce_scatter   grad_comm.reduce_scatter_bucket over a (n, 1) mesh, one
+                   (n, rows, TILE) input a case
+  compressed_psum  runtime.compression.compressed_psum over n devices
+"""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import PartitionSpec as P
+
+from repro.compat import shard_map
+from repro.core import moe as jmoe
+from repro.core.recipes import get_recipe
+
+
+def _recipe(name):
+    if name == "masked":
+        return get_recipe("fp8_flow", masked_experts=True,
+                          swiglu_epilogue=True)
+    return get_recipe(name)
+
+
+def ep_blocks(inp):
+    x = jnp.asarray(inp["x"]).astype(jnp.bfloat16)
+    xd = jnp.asarray(inp["x_decode"]).astype(jnp.bfloat16)
+    wr, w13, w2 = (jnp.asarray(inp[k]) for k in ("wr", "w13", "w2"))
+    E, topk = int(inp["spec"][0]), int(inp["spec"][1])
+    cf = float(inp["spec"][2])
+    D, F = x.shape[1], w2.shape[1]
+    out = {}
+    for i, case in enumerate(str(c) for c in inp["cases"]):
+        recipe_name, ep, kind, n = case.split("|")
+        ep, n = int(ep), int(n)
+        recipe = _recipe(recipe_name)
+        mesh = _mesh(ep)
+        cfg = jmoe.MoEConfig(n_experts=E, top_k=topk, d_model=D, d_ff=F,
+                             capacity_factor=cf)
+        decode = kind.startswith("decode")
+
+        def body(xl, wrl, w13l, w2l, _kind=kind, _n=n, _r=recipe):
+            if _kind == "mono":
+                y, m = jmoe.moe_block(_r, cfg, xl, wrl, w13l, w2l)
+            elif _kind == "overlap":
+                y, m = jmoe.moe_block_overlapped(_r, cfg, xl, wrl, w13l, w2l,
+                                                 n_chunks=_n)
+            elif _kind == "decode":
+                y, m = jmoe.moe_block_decode(_r, cfg, xl, wrl, w13l, w2l)
+            else:
+                y, m = jmoe.moe_block_decode_overlapped(
+                    _r, cfg, xl, wrl, w13l, w2l, n_chunks=_n)
+            return y, m["drop_frac"][None]
+
+        tok = P(None, None) if decode else P(("data", "model"), None)
+        f = shard_map(body, mesh=mesh,
+                      in_specs=(tok, P(None, None), P("model", None, None),
+                                P("model", None, None)),
+                      out_specs=(tok, P("model")), check_vma=False)
+        if decode:
+            y, drop = jax.jit(f)(xd, wr, w13, w2)
+            out[f"y_{i}"] = np.asarray(y, np.float32)
+            out[f"drop_{i}"] = np.asarray(drop, np.float32)
+            continue
+
+        def loss(*a, _f=f):
+            y, drop = _f(*a)
+            return jnp.sum(y.astype(jnp.float32) ** 2), (y, drop)
+
+        (_, (y, drop)), grads = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1, 2, 3), has_aux=True))(x, wr, w13, w2)
+        out[f"y_{i}"] = np.asarray(y, np.float32)
+        out[f"drop_{i}"] = np.asarray(drop, np.float32)
+        for name, g in zip(("x", "wr", "w13", "w2"), grads):
+            out[f"g{name}_{i}"] = np.asarray(g, np.float32)
+    return out
+
+
+def _mesh(n, axes=("data", "model"), data=False):
+    """The first n host devices as a (1, n) mesh, or (n, 1) for `data`."""
+    from jax.sharding import Mesh
+    devs = np.asarray(jax.devices()[:n])
+    shape = (n, 1) if data else (1, n)
+    return Mesh(devs.reshape(shape), axes)
+
+
+def reduce_scatter(inp):
+    from repro.dist import grad_comm
+    out = {}
+    for key in list(inp):
+        if not key.startswith("g_"):
+            continue
+        _, wire, n = key.split("_")
+        n = int(n)
+        g = jnp.asarray(inp[key])
+        mesh = _mesh(n, data=True)
+
+        def red(gl, _wire=wire, _n=n):
+            return grad_comm.reduce_scatter_bucket(gl[0], "data", _n, _wire)
+
+        f = shard_map(red, mesh=mesh, in_specs=P("data", None, None),
+                      out_specs=P("data", None), check_vma=False)
+        out[f"rs_{wire}_{n}"] = np.asarray(jax.jit(f)(g))
+    return out
+
+
+def compressed_psum(inp):
+    from repro.runtime.compression import compressed_psum as cps
+    out = {}
+    for key in list(inp):
+        if not key.startswith("x_"):
+            continue
+        n = int(key.split("_")[1])
+        x = jnp.asarray(inp[key])
+        mesh = _mesh(n, data=True)
+
+        def body(xl):
+            return cps(xl[0], "data")[None]
+
+        f = shard_map(body, mesh=mesh, in_specs=P("data", None, None),
+                      out_specs=P("data", None, None), check_vma=False)
+        out[f"psum_{n}"] = np.asarray(jax.jit(f)(x))
+    return out
+
+
+TASKS = {"ep_blocks": ep_blocks, "reduce_scatter": reduce_scatter,
+         "compressed_psum": compressed_psum}
+
+
+def main():
+    task, src, dst = sys.argv[1:4]
+    with np.load(src) as f:
+        inp = {k: f[k] for k in f.files}
+    np.savez(dst, **TASKS[task](inp))
+
+
+if __name__ == "__main__":
+    main()
