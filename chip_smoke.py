@@ -254,6 +254,21 @@ Phases (any failure raises and the script exits non-zero):
  39. compressed_psum of one qwen3 expert leaf: #1 twice, the error within
      two e4m3 half-ulps of each row's amax, the first expert the plain
      e4m3 twin's bit for bit (an e5m2 control printed and refused), ms;
+ 40. the reference's production levers on that group: qwen3 (1 layer,
+     StatePolicy()) with TP experts and FSDP under each combine, padded
+     and masked, each the group-less TP run bit for bit and within 1e-3
+     of phase 37's EP run, 2 casts and Dgrad-1 on #3 (#5) then #1 (no #4
+     / #6); grok1_314b (1 layer) with TP experts (FSDP where its
+     predicted peak fits); deepseek_v2_lite at depth 4 with the TP MLP
+     and FSDP against the plain mesh step; collectives a step and their
+     bytes beside the tally's, ms, peak;
+ 41. the streaming FP8 DP wire on that group: deepseek_v2_lite depth 4
+     and qwen3 1 layer, stream == posthoc over the layered layout bit
+     for bit (also with grad_accum 2 and under 'pair'), the first
+     reduce-scatter before the last backward GEMM, the ledger unchanged,
+     a flipped wire byte flagged and recovered; ms stream / posthoc
+     layered / flat, wire ms, exposed wire ms measured beside
+     grad_comm.stream_exposed_us, peak;
   9. the {"kernels": [...]} summary line (the eleven kernels, #1's
      linear mode and the AdamW update, with the new shapes' rows), then
      the result line.
@@ -1512,12 +1527,16 @@ def train_kernel_checks(cfg, peaks, dev, floor_ms, n_chunks=1):
 
     # -- #3 GEMM-1 (and the h recompute, same shape) and GEMM-2 at C = 256;
     # -- #4 Dgrad-1 with the quantizing epilogue, w13 read transposed;
-    # -- #3 Dgrad-2 with w2 read transposed
-    for shape, K, N, w_trans, quant_out in (
-            ("train_gemm1", D, 2 * F, False, False),
-            ("train_gemm2", F, D, False, False),
-            ("dgrad1", 2 * F, D, True, True),
-            ("dgrad2", D, F, True, False)):
+    # -- #3 Dgrad-2 with w2 read transposed; unchunked, also #3 Dgrad-1
+    # with bf16 out, as TP experts run it before the gx all-reduce (phase
+    # 40; moe_block_tp's C_exp is this C at T = 2048)
+    gemms = (("train_gemm1", D, 2 * F, False, False),
+             ("train_gemm2", F, D, False, False),
+             ("dgrad1", 2 * F, D, True, True),
+             ("dgrad2", D, F, True, False))
+    if not tag:
+        gemms += (("tp_dgrad1", 2 * F, D, True, False),)
+    for shape, K, N, w_trans, quant_out in gemms:
         x, sx = erowq(C, K)
         qw = blockq(gen, dev, *((E, N, K) if w_trans else (E, K, N)))
         check_gemm(record, tag + shape, x, sx, qw, w_trans=w_trans,
@@ -1701,14 +1720,17 @@ def train_path(cfg, dev, label="train", padded_losses=None, name=None,
     return launches, losses, plan
 
 
-def masked_train_kernel_checks(cfg, peaks, dev, mm, tag="", C=None):
+def masked_train_kernel_checks(cfg, peaks, dev, mm, tag="", C=None,
+                               tp=False):
     """The four masked kernels at the shapes one full-width masked train
     step gives them (C = 256 rows an expert), on the dispatch layout of
     the masked train pass's own first plan: #7 GEMM-1, #5 GEMM-2, the h
     recompute and Dgrad-2 (w2 read transposed), #6 Dgrad-1 (w13 read
     transposed), #11 Wgrad-1 and Wgrad-2; each against its twin and its
-    padded kernel(s), timed beside them.  `tag` prefixes the rows'
-    shapes; `C` (default the train capacity) is a chunk's."""
+    padded kernel(s), timed beside them.  With `tp`, also #5 Dgrad-1 (w13
+    read transposed, bf16 out), as TP experts run it before the gx
+    all-reduce (phase 40).  `tag` prefixes the rows' shapes; `C` (default
+    the train capacity) is a chunk's."""
     gen = torch.Generator(device=dev).manual_seed(4)
     D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     C = C or train_capacity(cfg)                                # 256
@@ -1721,10 +1743,12 @@ def masked_train_kernel_checks(cfg, peaks, dev, mm, tag="", C=None):
     check_masked_gemm(record, f"{tag}train_h_recompute",
                       *dispatch_rows(gen, dev, mm, C, D), w13, mm)
     del w13
-    for shape, K, N, w_trans, quant_out in (
-            ("train_gemm2", F, D, False, False),
-            ("dgrad2", D, F, True, False),
-            ("dgrad1", 2 * F, D, True, True)):
+    gemms = (("train_gemm2", F, D, False, False),
+             ("dgrad2", D, F, True, False),
+             ("dgrad1", 2 * F, D, True, True))
+    if tp:
+        gemms += (("tp_dgrad1", 2 * F, D, True, False),)
+    for shape, K, N, w_trans, quant_out in gemms:
         qw = blockq(gen, dev, *((E, N, K) if w_trans else (E, K, N)))
         check_masked_gemm(record, f"{tag}{shape}",
                           *dispatch_rows(gen, dev, mm, C, K),
@@ -1841,7 +1865,8 @@ def experts_checked(E, per_expert):
     return E
 
 
-def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms, T=None):
+def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms, T=None,
+                       tp=False):
     """Every kernel of `cfg`'s padded fp8_flow `path` at the shapes that
     path gives it, each against its twin to its gate and timed as phases
     2 and 5.  `path` is "train" (one step of TRAIN_B x TRAIN_S tokens),
@@ -1858,7 +1883,10 @@ def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms, T=None):
     #3 Dgrad-2 and #4 Dgrad-1.  Then #1's entry quantize and, for routed
     experts, #1's backward island and #2's layouts, as phases 2 and 5.
     `T` replaces the path's token count (a serve_step prefill's B x S, an
-    encoder's rows); a config without an MLP (mamba2_27b) has no row."""
+    encoder's rows); a config without an MLP (mamba2_27b) has no row.
+    With `tp` (train), the dense and shared MLPs also check #3 Dgrad-1
+    with bf16 out, as the TP dense MLP runs it before the gx all-reduce
+    (phase 40's mlp_tp)."""
     from repro_torch.core.moe import _dispatch_plan, _expert_plan, _round_up
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1939,6 +1967,8 @@ def arch_kernel_checks(cfg, tag, path, peaks, dev, floor_ms, T=None):
         if train:
             gemms += (("dgrad2", D, F, True, False),
                       ("dgrad1", g * F, D, True, True))
+        if train and tp and kind != "routed":
+            gemms += (("tp_dgrad1", g * F, D, True, False),)
         for what, K, N, w_trans, quant_out in gemms:
             x, sx = erowq(Eg, C, K)
             qw = blockq(gen, dev, *((Eg, N, K) if w_trans else (Eg, K, N)))
@@ -4188,7 +4218,7 @@ def nccl_two_ranks_probe():
 
 
 def multi_gpu_phases(dev, groupless, serve_tokens):
-    """Phases 37-39 on one NCCL group; returns their launches by path."""
+    """Phases 37-41 on one NCCL group; returns their launches by path."""
     from repro_torch.launch.mesh import close_mesh
     mesh = nccl_mesh()
     try:
@@ -4196,8 +4226,476 @@ def multi_gpu_phases(dev, groupless, serve_tokens):
                             serve_tokens)
         launches.update(dp_wire_phase(dev, mesh))
         launches["compression"] = compression_phase(dev, mesh)
+        launches.update(tp_fsdp_phase(dev, mesh, groupless["mono"]))
+        launches.update(stream_phase(dev, mesh))
     finally:
         close_mesh()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 40-41: multi-GPU training part 2 on the NCCL group of one rank:
+# TP-sharded experts, the TP dense MLP and the FSDP weight gathers (the
+# reference's make_plan levers), then the streaming FP8 DP wire over the
+# layer-aligned layout.  What differs between ranks is held on the CPU
+# (tests/test_torch_tp.py, tests/test_torch_stream.py, gloo groups of 2
+# and 4).
+# ---------------------------------------------------------------------------
+TP_STEPS, STREAM_STEPS = OVERLAP_STEPS, 4
+# TP against EP at world 1: the same C_exp and drops, the combine's sum in
+# another order (TP adds a token's k rows in expert-slot order)
+TP_EP_RTOL = 1e-3
+# deepseek_v2_lite's TP-mode MLPs against its plain mesh step: Dgrad-1
+# rounds to bf16 before its all-reduce and #1 (the #4 epilogue does not)
+MLP_TP_RTOL = 1e-3
+# grok1_314b's FSDP gathers at world 1: the split-state peak of its
+# one-layer step (phase 24: 61.91 GiB) + the regathered weights in the
+# recompute (9.66 GB) + two copies of we13's bf16 gradient in its
+# reduce-scatter (12.88 GB) ~ 83 GiB
+GROK_FSDP_PEAK_GIB = 61.907 + (9.66e9 + 12.88e9) / 2**30
+CARD_GIB = 79.18
+PATH_KERNELS.update({
+    # TP experts: Dgrad-1 is #3 (or #5) then #1, never #4 / #6
+    "tp_train": tuple(k for k in PATH_KERNELS["train"]
+                      if k != "grouped_gemm_fp8_quant_out"),
+    "tp_masked_train": tuple(k for k in PATH_KERNELS["masked_train"]
+                             if k != "masked_grouped_gemm_fp8_quant_out"),
+    "grok_tp_train": ("quantize_rowwise", "fused_permute_pad",
+                      "grouped_gemm_fp8", "fp8_transpose",
+                      "grouped_gemm_nt_fp8", "adamw_update"),
+    "dsv2_mesh_train": PATH_KERNELS["dsv2_train"],
+    "dsv2_mlp_tp_train": PATH_KERNELS["dsv2_train"],
+    "q3_stream_train": PATH_KERNELS["train"],
+    "dsv2_stream_train": PATH_KERNELS["dsv2_train"]})
+PATH_RECIPES.update({"tp_train": ("fp8_flow", {}),
+                     "tp_masked_train": ("fp8_flow", MASKED),
+                     "mesh_train": ("fp8_flow", {}),
+                     "mlp_tp_train": ("fp8_flow", {}),
+                     "stream_train": ("fp8_flow", {}),
+                     "q3_stream_train": ("fp8_flow", {})})
+
+
+def tp_train_run(cfg, dev, label, mesh, plan_kw, n_steps=TP_STEPS,
+                 state_policy="split"):
+    """n_steps of `cfg` on make_batch's batch 0 (the phase 35/37 schedule:
+    AdamW lr 1e-3 after a 100-step warmup) under ParallelPlan(mesh,
+    **plan_kw): losses, ms a warm step (the first and the tallied last
+    left out, as phase 37's), the collectives of the first step by
+    kind, the last step under roofline.tally() (its collective bytes),
+    casts a step, the ledger's tags, peak GiB and launches."""
+    from repro_torch import kernels
+    from repro_torch.core import casts
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist import comm
+    from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.models.lm import ParallelPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline import analysis as roofline
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=1e-3, state_policy=StatePolicy()
+                      if state_policy == "split" else None)
+    plan = ParallelPlan(mesh=mesh, **plan_kw)
+    state = init_train_state(cfg, opt, seed=0, device=dev, plan=plan)
+    step = make_train_step(cfg, recipe_for(label), opt, plan=plan)
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B), 0, device=dev)
+    losses, step_ms, colls, n_casts, tags = [], [], [], [], set()
+    kernels.reset_launches()
+    for i in range(n_steps):
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tally = roofline.tally() if i == n_steps - 1 else \
+            contextlib.nullcontext()
+        with tally as t, casts.ledger() as led:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        colls.append(comm.counts())
+        n_casts.append(led.activation_casts())
+        tags |= {f"{k}:{tg}" for (k, tg) in led.by_tag()}
+    launches = dict(kernels.LAUNCHES)
+    buf = t.coll_buffer_bytes
+    row = dict(
+        plan={k: v for k, v in plan_kw.items()}, losses=losses,
+        step_ms=step_ms, ms_per_step_warm=statistics.mean(step_ms[1:-1])
+        if n_steps > 2 else step_ms[-1], tally_step_ms=step_ms[-1],
+        collectives_per_step=colls[0], tally_coll_buffer_bytes=buf,
+        tally_coll_by_kind=t.coll, roofline_coll_bytes_world1=t.coll_bytes(1),
+        roofline_coll_bytes_modelled=t.coll_bytes(MODEL_WORLD),
+        modelled_world=MODEL_WORLD, activation_casts_per_step=n_casts,
+        tags=sorted(tags),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+    check(all(np.isfinite(losses)), f"{label} {plan_kw}: losses {losses}")
+    print(json.dumps({"tp_fsdp_run": dict(label=label, **row)}))
+    check(buf == sum(v["bytes"] for v in colls[-1].values()),
+          f"{label}: the tally's collective bytes {buf} are not the "
+          f"wrappers' {colls[-1]}")
+    check_launches(label, launches)
+    del state, step, batch, m
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator's expandable segments (PyTorch's
+    ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``) for the runs
+    inside: freed segments give their pages back, so one large block
+    fits where the default cache holds the room in fragments.  The cache
+    is emptied on entry and exit."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+
+
+def tp_fsdp_phase(dev, mesh, ep_losses):
+    """Phase 40: the reference's production levers at full width on the
+    NCCL group of one rank.  qwen3_moe_235b 1 layer, StatePolicy(), TP
+    experts with FSDP: the three combines, padded and masked, each bit
+    for bit the group-less TP run (a one-rank collective is a copy), the
+    masked runs the padded bits; within TP_EP_RTOL of phase 37's EP run;
+    2 casts, the 'dgrad_epilogue' quantize recorded and no #4 / #6
+    launched (Dgrad-1 is #3 or #5, the all-reduce, then #1; each held to
+    its twin at this shape by the tp_dgrad1 rows of phases 5 and 5b, the
+    dense MLP's by phase 10's dsv2 rows).  grok1_314b
+    1 layer, StatePolicy(), TP experts (FSDP only if its predicted peak
+    fits the card), on the group bit for bit group-less.
+    deepseek_v2_lite depth 4 with mlp_tp and FSDP
+    against the plain mesh step (EP at world 1).  Prints the collectives
+    a step and their bytes beside the tally's, ms a step and peak."""
+    from repro_torch.launch.mesh import make_test_mesh
+    t_phase = time.perf_counter()
+    q3 = train_config()
+    tp = dict(moe_mode="tp", fsdp_axis="data")
+    rows, launches = {}, {}
+    rows["groupless"] = tp_train_run(q3, dev, "tp_train",
+                                     make_test_mesh(dev), tp)
+    want = rows["groupless"]["losses"]
+    for label in ("tp_train", "tp_masked_train"):
+        for combine in ("psum_first", "local_first", "reduce_scatter"):
+            r = tp_train_run(q3, dev, label, mesh,
+                             dict(tp, moe_tp_combine=combine))
+            rows[f"{label}_{combine}"] = r
+            check(r["losses"] == want,
+                  f"{label} {combine}: losses {r['losses']} on the NCCL "
+                  f"group, {want} group-less")
+            check(all(c == 2 for c in r["activation_casts_per_step"]),
+                  f"{label} {combine}: casts {r}")
+            check("fused_quantize:dgrad_epilogue" in r["tags"],
+                  f"{label} {combine}: tags {r['tags']}")
+            launches[label] = r["launches"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(want, ep_losses)]
+    check(max(rel) <= TP_EP_RTOL,
+          f"TP {want} vs phase 37's EP {ep_losses}: {rel}")
+    grok = arch_config("grok1_314b", 1)
+    fsdp_fits = GROK_FSDP_PEAK_GIB < CARD_GIB
+    grok_kw = dict(moe_mode="tp", fsdp_axis="data" if fsdp_fits else None)
+    # on the group, bit for bit the group-less run.  The plain step's f32
+    # gradient means (we13's alone 12 GiB) fit beside grok's state only
+    # with expandable segments: in the default cache 9.2 GiB of it lies
+    # stranded in partly used segments at that point
+    rows["grok_tp_groupless"] = tp_train_run(grok, dev, "grok_tp_train",
+                                             make_test_mesh(dev), grok_kw)
+    with expandable_segments():
+        rows["grok_tp"] = tp_train_run(grok, dev, "grok_tp_train", mesh,
+                                       grok_kw)
+    check(rows["grok_tp"]["losses"] == rows["grok_tp_groupless"]["losses"],
+          f"grok TP: losses {rows['grok_tp']['losses']} on the NCCL group, "
+          f"{rows['grok_tp_groupless']['losses']} group-less")
+    launches["grok_tp_train"] = rows["grok_tp"]["launches"]
+    dcfg = arch_config("deepseek_v2_lite", DSV2_TRAIN_LAYERS)
+    rows["dsv2_mesh"] = tp_train_run(dcfg, dev, "dsv2_mesh_train", mesh, {},
+                                     state_policy="f32")
+    rows["dsv2_mlp_tp"] = tp_train_run(dcfg, dev, "dsv2_mlp_tp_train", mesh,
+                                       dict(mlp_tp=True, fsdp_axis="data"),
+                                       state_policy="f32")
+    a, b = rows["dsv2_mlp_tp"]["losses"], rows["dsv2_mesh"]["losses"]
+    dsv2_rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    check(a[0] == b[0] and max(dsv2_rel) <= MLP_TP_RTOL,
+          f"dsv2 mlp_tp {a} vs the plain mesh step {b}")
+    launches["dsv2_mlp_tp_train"] = rows["dsv2_mlp_tp"]["launches"]
+    print(json.dumps({"tp_fsdp": dict(
+        config="qwen3_moe_235b 1 layer, grok1_314b 1 layer (StatePolicy()), "
+               f"deepseek_v2_lite depth {DSV2_TRAIN_LAYERS} (f32 state), "
+               f"{TP_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens",
+        world=mesh.world, backend="nccl",
+        tp_vs_ep_rel=rel, tp_ep_rtol=TP_EP_RTOL, ep_losses=ep_losses,
+        dsv2_mlp_tp_vs_mesh_rel=dsv2_rel, mlp_tp_rtol=MLP_TP_RTOL,
+        grok_fsdp=dict(predicted_peak_gib=GROK_FSDP_PEAK_GIB,
+                       card_gib=CARD_GIB, used=fsdp_fits,
+                       reason="fits" if fsdp_fits else
+                       "the predicted peak exceeds the card",
+                       mesh="the NCCL group under expandable segments, "
+                            "bit for bit the group-less run"),
+        summary={k: dict(ms=r["ms_per_step_warm"], losses=r["losses"],
+                         collectives=r["collectives_per_step"],
+                         coll_buffer_bytes=r["tally_coll_buffer_bytes"],
+                         peak_gib=r["max_memory_allocated_gib"])
+                 for k, r in rows.items()},
+        seconds=time.perf_counter() - t_phase)}))
+    return launches
+
+
+def stream_train_run(cfg, dev, label, mesh, dist_kw, *, grad_accum=1,
+                     guard=False, fault=None, remat=None):
+    """STREAM_STEPS steps of `cfg` (fp8_flow, StatePolicy(), the fp8
+    wire) through the DistPlan step on `mesh`, make_batch's batches 0..
+    (the reference test's lr 3e-3, 400 total steps, warmup 5): losses,
+    ms a step, wire ms (CUDA events around every reduce-scatter's issue
+    and finish, sensitive all-reduce and gather), each bucket's wire ms
+    and the compute between two issues (for the exposure model), the
+    launch order (all-to-alls, grouped-GEMM wrappers), casts, tags, the
+    params' SHA-256, peak GiB and launches."""
+    from repro_torch import kernels
+    from repro_torch.core import casts
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist import comm, grad_comm
+    from repro_torch.dist.opt_state import StatePolicy
+    from repro_torch.dist.plan import DistPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import ParallelPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import fault_injection as fi
+    from repro_torch.train.guards import GuardPlan
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=remat)
+    gplan = GuardPlan() if guard else None
+    opt = AdamWConfig(lr=3e-3)
+    dist = DistPlan(wire="fp8", policy=StatePolicy(), **dist_kw)
+    plan = ParallelPlan(mesh=mesh)
+    state = init_train_state(cfg, opt, seed=0, device=dev, dist=dist,
+                             mesh=mesh, guard=gplan)
+    step = make_train_step(cfg, recipe_for(label), opt, dist=dist,
+                           plan=plan, total_steps=400, warmup_steps=5,
+                           grad_accum=grad_accum, guard=gplan)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                      global_batch=TRAIN_B * grad_accum)
+    # CUDA events around the wire's calls, the outermost only (posthoc's
+    # reduce_scatter_bucket issues and finishes inside itself)
+    wire_ev, issue_ev, order, patched, depth = [], [], [], [], [0]
+
+    def wrap(mod, name, fn_of):
+        orig = getattr(mod, name)
+        patched.append((mod, name, orig))
+        setattr(mod, name, fn_of(orig))
+
+    def timed(orig, into):
+        def call(*a, **kw):
+            depth[0] += 1
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            try:
+                out = orig(*a, **kw)
+            finally:
+                depth[0] -= 1
+            e1.record()
+            if depth[0] == 0:
+                into.append((e0, e1))
+            return out
+        return call
+
+    def logged(orig, what):
+        def call(*a, **kw):
+            if what != "a2a" or a[1] is not None:
+                order.append(what)
+            return orig(*a, **kw)
+        return call
+    for name in ("reduce_scatter_bucket", "reduce_sensitive",
+                 "all_gather_shard"):
+        wrap(grad_comm, name, lambda o: timed(o, wire_ev))
+    wrap(grad_comm, "issue_reduce_scatter", lambda o: timed(o, issue_ev))
+    wrap(grad_comm.InFlight, "finish", lambda o: timed(o, wire_ev))
+    wrap(comm, "all_to_all", lambda o: logged(o, "a2a"))
+    for name in [n for n in vars(ops) if n.startswith("grouped_gemm")]:
+        wrap(ops, name, lambda o: logged(o, "gemm"))
+    losses, step_ms, wire_ms, n_casts, flags, orders = [], [], [], [], [], []
+    tags, bucket_ms, between_ms = set(), [], []
+    try:
+        for i in range(STREAM_STEPS):
+            batch = make_batch(data, i, device=dev)
+            if grad_accum > 1:
+                batch = {k: v.reshape(grad_accum, -1, *v.shape[1:])
+                         for k, v in batch.items()}
+            kernels.reset_launches()
+            wire_ev.clear()
+            issue_ev.clear()
+            order.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            end = torch.cuda.Event(enable_timing=True)
+            armed = fi.Fault(fault, i) if fault and i == 1 else None
+            with casts.ledger() as led, fi.activate(armed):
+                state, m = step(state, batch)
+                end.record()
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            wire_ms.append(sum(a.elapsed_time(b)
+                               for a, b in wire_ev + issue_ev))
+            # posthoc: each bucket's reduce-scatter (the first of its
+            # wire calls are the buckets', in bucket order); stream: each
+            # issue
+            bucket_ms.append([a.elapsed_time(b) for a, b in
+                              (issue_ev or wire_ev)])
+            if issue_ev:
+                nxt = [a for a, _ in issue_ev[1:]] + [end]
+                between_ms.append([b.elapsed_time(c) for (_, b), c in
+                                   zip(issue_ev, nxt)])
+            n_casts.append(led.activation_casts())
+            tags |= {f"{k}:{t}" for (k, t) in led.by_tag()}
+            orders.append(list(order))
+            if guard:
+                flags.append(int(m["guard_flags"]))
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for mod, name, orig in reversed(patched):
+            setattr(mod, name, orig)
+    row = dict(
+        dist=dict(dist_kw), grad_accum=grad_accum, remat=cfg.remat_policy,
+        losses=losses, step_ms=step_ms,
+        ms_per_step_warm=statistics.mean(step_ms[1:]), wire_ms=wire_ms,
+        wire_ms_warm=statistics.mean(wire_ms[1:]),
+        bucket_ms_last=bucket_ms[-1], between_ms_last=between_ms[-1]
+        if between_ms else None, activation_casts_per_step=n_casts,
+        tags=sorted(tags), guard_flags=flags, orders=orders,
+        params_sha256=tree_sha256(state["params"]),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+    print(json.dumps({"stream_run": dict(
+        label=label, **{f: v for f, v in row.items() if f != "orders"},
+        order_len=[len(o) for o in orders])}))
+    check(all(np.isfinite(losses)), f"{label} {dist_kw}: losses {losses}")
+    check_launches(label, launches)
+    del state, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def stream_phase(dev, mesh):
+    """Phase 41: the streaming FP8 DP wire on the NCCL group of one rank,
+    STREAM_STEPS steps, fp8 wire, StatePolicy().  deepseek_v2_lite depth
+    4 and qwen3 1 layer: schedule='stream' against posthoc over the same
+    layered layout, losses and every parameter bit for bit (SHA-256), also
+    with grad_accum 2 and under 'pair' (dsv2; 'full' is the config's);
+    the first reduce-scatter before the step's last grouped-GEMM launch
+    (the posthoc wire's after it; dsv2, whose layers below are still to
+    run); the cast ledger unchanged; a flipped
+    wire byte flagged at step 1 and recovered.  Prints ms a step for
+    stream, posthoc-layered and the flat posthoc layout, wire ms, the
+    measured exposed wire (stream ms less posthoc-layered's compute) beside
+    grad_comm.stream_exposed_us on the measured bucket and layer times,
+    and peak GiB."""
+    from repro_torch.dist.grad_comm import stream_exposed_us
+    from repro_torch.train.guards import WIRE_SCALE
+    t_phase = time.perf_counter()
+    st, lay = dict(schedule="stream"), dict(layered=True)
+    dcfg = arch_config("deepseek_v2_lite", DSV2_TRAIN_LAYERS)
+    q3 = train_config()
+    rows, launches, summary = {}, {}, {}
+    for tag, cfg, label in (("dsv2", dcfg, "dsv2_stream_train"),
+                            ("q3", q3, "q3_stream_train")):
+        rows[f"{tag}_stream"] = stream_train_run(cfg, dev, label, mesh, st)
+        rows[f"{tag}_posthoc_layered"] = stream_train_run(cfg, dev, label,
+                                                          mesh, lay)
+        rows[f"{tag}_posthoc_flat"] = stream_train_run(cfg, dev, label,
+                                                       mesh, {})
+        launches[label] = rows[f"{tag}_stream"]["launches"]
+    pairs = [("dsv2_stream", "dsv2_posthoc_layered"),
+             ("q3_stream", "q3_posthoc_layered")]
+    rows["dsv2_stream_acc2"] = stream_train_run(
+        dcfg, dev, "dsv2_stream_train", mesh, st, grad_accum=2)
+    rows["dsv2_posthoc_acc2"] = stream_train_run(
+        dcfg, dev, "dsv2_stream_train", mesh, lay, grad_accum=2)
+    rows["dsv2_stream_pair"] = stream_train_run(
+        dcfg, dev, "dsv2_stream_train", mesh, st, remat="pair")
+    rows["dsv2_posthoc_pair"] = stream_train_run(
+        dcfg, dev, "dsv2_stream_train", mesh, lay, remat="pair")
+    pairs += [("dsv2_stream_acc2", "dsv2_posthoc_acc2"),
+              ("dsv2_stream_pair", "dsv2_posthoc_pair")]
+    for a, b in pairs:
+        ra, rb = rows[a], rows[b]
+        check(ra["losses"] == rb["losses"]
+              and ra["params_sha256"] == rb["params_sha256"],
+              f"{a} {ra['losses']} vs {b} {rb['losses']}: not bit for bit")
+        check(ra["activation_casts_per_step"] ==
+              rb["activation_casts_per_step"],
+              f"{a}: casts {ra['activation_casts_per_step']} vs "
+              f"{rb['activation_casts_per_step']}")
+        # with one layer (qwen3) the only buckets leave after the only
+        # backward; the order shows with the layers below still to run
+        for o in ra["orders"] if a.startswith("dsv2") else ():
+            last = len(o) - 1 - o[::-1].index("gemm")
+            check(o.index("a2a") < last, f"{a}: the first reduce-scatter "
+                  f"at {o.index('a2a')}, the last GEMM at {last}")
+        for o in rb["orders"]:
+            check(o.index("a2a") > len(o) - 1 - o[::-1].index("gemm"),
+                  f"{b}: a reduce-scatter inside the backward")
+    for tag, cfg in (("dsv2", dcfg), ("q3", q3)):
+        want = casts_per_step(cfg, "fp8_flow")
+        check(all(c == want for c in
+                  rows[f"{tag}_stream"]["activation_casts_per_step"]),
+              f"{tag} stream: casts, expected {want}")
+    rows["dsv2_stream_guarded"] = stream_train_run(
+        dcfg, dev, "dsv2_stream_train", mesh, st, guard=True)
+    rows["dsv2_stream_bitflip"] = stream_train_run(
+        dcfg, dev, "dsv2_stream_train", mesh, st, guard=True,
+        fault="payload_bitflip")
+    fl = rows["dsv2_stream_bitflip"]["guard_flags"]
+    check([bool(f & WIRE_SCALE) for f in fl] ==
+          [i == 1 for i in range(STREAM_STEPS)], f"stream bitflip: {fl}")
+    check(not any(f & WIRE_SCALE
+                  for f in rows["dsv2_stream_guarded"]["guard_flags"]),
+          "the clean guarded stream flagged the wire")
+    hit, clean = (np.array(rows[k]["losses"]) for k in
+                  ("dsv2_stream_bitflip", "dsv2_stream_guarded"))
+    check(np.all(np.abs(hit - clean) <= 0.01 * np.abs(clean)),
+          f"stream bitflip {hit} vs clean {clean}")
+    for tag in ("dsv2", "q3"):
+        s_, p_, f_ = (rows[f"{tag}_{k}"] for k in
+                      ("stream", "posthoc_layered", "posthoc_flat"))
+        compute = p_["ms_per_step_warm"] - p_["wire_ms_warm"]
+        # the model: each bucket's wire time (posthoc's, in bucket order)
+        # drained against the compute between two streamed issues
+        b_us = [1e3 * x for x in p_["bucket_ms_last"]]
+        c_us = [1e3 * x for x in (s_["between_ms_last"] or [])]
+        summary[tag] = dict(
+            stream_ms=s_["ms_per_step_warm"],
+            posthoc_layered_ms=p_["ms_per_step_warm"],
+            posthoc_flat_ms=f_["ms_per_step_warm"],
+            wire_ms=dict(stream=s_["wire_ms_warm"],
+                         posthoc_layered=p_["wire_ms_warm"],
+                         posthoc_flat=f_["wire_ms_warm"]),
+            exposed_wire_ms_measured=s_["ms_per_step_warm"] - compute,
+            exposed_wire_ms_modelled=stream_exposed_us(b_us, c_us) / 1e3,
+            buckets=len(b_us),
+            peak_gib=dict(stream=s_["max_memory_allocated_gib"],
+                          posthoc_layered=p_["max_memory_allocated_gib"],
+                          posthoc_flat=f_["max_memory_allocated_gib"]))
+    summary["dsv2_guarded_stream_ms"] = \
+        rows["dsv2_stream_guarded"]["ms_per_step_warm"]
+    print(json.dumps({"stream": dict(
+        config=f"deepseek_v2_lite depth {DSV2_TRAIN_LAYERS}, qwen3_moe_235b "
+               f"1 layer; fp8 wire, StatePolicy(), {STREAM_STEPS} steps",
+        world=mesh.world, backend="nccl",
+        bit_for_bit=[f"{a} == {b}" for a, b in pairs],
+        summary=summary, seconds=time.perf_counter() - t_phase)}))
     return launches
 
 
@@ -4252,7 +4750,7 @@ def main() -> int:
     if "--nccl-two-ranks" in sys.argv:
         nccl_two_ranks_probe()
     if "--multi-gpu" in sys.argv:
-        # phases 37-39 alone, after what they compare with: phase 3's
+        # phases 37-41 alone, after what they compare with: phase 3's
         # tokens and phase 35's group-less losses
         _, tokens, _ = serve_path(serve_config(), dev)
         tcfg = train_config()
@@ -4264,7 +4762,7 @@ def main() -> int:
             groupless[f"{name}2"] = overlap_train_run(tcfg, dev, label,
                                                       2)[0]["losses"]
         multi_gpu_phases(dev, groupless, tokens)
-        print("chip_smoke --multi-gpu: phases 37-39 passed")
+        print("chip_smoke --multi-gpu: phases 37-41 passed")
         return 0
     cfg = serve_config()
     timings = kernel_checks(cfg, PEAKS, dev, floor_ms)
@@ -4287,7 +4785,8 @@ def main() -> int:
     launches["masked_train"], _, plan = train_path(
         tcfg, dev, "masked_train", padded_losses=losses)
     train_plan = plan
-    add_rows(timings, masked_train_kernel_checks(tcfg, PEAKS, dev, plan))
+    add_rows(timings, masked_train_kernel_checks(tcfg, PEAKS, dev, plan,
+                                                 tp=True))
     add_rows(timings, linear_kernel_checks(tcfg, PEAKS, dev, floor_ms))
     for label in ("bf16_train", "blockwise_train", "naive_train"):
         launches[label], _, _ = train_path(tcfg, dev, label)
@@ -4316,7 +4815,7 @@ def main() -> int:
     dcfg = arch_config("deepseek_v2_lite", DSV2_TRAIN_LAYERS)
     for tag, c in (("dsv2", dcfg), ("qwen15", qcfg)):
         add_rows(timings, arch_kernel_checks(c, tag, "train", PEAKS, dev,
-                                             floor_ms))
+                                             floor_ms, tp=tag == "dsv2"))
     launches["dsv2_train"], losses, _ = train_path(dcfg, dev, "dsv2_train")
     launches["dsv2_masked_train"], _, plan = train_path(
         dcfg, dev, "dsv2_masked_train", padded_losses=losses)

@@ -47,6 +47,18 @@ the reference.  ``Recipe(save_h=True)`` keeps fp8_flow's bf16 h for the
 backward instead of recomputing it (the same bits; the fused SwiGLU
 epilogue then does not apply, as in the reference).
 
+``gx_groups``: the reference's ``gx_axes``.  Empty (the default), the
+input gradient is complete where it is made.  ``(group,)`` (tensor-
+parallel experts and MLPs, ``core/moe.moe_block_tp``, ``models/lm.py``):
+each rank holds an F-slice of the weights, so its input gradient is a
+partial sum that is all-reduced over the group inside the backward (the
+identity for a group of None).  fp8_flow then runs Dgrad-1 on the plain
+NN kernel (#3, bf16 out, widened to f32, as the reference's Pallas route
+casts it), all-reduces the f32 rows and quantizes them with #1 (the
+``dgrad_epilogue`` fused quantize, whose epilogue kernel #4 it replaces);
+the baselines all-reduce their bf16 input gradient.  Weight gradients are
+never reduced here: the train step sums them over their groups.
+
 ``masked_m`` (E,) int32, each expert's live rows (``core.moe``'s expert
 plan, on the device), routes all five grouped GEMMs of the forward and
 backward to the masked-layout kernels, and with
@@ -66,6 +78,7 @@ from repro_torch.core.quant import (QTensor, _dequantize_nocount, kept,
                                     tag_qtensor, tag_saveable)
 from repro_torch.core.recipes import Recipe
 from repro_torch.core.transpose import transpose_direct, transpose_naive
+from repro_torch.dist import comm
 from repro_torch.kernels import ops
 from repro_torch.kernels.grouped_gemm_nt_fp8 import OUT_DTYPES
 from repro_torch.runtime import fault_injection
@@ -287,10 +300,17 @@ def ffn_fwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qw13: QTensor,
     return y, (qx, qa, h_saved)
 
 
+def _psum_(t: torch.Tensor, gx_groups) -> torch.Tensor:
+    """The input gradient's partial sum over gx_groups (in place)."""
+    for g in gx_groups:
+        comm.all_reduce_(t, g)
+    return t
+
+
 def ffn_bwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qa: QTensor,
                      qw13: QTensor, qw2: QTensor, qg: QTensor,
                      wg13_dtype=torch.float32, wg2_dtype=torch.float32,
-                     masked_m=None, h_saved=None):
+                     masked_m=None, h_saved=None, gx_groups=()):
     """fp8_flow grouped FFN backward given the ALREADY-QUANTIZED output
     cotangent ``qg`` (and the forward's bf16 h when it was saved).
     Returns (gx QTensor, wg13, wg2): the input gradient
@@ -298,7 +318,8 @@ def ffn_bwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qa: QTensor,
     dtypes, each rounded once from the f32 accumulator.  masked_m skips
     dead capacity groups in all five grouped GEMMs (the Dgrad rows beyond
     the count are zero because the combine's probability weighting zeros
-    dead slots upstream; the NT forms skip zero token columns)."""
+    dead slots upstream; the NT forms skip zero token columns).  With
+    ``gx_groups`` (TP) Dgrad-1 is #3 to f32, the all-reduce, then #1."""
     # Dgrad-2: FP8 x FP8 against the transposed w2
     ga = _ggemm(recipe, qg, _block_t(qw2), masked_m=masked_m)
     # Wgrad-2 via scaling-aware DIRECT transposes -- zero casts
@@ -314,8 +335,18 @@ def ffn_bwd_fp8_core(recipe: Recipe, act: str, qx: QTensor, qa: QTensor,
     casts.record("fused_quantize", "dact_quant", gh.numel())
     qgh = _q_row(recipe, gh, "dact_quant", kind="fused_quantize_inner")
     del gh
-    # Dgrad-1 with the fused quantizing epilogue -> FP8 input gradient
-    gx = _ggemm_quant_out(recipe, qgh, _block_t(qw13), masked_m=masked_m)
+    if gx_groups:
+        # TP: the input gradient partial-sums over the F-shards first; the
+        # quantize runs after the all-reduce (a reduction, kept out of FP8)
+        gx32 = _ggemm(recipe, qgh, _block_t(qw13), torch.float32,
+                      masked_m=masked_m)
+        casts.record("fused_quantize", "dgrad_epilogue", gx32.numel())
+        gx32 = _psum_(gx32.contiguous(), gx_groups)
+        gx = _q_row(recipe, gx32, "dgrad_out", kind="fused_quantize_inner")
+        del gx32
+    else:
+        # Dgrad-1 with the fused quantizing epilogue -> FP8 input gradient
+        gx = _ggemm_quant_out(recipe, qgh, _block_t(qw13), masked_m=masked_m)
     # Wgrad-1, again via direct transposes
     wg13 = _ggemm_nt(recipe, transpose_direct(qx), transpose_direct(qgh),
                      wg13_dtype, masked_m=masked_m)
@@ -355,8 +386,10 @@ class _ExpertFFN(torch.autograd.Function):
     policies recompute the quantized weights, as the reference's do)."""
 
     @staticmethod
-    def forward(ctx, recipe, act, xd, xs, w13, w2, masked_m, out_tag):
+    def forward(ctx, recipe, act, xd, xs, w13, w2, masked_m, out_tag,
+                gx_groups):
         ctx.ledger = casts.current()
+        ctx.gx_groups = gx_groups
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         y, (qx, qa, h_saved) = ffn_fwd_fp8_core(
             recipe, act, QTensor(xd, xs, row_tile(3)), qw13, qw2, masked_m,
@@ -375,8 +408,8 @@ class _ExpertFFN(torch.autograd.Function):
                         "q_bwd_island")
             gx, wg13, wg2 = ffn_bwd_fp8_core(
                 ctx.recipe, ctx.act, qx, qa, qw13, qw2, qg, *ctx.w_dtypes,
-                masked_m=masked_m, h_saved=h_saved)
-        return None, None, gx.data, gx.scale, wg13, wg2, None, None
+                masked_m=masked_m, h_saved=h_saved, gx_groups=ctx.gx_groups)
+        return None, None, gx.data, gx.scale, wg13, wg2, None, None, None
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -400,7 +433,8 @@ class _BF16FFN(torch.autograd.Function):
     """The bf16 recipe: no quantization; bf16 products, f32 Wgrads."""
 
     @staticmethod
-    def forward(ctx, recipe, act, x, w13, w2, out_tag):
+    def forward(ctx, recipe, act, x, w13, w2, out_tag, gx_groups):
+        ctx.gx_groups = gx_groups
         h = kept("stage_ffn_h")
         if h is None:
             h = tag_saveable(_bf16_matmul(x.to(torch.bfloat16),
@@ -423,10 +457,11 @@ class _BF16FFN(torch.autograd.Function):
         del a
         gh = _act_bwd(ctx.act, h, ga)
         del ga
-        gx = _bf16_matmul(gh, w13.to(torch.bfloat16).transpose(-1, -2))
+        gx = _psum_(_bf16_matmul(gh, w13.to(torch.bfloat16).transpose(-1, -2)),
+                    ctx.gx_groups)
         wg13 = torch.einsum("eck,ecf->ekf", x.to(torch.float32),
                             gh.to(torch.float32)).to(w13.dtype)
-        return None, None, gx.to(x.dtype), wg13, wg2, None
+        return None, None, gx.to(x.dtype), wg13, wg2, None, None
 
 
 class _BlockwiseFFN(torch.autograd.Function):
@@ -434,8 +469,9 @@ class _BlockwiseFFN(torch.autograd.Function):
     h are saved; every GEMM operand is quantized fresh (8 casts)."""
 
     @staticmethod
-    def forward(ctx, recipe, act, x, w13, w2, out_tag):
+    def forward(ctx, recipe, act, x, w13, w2, out_tag, gx_groups):
         ctx.ledger = casts.current()
+        ctx.gx_groups = gx_groups
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         qx = _q_row(recipe, x, "q_gemm1_in")
         h = kept("stage_ffn_h")
@@ -467,13 +503,13 @@ class _BlockwiseFFN(torch.autograd.Function):
             gh = _act_bwd(ctx.act, h, ga)
             del ga
             qgh = _q_row(r, gh, "q_bwd_dgrad1")
-            gx = _ggemm(r, qgh, _block_t(qw13))
+            gx = _psum_(_ggemm(r, qgh, _block_t(qw13)), ctx.gx_groups)
             del qgh
             qghT = _q_row(r, _t(gh), "q_bwd_wgrad1_g")
             del gh
             qxT = _q_row(r, _t(x), "q_bwd_wgrad1_x")
             wg13 = _ggemm_nt(r, qxT, qghT, wg13_dtype)
-        return None, None, gx.to(x.dtype), wg13, wg2, None
+        return None, None, gx.to(x.dtype), wg13, wg2, None, None
 
 
 class _NaiveFFN(torch.autograd.Function):
@@ -482,8 +518,9 @@ class _NaiveFFN(torch.autograd.Function):
     -> requantize (the double quantization error; 10 casts)."""
 
     @staticmethod
-    def forward(ctx, recipe, act, x, w13, w2, out_tag):
+    def forward(ctx, recipe, act, x, w13, w2, out_tag, gx_groups):
         ctx.ledger = casts.current()
+        ctx.gx_groups = gx_groups
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         tile = row_tile(x.ndim)
         qx = kept_qtensor("fp8_qx", tile)
@@ -519,13 +556,14 @@ class _NaiveFFN(torch.autograd.Function):
             gh = _act_bwd(ctx.act, h, ga)
             del h, ga
             qgh = _q_row(r, gh, "q_bwd_dgrad1")
-            gx = _ggemm(r, qgh, _block_t(qw13))     # bf16 to the combine
+            gx = _psum_(_ggemm(r, qgh, _block_t(qw13)),   # bf16 to the
+                        ctx.gx_groups)                    # combine
             del qgh
             qxT = transpose_naive(qx, r.scale_mode)
             qghT = _q_row(r, _t(gh), "q_bwd_wgrad1_g")
             del gh
             wg13 = _ggemm_nt(r, qxT, qghT, wg13_dtype)
-        return None, None, gx.to(ctx.x_dtype), wg13, wg2, None
+        return None, None, gx.to(ctx.x_dtype), wg13, wg2, None, None
 
 
 _BASELINE_FFN = {"bf16": _BF16FFN, "blockwise": _BlockwiseFFN,
@@ -533,8 +571,10 @@ _BASELINE_FFN = {"bf16": _BF16FFN, "blockwise": _BlockwiseFFN,
 
 
 def expert_ffn(recipe: Recipe, act: str, x_in, w13, w2, masked_m=None,
-               out_tag=None):
-    """``expert_ffn`` at EP = 1 (the reference's psum axes are empty).
+               out_tag=None, gx_groups=()):
+    """The reference's ``expert_ffn`` with its weight-gradient psum left to
+    the train step and its ``gx_axes`` as ``gx_groups`` (module
+    docstring).
     fp8_flow: x_in is the row-tiled (E, C, D) QTensor; w13 (E, D, 2F) and
     w2 (E, F, D) are bf16 (differentiable) or W8-resident QTensors
     (serving); masked_m (E,) int32 on x_in's device selects the masked
@@ -546,14 +586,14 @@ def expert_ffn(recipe: Recipe, act: str, x_in, w13, w2, masked_m=None,
             raise ValueError(f"{recipe.name}: W8-resident weights are "
                              "fp8_flow only")
         return _BASELINE_FFN[recipe.name].apply(recipe, act, x_in, w13, w2,
-                                                out_tag)
+                                                out_tag, tuple(gx_groups))
     if isinstance(w13, QTensor) or isinstance(w2, QTensor):
         qw13, qw2 = _quant_weights(recipe, w13, w2)
         y, _ = ffn_fwd_fp8_core(recipe, act, x_in, qw13, qw2, masked_m,
                                 out_tag)
         return y
     return _ExpertFFN.apply(recipe, act, x_in.data, x_in.scale, w13, w2,
-                            masked_m, out_tag)
+                            masked_m, out_tag, tuple(gx_groups))
 
 
 class _QuantizeEntry(torch.autograd.Function):
@@ -616,7 +656,8 @@ def dequantize_exit(recipe: Recipe, q: QTensor) -> torch.Tensor:
     return _DequantizeExit.apply(recipe, q.data, q.scale)
 
 
-def dense_mlp(recipe: Recipe, act: str, x: torch.Tensor, w13, w2):
+def dense_mlp(recipe: Recipe, act: str, x: torch.Tensor, w13, w2,
+              gx_groups=()):
     """The dense-architecture MLP (a dense layer's, or the shared
     experts'): the recipe's expert FFN as one group, with no dispatch.
 
@@ -626,7 +667,9 @@ def dense_mlp(recipe: Recipe, act: str, x: torch.Tensor, w13, w2):
     fp8_flow quantizes once at the entry and stays FP8 end to end; the
     baselines run their FFN on the bf16 input.  No ``masked_m``: every
     recipe takes the padded kernels here.  fp8_flow's entry records the
-    guard stats of site ``q_entry_mlp`` while a collector is armed."""
+    guard stats of site ``q_entry_mlp`` while a collector is armed.
+    ``gx_groups``: the F-sliced TP MLP's input-gradient partial sum
+    (``expert_ffn``); the caller all-reduces the output."""
     T, D = x.shape
     Tp, Dp = -(-T // TILE) * TILE, -(-D // TILE) * TILE
     if Tp != T or Dp != D:
@@ -639,4 +682,5 @@ def dense_mlp(recipe: Recipe, act: str, x: torch.Tensor, w13, w2):
         record_entry_stats("q_entry_mlp", x3, x_in)
     else:
         x_in = x3.to(torch.bfloat16)
-    return expert_ffn(recipe, act, x_in, w13[None], w2[None])[0, :T, :D]
+    return expert_ffn(recipe, act, x_in, w13[None], w2[None],
+                      gx_groups=gx_groups)[0, :T, :D]

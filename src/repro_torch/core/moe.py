@@ -39,6 +39,10 @@ map, with no dequantize) and ``fp8_dispatch_naive``.  The router, the bf16
 gathers, the probability weighting and the combine are plain
 differentiable ops.
 
+``moe_block_tp`` is the reference's TP-sharded block (E < tp): every
+rank holds every expert's F-slice and the model group's tokens, the
+combine is an all-reduce or a reduce-scatter and no all-to-all runs.
+
 Each block names its stages with the reference's profiler ranges
 (``obs/trace.py``: router, dispatch, expert, combine).  The decode block
 is the reference's staged pipeline; ``moe_block_overlapped`` and
@@ -400,6 +404,90 @@ def moe_block(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2):
                      group)
         seg = torch.where(row_map_send >= 0, row_map_send, T)
         y = _segment_sum(y_back, seg, T)
+    return y.to(x.dtype), {"aux_loss": aux, "drop_frac": drop_frac}
+
+
+def moe_block_tp(recipe: Recipe, cfg: MoEConfig, x, w_router, w13, w2,
+                 tp_group=None, combine_mode: str = "local_first"):
+    """TP-sharded experts (the reference's ``moe_block_tp``,
+    ``repro/core/moe.py:348-414``; E < tp, e.g. grok-1's 8 experts on a
+    16-wide model axis): every rank holds ALL experts with their d_ff
+    sliced over `tp_group`, w13 (E, D, 2F_loc) and w2 (E, F_loc, D), and
+    the same tokens x (T, D) (``models/lm._moe_stage`` gathers them).  No
+    dispatch all-to-all: tokens are grouped locally into E groups of the
+    reference's C_exp (``T * k / E * cf`` rounded up to 128 for the FP8
+    recipes), each rank runs its F-slice of the grouped FFN, and the
+    partial sums reduce over the group.  The input gradient's partial sum
+    is all-reduced inside the FFN's backward (``gx_groups``): fp8_flow's
+    Dgrad-1 runs #3 and #1 there instead of #4.
+
+    combine_mode (the reference's):
+      'psum_first'      all-reduce the (E, C_exp, D) expert outputs, then
+                        weight and combine them locally;
+      'local_first'     weight and combine the rows into (T, D) first, then
+                        all-reduce the token rows in bf16 (top_k * cf
+                        times fewer bytes);
+      'reduce_scatter'  local_first with a reduce-scatter: this rank's
+                        T / tp rows of the sum (the caller's own rows).
+    The router, the probabilities and the aux loss are the same on every
+    rank; under the last two combines the probabilities' cotangent is a
+    partial sum and is all-reduced (``dist/tp.sum_grad``).  The combine's
+    all-reduce has an identity backward: the caller's cotangent is the
+    same on every rank (``dist/tp.py``).  Returns (y, metrics)."""
+    from repro_torch.dist import tp
+    if combine_mode not in ("psum_first", "local_first", "reduce_scatter"):
+        raise ValueError(f"unknown combine_mode {combine_mode!r}")
+    T, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    held = (w13.data if isinstance(w13, QTensor) else w13).shape[0]
+    if held != E:
+        raise ValueError(f"moe_block_tp: w13 holds {held} experts; TP "
+                         f"holds all {E}")
+    C_exp = _round_up(max(int(T * k / E * cfg.capacity_factor), 8),
+                      128 if recipe.is_fp8 else 8)
+
+    with stage_annotation("router"):
+        p, ids, aux = router_topk(x, w_router, k)
+        # local grouping: one send group (EP = 1) of E * C_exp slots
+        row_map, slot_expert, slot_assign, drop_frac = _dispatch_plan(
+            ids, k, 1, E, E * C_exp)
+
+    with stage_annotation("dispatch"):
+        row_map_exp, _ = _expert_plan(slot_expert, E, C_exp)
+        # expert slot -> send slot -> token row
+        tok_of_slot = torch.where(
+            row_map_exp >= 0,
+            row_map[torch.clamp(row_map_exp, min=0).long()], -1)
+        if recipe.name == "fp8_flow":
+            q_exp = dispatch_quantize(recipe, x, tok_of_slot)
+            record_entry_stats("q_entry_moe", x, scale_mode=recipe.scale_mode)
+            ffn_in = QTensor(q_exp.data.reshape(E, C_exp, D),
+                             q_exp.scale.reshape(E, C_exp, D // TILE),
+                             (1, 1, TILE))
+        else:
+            ffn_in = _take_rows(x.to(torch.bfloat16),
+                                tok_of_slot).reshape(E, C_exp, D)
+
+    with stage_annotation("expert"):
+        masked_m = _masked_m_or_none(recipe, row_map_exp, E, C_exp)
+        y_exp = expert_ffn(recipe, cfg.act, ffn_in, w13, w2, masked_m,
+                           out_tag="stage_expert_out",
+                           gx_groups=(tp_group,))       # F-sliced partial
+
+    with stage_annotation("combine"):
+        if combine_mode == "psum_first":
+            y_exp = tp.all_reduce_sum(y_exp, tp_group)
+        p_exp = _take_rows(_slot_probs(p, slot_assign)[:, None],
+                           row_map_exp).reshape(E, C_exp)
+        if combine_mode != "psum_first":
+            p_exp = tp.sum_grad(p_exp, tp_group)
+        y_exp = y_exp * p_exp[..., None].to(y_exp.dtype)
+        seg = torch.where(tok_of_slot >= 0, tok_of_slot, T)
+        y = _segment_sum(y_exp.reshape(E * C_exp, D), seg, T)
+        if combine_mode == "local_first":
+            y = tp.all_reduce_sum(y.to(torch.bfloat16), tp_group)
+        elif combine_mode == "reduce_scatter":
+            y = tp.reduce_scatter_rows(y.to(torch.bfloat16), tp_group)
     return y.to(x.dtype), {"aux_loss": aux, "drop_frac": drop_frac}
 
 

@@ -3,10 +3,13 @@
 Every collective the port runs goes through one of these wrappers over
 ``torch.distributed``: the expert-parallel all-to-all (``core/moe.py``),
 the DP gradient wire and the ZeRO-1 gather (``dist/grad_comm.py``), the
-gradient all-reduce of the plain step (``train/train_step.py``) and the
-FP8 psum (``runtime/compression.py``).  A group of None is no group: the
-wrapper returns its input and launches nothing, as the reference's
-collectives are identities with no mesh axis mapped.  With a group, even
+gradient all-reduce of the plain step (``train/train_step.py``), the FP8
+psum (``runtime/compression.py``) and the tensor-parallel and FSDP
+collectives of ``models/lm.py`` (token gathers, combine and input-gradient
+all-reduces, weight gathers and their gradients' reduce-scatters).  A
+group of None is no group: the wrapper returns its input and launches
+nothing, as the reference's collectives are identities with no mesh axis
+mapped.  With a group, even
 a group of one rank, the collective launches (a copy at one rank).
 
 Payloads travel as their bytes (a ``uint8`` view of the same memory, no
@@ -16,9 +19,10 @@ dtype.
 
 ``COUNTS`` keeps, by kind, the calls and the bytes of the buffers handed
 to the collectives (an all-to-all's message, an all-reduce's buffer, an
-all-gather's gathered output), and an open ``roofline.analysis.tally()``
-records the same.  What a rank puts on the interconnect is that times the
-kind's ring factor at the group's size (``wire_factor``).
+all-gather's gathered output, a reduce-scatter's input), and an open
+``roofline.analysis.tally()`` records the same.  What a rank puts on the
+interconnect is that times the kind's ring factor at the group's size
+(``wire_factor``).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch.distributed as dist
 
 from repro_torch.roofline import analysis as roofline
 
-KINDS = ("all-to-all", "all-reduce", "all-gather")
+KINDS = ("all-to-all", "all-reduce", "all-gather", "reduce-scatter")
 COUNTS = {k: [0, 0] for k in KINDS}          # kind -> [calls, bytes]
 
 
@@ -65,7 +69,8 @@ def _record(kind: str, nbytes: int) -> None:
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     """(R, ...) -> (R, w) uint8 view of t's bytes (contiguous)."""
     t = t.contiguous()
-    return t.reshape(t.shape[0], -1).view(torch.uint8)
+    # flat first: a size-1 axis may keep any stride in a contiguous tensor
+    return t.reshape(-1).view(torch.uint8).reshape(t.shape[0], -1)
 
 
 class Pending:
@@ -153,6 +158,23 @@ def agree_max_int(x: torch.Tensor, group) -> torch.Tensor:
     y = x.to(torch.int32).reshape(1).clone()
     all_reduce_(y, group, "max")
     return y.reshape(())
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """``psum_scatter(scatter_dimension=0, tiled=True)`` over `group`: the
+    ranks' t summed, cut on the leading axis into size(group) equal
+    blocks, block j kept by rank j.  The identity with no group."""
+    if group is None:
+        return t
+    n = size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"reduce_scatter: {t.shape[0]} rows over {n} ranks")
+    t = t.contiguous()
+    out = torch.empty((t.shape[0] // n, *t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, t, group=group)
+    _record("reduce-scatter", t.numel() * t.element_size())
+    return out
 
 
 def barrier(group) -> None:

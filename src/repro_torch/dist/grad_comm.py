@@ -113,37 +113,81 @@ def _owned_slice(t: torch.Tensor, group, n_shards: int) -> torch.Tensor:
     return t[idx * rows_l:(idx + 1) * rows_l]
 
 
-def _reduce_scatter_bucket(flat, group, n_shards, wire, guard):
+class InFlight:
+    """A bucket's reduce-scatter on the wire (``issue_reduce_scatter``):
+    its message in flight (an ``async_op`` all-to-all) and the local
+    gradient the guard's fallback would send.  ``bad()`` is the wire
+    guard's verdict on the received message (a device bool, the same on
+    every replica: a collective), ``finish(bad)`` the owned f32 mean,
+    through the bf16 fallback where ``bad`` (a host bool) says so."""
+
+    def __init__(self, flat, group, n_shards, wire, pending):
+        self.flat, self.group, self.n_shards = flat, group, n_shards
+        self.wire, self.pending = wire, pending
+        self._msg = None
+
+    def _received(self):
+        if self._msg is None:
+            self._msg = self.pending.wait()
+            self.pending = None
+        return self._msg
+
+    def _blocks(self):
+        rows = self.flat.shape[0] // self.n_shards
+        if self.wire == "fp8":
+            return unpack_bucket(self._received().reshape(
+                self.n_shards, rows, TILE + _EXP_BYTES))
+        return self._received().reshape(self.n_shards, rows, TILE)
+
+    def bad(self, guard) -> torch.Tensor:
+        if self.wire != "fp8":
+            return torch.zeros((), dtype=torch.bool, device=self.flat.device)
+        pay, exps = self._blocks()
+        return scale_sync.wire_anomaly(exps, pay, self.group,
+                                       guard.wire_exp_limit)
+
+    def finish(self, bad: bool = False) -> torch.Tensor:
+        n = self.n_shards
+        if bad:
+            # the bf16 all-reduce wire, sliced to the owned rows
+            g = comm.all_reduce_(self.flat.to(torch.bfloat16), self.group)
+            owned = _owned_slice(g, self.group, n).to(torch.float32)
+        elif self.wire == "fp8":
+            pay, exps = self._blocks()
+            owned = _dequant_sum(pay, exps)
+        else:
+            blocks = self._blocks()
+            owned = blocks[0].to(torch.float32)
+            for i in range(1, n):
+                owned = owned + blocks[i].to(torch.float32)
+        self.flat = self._msg = None
+        return owned / n
+
+
+def issue_reduce_scatter(flat: torch.Tensor, group, n_shards: int,
+                         wire: str) -> InFlight:
+    """Put a (rows, TILE) bucket on the wire and return at once: the
+    agreed-scale quantize and the pack (fp8) or the cast (bf16 / f32),
+    then the all-to-all with ``async_op``.  The streaming schedule issues
+    each bucket inside the backward and finishes them after it."""
     rows = flat.shape[0]
+    if rows % n_shards:
+        raise ValueError(f"{rows} bucket rows over {n_shards} shards")
     if wire == "fp8":
         payload, exp = quantize_bucket(flat, group)
-        msg = comm.all_to_all(pack_bucket(payload, exp), group)
-        del payload, exp
-        pay, exps = unpack_bucket(msg.reshape(n_shards, rows // n_shards,
-                                              TILE + _EXP_BYTES))
-        del msg
-        if guard is not None:
-            bad = scale_sync.wire_anomaly(exps, pay, group,
-                                          guard.wire_exp_limit)
-            if bool(bad):
-                # the bf16 all-reduce wire, sliced to the owned rows
-                g = comm.all_reduce_(flat.to(torch.bfloat16), group)
-                owned = _owned_slice(g, group, n_shards).to(torch.float32)
-            else:
-                owned = _dequant_sum(pay, exps)
-            return owned / n_shards, bad
-        owned = _dequant_sum(pay, exps)
+        msg = pack_bucket(payload, exp)
     else:
-        wdtype = torch.bfloat16 if wire == "bf16" else torch.float32
-        msg = comm.all_to_all(flat.to(wdtype), group)
-        blocks = msg.reshape(n_shards, rows // n_shards, TILE)
-        owned = blocks[0].to(torch.float32)
-        for i in range(1, n_shards):
-            owned = owned + blocks[i].to(torch.float32)
-    if guard is not None:
-        return owned / n_shards, torch.zeros((), dtype=torch.bool,
-                                             device=flat.device)
-    return owned / n_shards
+        msg = flat.to(torch.bfloat16 if wire == "bf16" else torch.float32)
+    return InFlight(flat, group, n_shards, wire,
+                    comm.all_to_all(msg, group, async_op=True))
+
+
+def _reduce_scatter_bucket(flat, group, n_shards, wire, guard):
+    inflight = issue_reduce_scatter(flat, group, n_shards, wire)
+    if guard is None:
+        return inflight.finish()
+    bad = inflight.bad(guard)
+    return inflight.finish(bool(bad)), bad
 
 
 def all_gather_shard(shard: torch.Tensor, group) -> torch.Tensor:

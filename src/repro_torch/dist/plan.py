@@ -18,9 +18,20 @@ messages, and how the ZeRO-1 shards own the flat gradient space:
 The flatten order is the reference's: ``jax.tree_util`` walks a dict's
 keys sorted, so the port walks its nested dicts in sorted key order
 (``flatten_with_paths``), and on the same tree the layout is the
-reference's slot for slot.  ``schedule='stream'`` and ``layered=True``
-(the layer-aligned buckets of the streaming wire) raise until the next
-slice ports them.
+reference's slot for slot.
+
+Layer-aligned layout (``layered=True``, the reference's ``:233-292``):
+the stacked decoder stacks (``layers`` / ``dense_layers``, stored (L,
+...)) bucket PER LAYER, main stack last-layer-first, then the dense
+prologue last-first: the order the streaming backward
+(``train/train_step.py``) emits each layer's gradients.  A slot then
+covers ``leaves[index][layer]``; a sensitive stacked leaf carries its
+``stack`` tag and is reduced a layer slice at a time with that layer's
+buckets; the non-stacked FP8 leaves pack after them.  This is the layout
+``schedule='stream'`` needs (bucket i's quantize and reduce-scatter leave
+as soon as its layer's gradients exist); ``posthoc`` with ``layered=True``
+is the controlled baseline: the same buckets, only the issue order
+differs.
 """
 from __future__ import annotations
 
@@ -32,9 +43,9 @@ import torch
 
 from repro_torch.core.fp8 import TILE
 
-_NEXT_SLICE = ("the streaming wire schedule and its layer-aligned layout "
-               "come with multi-GPU training part 2 (ROADMAP.md, Queue 1, "
-               "item 7)")
+# parameter-tree roots stacked (L, ...) over a decoder stack, run a layer
+# at a time: only these can be layer-aligned
+STACKED_STACKS = ("layers", "dense_layers")
 
 # leaves that take the bf16 fallback wire whatever their size
 SENSITIVE_NAMES = frozenset({
@@ -54,8 +65,12 @@ class DistPlan:
     shard_multiple  bucket rows pad to this multiple
     min_fp8_size    leaves smaller than this take the bf16 fallback
     policy          optimizer-state encodings (dist.opt_state.StatePolicy)
-    schedule        'posthoc' ('stream' raises: the next slice)
-    layered         None / False (True raises: the next slice)"""
+    schedule        'posthoc' (every bucket reduced after the backward) |
+                    'stream' (bucket i's quantize + reduce-scatter issued
+                    from inside the backward as soon as its layer's
+                    gradients exist; needs the layer-aligned layout)
+    layered         the layer-aligned layout; None defaults to
+                    (schedule == 'stream')"""
     axis: str = "data"
     mode: str = "zero1"
     wire: str = "fp8"
@@ -73,11 +88,14 @@ class DistPlan:
             raise ValueError(f"unknown wire format {self.wire}")
         if self.schedule not in ("posthoc", "stream"):
             raise ValueError(f"unknown wire schedule {self.schedule}")
-        if self.schedule == "stream" or self.layered:
-            raise NotImplementedError(
-                f"DistPlan schedule={self.schedule!r} layered="
-                f"{self.layered}: {_NEXT_SLICE}")
-        object.__setattr__(self, "layered", False)
+        if self.layered is None:
+            object.__setattr__(self, "layered", self.schedule == "stream")
+        if self.schedule == "stream" and not self.layered:
+            raise ValueError(
+                "schedule='stream' needs layer-aligned buckets "
+                "(layered=True): the streaming backward emits gradients one "
+                "layer at a time, so a bucket spanning layers could only be "
+                "sent after all of them, the post-hoc wire in disguise")
         if self.policy is None:
             from repro_torch.dist.opt_state import StatePolicy
             object.__setattr__(self, "policy", StatePolicy())
@@ -186,8 +204,19 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+class _LayerSlice:
+    """Shape and dtype of one layer's slice of a stacked (L, ...) leaf:
+    what ``is_sensitive`` judges (the per-layer size and rank)."""
+
+    def __init__(self, leaf):
+        self.shape = tuple(leaf.shape[1:])
+        self.dtype = leaf.dtype
+
+
 def build_layout(params, plan: DistPlan) -> GradLayout:
     """Static: reads only paths, shapes and dtypes."""
+    if plan.layered:
+        return _build_layout_layered(params, plan)
     flat = flatten_with_paths(params)
     buckets, slots, sensitive = [], [], []
     cur_rows = 0
@@ -218,11 +247,69 @@ def build_layout(params, plan: DistPlan) -> GradLayout:
                       n_leaves=len(flat))
 
 
+def _build_layout_layered(params, plan: DistPlan) -> GradLayout:
+    """One bucket chain per (stack, layer) in the streaming backward's
+    order (main stack last-first, then the dense prologue last-first),
+    then the non-stacked FP8 leaves; a bucket never spans a layer."""
+    flat = flatten_with_paths(params)
+    target_rows = max(int(plan.bucket_mb * 2 ** 20) // TILE,
+                      plan.shard_multiple)
+    buckets, sensitive = [], []
+    stacks = {name: [] for name in STACKED_STACKS}
+    other = []
+    for i, (p, leaf) in enumerate(flat):
+        root = p.split(".")[0]
+        (stacks[root] if root in stacks else other).append((i, p, leaf))
+
+    def pack(entries, stack=None, layer=None):
+        slots, cur = [], 0
+        for i, p, size in entries:
+            rows = -(-size // TILE)
+            if cur and cur + rows > target_rows:
+                buckets.append(Bucket(rows=_round_up(cur, plan.shard_multiple),
+                                      slots=tuple(slots), stack=stack,
+                                      layer=layer))
+                slots, cur = [], 0
+            slots.append(LeafSlot(index=i, path=p, offset_rows=cur,
+                                  rows=rows, size=size, layer=layer))
+            cur += rows
+        if slots:
+            buckets.append(Bucket(rows=_round_up(cur, plan.shard_multiple),
+                                  slots=tuple(slots), stack=stack,
+                                  layer=layer))
+
+    for name in ("layers", "dense_layers"):
+        group = stacks[name]
+        eligible = []
+        for i, p, leaf in group:
+            view = _LayerSlice(leaf)
+            if is_sensitive(p, view, plan):
+                # reduced one layer slice at a time, with its layer's buckets
+                sensitive.append(SensitiveSlot(i, p, stack=name))
+            else:
+                eligible.append((i, p, _numel(view)))
+        if eligible:
+            for layer in range(group[0][2].shape[0] - 1, -1, -1):
+                pack(eligible, stack=name, layer=layer)
+    tail = []
+    for i, p, leaf in other:
+        if is_sensitive(p, leaf, plan):
+            sensitive.append(SensitiveSlot(i, p))
+        else:
+            tail.append((i, p, _numel(leaf)))
+    pack(tail)
+    return GradLayout(buckets=tuple(buckets), sensitive=tuple(sensitive),
+                      n_leaves=len(flat))
+
+
 def streaming_fallback_reason(cfg, layout: Optional[GradLayout] = None,
                               grad_accum: int = 1) -> Optional[str]:
     """Why the streaming wire cannot run this configuration (None when it
-    could): the reference's probe.  The port has no streaming schedule yet,
-    so a DistPlan that asks for it raises in its constructor."""
+    can), the reference's probe: the staged backward drives plain
+    decoder-only stacks, and every bucket must align to a layer.
+    ``grad_accum`` names no blocker: microbatch gradients accumulate
+    locally and each bucket is wired once, from the last microbatch's
+    backward."""
     if getattr(cfg, "encdec", False) or getattr(cfg, "frontend",
                                                 "none") != "none":
         return ("the staged layer program drives plain decoder-only stacks; "
@@ -260,18 +347,29 @@ def bucket_flat_parts(bucket: Bucket, get_leaf,
     return out.reshape(bucket.rows, TILE)
 
 
+def slot_leaf(s: LeafSlot, leaves):
+    """A slot's tensor of a flattened leaf list: the leaf, or a layered
+    slot's layer slice of the stacked leaf."""
+    leaf = leaves[s.index]
+    return leaf if s.layer is None else leaf[s.layer]
+
+
 def bucket_flat(bucket: Bucket, leaves, dtype=torch.float32) -> torch.Tensor:
-    """bucket_flat_parts over a flattened leaf list."""
-    return bucket_flat_parts(bucket, lambda s: leaves[s.index], dtype)
+    """bucket_flat_parts over a flattened leaf list (layered slots take
+    their layer slice)."""
+    return bucket_flat_parts(bucket, lambda s: slot_leaf(s, leaves), dtype)
 
 
 def bucket_scatter(bucket: Bucket, flat: torch.Tensor, like_leaves) -> dict:
     """A bucket's (rows, TILE) block cut back into its leaves:
-    {index: tensor of the leaf's shape and dtype}."""
+    {index: tensor of the leaf's shape and dtype} for flat slots and
+    {(index, layer): the layer slice} for layered ones."""
     v = flat.reshape(-1)
     out = {}
     for s in bucket.slots:
         ref = like_leaves[s.index]
+        shape = ref.shape if s.layer is None else ref.shape[1:]
         x = v[s.offset_rows * TILE:s.offset_rows * TILE + s.size]
-        out[s.index] = x.reshape(ref.shape).to(ref.dtype)
+        key = s.index if s.layer is None else (s.index, s.layer)
+        out[key] = x.reshape(shape).to(ref.dtype)
     return out

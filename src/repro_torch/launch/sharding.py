@@ -1,27 +1,42 @@
 """What lives where on the mesh, for eager PyTorch.
 
-Counterpart of the part of ``repro.launch.sharding`` (``:49-145``) that a
-run without a compiler needs.  The layout is Megatron's:
+Counterpart of ``repro.launch.sharding``'s ``make_plan`` (``:22-35``) and
+the part of its ``param_specs`` / ``tree_specs`` (``:49-145``) that a run
+without a compiler needs.  The layout is Megatron's:
 
-- the expert leaves (``we13`` (L, E, D, g, F) and ``we2`` (L, E, F, D),
-  stacked over layers) are cut on their E axis over the ``model`` axis:
-  the rank at model index m holds experts [m * E_loc, (m + 1) * E_loc),
-  the reference's ``P(None, 'model', ...)``;
-- every other leaf (attention, norms, embeddings, the router, dense and
-  shared-expert MLPs) is replicated;
 - the global batch is cut over every rank in rank order, the reference's
   ``token_axes_moe = dp_axes + (tp_axis,)`` (``lm.py:67-69``): each rank
-  runs attention and the dense layers on its own share, and the MoE
-  blocks' all-to-alls move its tokens to the experts' ranks.
+  runs attention and the dense layers on its own share; the EP blocks'
+  all-to-alls move its tokens to the experts' ranks, and the TP stages
+  gather the model group's tokens (``dist/tp.py``);
+- the expert leaves (``we13`` (L, E, D, g, F), ``we2`` (L, E, F, D)) are
+  cut on E over ``model`` (EP, ``moe_mode='ep'`` at EP > 1) or on F over
+  ``model`` (TP-in-expert, ``moe_mode='tp'``), the reference's
+  ``P(None, 'model', ...)`` and ``P(None, None, fs, None, 'model')``;
+- with ``mlp_tp`` the dense MLPs and shared experts whose F passes
+  ``mlp_tp_ok`` are cut on F over ``model``;
+- with ``fsdp_axis='data'`` those weights are cut on their d_model axis
+  over ``data`` too (we13 on D, we2 on D, w13 / ws13 on D, w2 / ws2 on
+  D), and each stage all-gathers them;
+- every other leaf (attention, norms, embeddings, the router) is
+  replicated.
+
+``models.lm.ParallelPlan.leaf_cuts`` names the cuts of each leaf: a cut
+applies only where it divides and leaves the last axis a multiple of 128,
+as ``tree_specs`` drops uneven ones.  ``grad_group`` gives each leaf's
+post-hoc gradient sum: what its stage's collectives have not summed yet.
 
 The loss is the mean over the global batch: each rank's loss is the mean
 over its share, and the train step averages the ranks' (equal shares).
 
 ``MeshShardings`` moves the plain step's state between the ranks and a
-checkpoint: the checkpoint holds the world-1 tree, written by the world's
-rank 0 alone.
+checkpoint: the checkpoint holds the world-1 tree, gathered over every
+cut (the params, the AdamW trees that mirror them and their (rows, 128)
+QTensor encodings) and written by the world's rank 0 alone.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -29,15 +44,34 @@ from repro_torch.core.fp8 import TILE
 from repro_torch.core.quant import QTensor
 from repro_torch.dist import comm
 
-EXPERT_LEAVES = ("we13", "we2")
 # the AdamW state trees that mirror the params (optim/adamw.init_state)
 _MIRRORS = ("m", "v", "master")
 
 
-def is_expert_leaf(path: str) -> bool:
-    """A leaf sharded over the model axis (its E axis after the layer
-    axis)."""
-    return path.split(".")[-1] in EXPERT_LEAVES
+def make_plan(cfg, mesh, *, moe_tp_combine: str = "local_first",
+              mlp_tp: bool = False):
+    """The reference's production plan (``repro/launch/sharding.py:22-35``)
+    for `cfg` on `mesh`: ``moe_mode`` 'ep' iff the experts split over the
+    model axis (E % tp == 0 and E >= tp), else 'tp'; ``fsdp_axis`` 'data'
+    iff ``cfg.fsdp``.  The combine and the MLP's TP mode are keywords
+    (the reference reads them from environment variables).  Reads only
+    ``mesh.shape`` and ``mesh.axis_names``."""
+    from repro_torch.models.lm import ParallelPlan
+    tp = mesh.shape["model"]
+    moe_mode = "ep" if (cfg.moe and cfg.n_experts % tp == 0
+                        and cfg.n_experts >= tp) else "tp"
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return ParallelPlan(mesh=mesh, dp_axes=dp_axes, tp_axis="model",
+                        moe_mode=moe_mode,
+                        fsdp_axis="data" if cfg.fsdp else None,
+                        moe_tp_combine=moe_tp_combine, mlp_tp=mlp_tp)
+
+
+def _plan_of(mesh, plan):
+    if plan is not None:
+        return plan
+    from repro_torch.models.lm import ParallelPlan
+    return ParallelPlan(mesh=mesh)
 
 
 def _walk(tree, fn, path=""):
@@ -47,28 +81,29 @@ def _walk(tree, fn, path=""):
     return fn(path, tree)
 
 
-def expert_slice(mesh, n_experts: int) -> slice:
-    """This rank's experts on the E axis."""
-    ep = mesh.ep
-    if n_experts % ep:
-        raise ValueError(f"{n_experts} experts do not split over EP={ep}")
-    e_loc = n_experts // ep
-    m = mesh.model_index
-    return slice(m * e_loc, (m + 1) * e_loc)
+def _axis_index(mesh, mesh_axis: str) -> int:
+    return mesh.model_index if mesh_axis == "model" else mesh.data_index
 
 
-def shard_params(params, mesh):
+def shard_params(params, mesh, cfg, plan=None):
     """The reference's ``init_params`` tree (the port's stacked layout) cut
-    to this rank: expert leaves to its E_loc experts (copies, so the other
-    experts' memory is freed), every other leaf as it is."""
-    if mesh is None or mesh.ep == 1:
+    to this rank by ``ParallelPlan.leaf_cuts`` (copies, so the other ranks' memory is
+    freed); every other leaf as it is.  `plan` defaults to the EP plan of
+    `mesh`."""
+    plan = _plan_of(mesh, plan)
+    if mesh is None:
         return params
 
     def cut(path, leaf):
-        if not is_expert_leaf(path):
-            return leaf
-        sl = expert_slice(mesh, leaf.shape[1])
-        return leaf[:, sl].clone()
+        whole = leaf
+        for ax, m in plan.leaf_cuts(cfg, path):
+            n = mesh.shape[m]
+            if leaf.shape[ax] % n:
+                raise ValueError(f"{path} {tuple(leaf.shape)}: axis {ax} "
+                                 f"does not split over {m} = {n}")
+            w = leaf.shape[ax] // n
+            leaf = leaf.narrow(ax, _axis_index(mesh, m) * w, w)
+        return whole if leaf.shape == whole.shape else leaf.clone()
     return _walk(params, cut)
 
 
@@ -90,52 +125,66 @@ def shard_batch(batch, mesh, *, lead: int = 0):
     return {k: cut(v) for k, v in batch.items()}
 
 
-def grad_group(path: str, mesh):
-    """The group a leaf's gradient is summed over: the data axis for an
-    expert leaf (the reference's dp_axes Wgrad psum, core/moe.py:52-53;
-    the model axis already met in the all-to-all's backward), the world
-    for a replicated one (the router included: a replicated input of a
-    shard_map gets the psum of every rank's cotangent)."""
-    if is_expert_leaf(path) and mesh.ep > 1:
+def grad_group(path: str, mesh, cfg, plan=None):
+    """The group a leaf's gradient is still summed over after the
+    backward: the world, less the axes its stage's collectives already
+    summed it over.  'model' is done for a leaf cut over model (EP: the
+    all-to-all's backward brings every rank's cotangent to the expert;
+    TP: the model group's tokens are gathered, so each F-slice's gradient
+    is whole) and for the router in TP mode (replicated over the group
+    with the same gradient on every rank); 'data' for an FSDP-cut leaf
+    (its gather's backward reduce-scattered it).  None: nothing left."""
+    plan = _plan_of(mesh, plan)
+    axes = {m for _, m in plan.leaf_cuts(cfg, path)}
+    if (path.split(".")[-1] == "w_router" and plan.moe_mode == "tp"
+            and cfg.moe):
+        axes.add("model")
+    need_data, need_model = "data" not in axes, "model" not in axes
+    if need_data and need_model:
+        return mesh.world_group
+    if need_data:
         return mesh.data_group
-    return mesh.world_group
+    if need_model:
+        return mesh.model_group
+    return None
 
 
-def gather_expert_leaf(leaf: torch.Tensor, mesh) -> torch.Tensor:
-    """A sharded expert leaf (L, E_loc, ...) back to (L, E, ...) on every
-    rank of the model axis (for checks and whole-tree checkpoints)."""
-    if mesh is None or mesh.ep == 1:
-        return leaf
-    t = leaf.transpose(0, 1).contiguous()
-    full = comm.all_gather(t, mesh.model_group)
-    return full.transpose(0, 1).contiguous()
+def norm_groups(path: str, mesh, cfg, plan=None) -> tuple:
+    """The groups a leaf's sum of squares is summed over for the global
+    norm: one for each axis the leaf is cut on."""
+    plan = _plan_of(mesh, plan)
+    return tuple(mesh.group(m) for _, m in plan.leaf_cuts(cfg, path))
 
 
-def _map_experts(state, fn):
-    """`state` with each expert leaf of its params, and of the AdamW trees
-    that mirror them, replaced by fn(leaf, param): a plain tensor of the
-    param's shape or a QTensor of its (rows, TILE) encoding."""
-    from repro_torch.dist.plan import flatten_with_paths
-    params = dict(flatten_with_paths(state["params"]))
-
-    def at(path, leaf):
-        return fn(leaf, params[path]) if is_expert_leaf(path) else leaf
-    out = dict(state)
-    out["params"] = _walk(state["params"], at)
-    out["opt"] = {k: _walk(v, at) if k in _MIRRORS else v
-                  for k, v in state["opt"].items()}
-    return out
+def _gather_axis(t: torch.Tensor, shape, ax: int, group):
+    """t (a leaf of `shape`, or a (rows, w) encoding of it whose rows do
+    not straddle the blocks of axis `ax`) gathered over `group` on ax."""
+    pre = math.prod(shape[:ax])
+    v = t.reshape(pre, -1).t().contiguous()
+    full = comm.all_gather(v, group).t()
+    n = comm.size(group)
+    if tuple(t.shape) == tuple(shape):
+        grown = list(shape)
+        grown[ax] *= n
+        return full.reshape(grown)
+    return full.reshape(t.shape[0] * n, *t.shape[1:])
 
 
-def _by_expert(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """t (param-shaped, or an encoding's (rows, w) part) as (L, E_loc, -1):
-    the flat order of a stacked expert leaf is layer-major, then expert.
-    An encoding's rows must not straddle two experts."""
-    L, e = p.shape[0], p.shape[1]
-    if t.shape != p.shape and p.numel() % (L * e * TILE):
-        raise ValueError(f"an expert leaf {tuple(p.shape)}: its {TILE}-wide "
-                         "state rows straddle experts")
-    return t.view(L, e, -1)
+def _check_rows(t, shape, ax: int, path: str):
+    if tuple(t.shape) == tuple(shape):
+        return
+    block = math.prod(shape[ax:])
+    if block % TILE:
+        raise ValueError(f"{path} {tuple(shape)} cut on axis {ax}: its "
+                         f"{TILE}-wide state rows straddle the cut")
+
+
+def gather_leaf(leaf: torch.Tensor, mesh, cuts) -> torch.Tensor:
+    """A cut leaf back to its full shape over every cut (every rank of
+    the cuts' groups calls it)."""
+    for ax, m in cuts:
+        leaf = _gather_axis(leaf, list(leaf.shape), ax, mesh.group(m))
+    return leaf
 
 
 def _parts(enc, fn):
@@ -147,18 +196,21 @@ def _parts(enc, fn):
 class MeshShardings:
     """The plain step's state on a mesh, to and from a checkpoint.
 
-    ``full(state)`` is the world-1 tree: the expert leaves (the params'
-    and the AdamW trees' that mirror them) gathered over the model axis (a
-    collective: every rank calls it); ``writer`` is true on the world's
-    rank 0 alone, which writes it.  ``template(state)`` is a full-size
-    tree to restore into (every replicated leaf shared with `state`), and
-    ``shard(full, state)`` copies this rank's experts of it into the live
-    leaves.  A checkpoint saved at one EP size restores at world 1 and at
-    any EP dividing E, bit for bit.  ``barrier()`` holds every rank until
-    a write has landed."""
+    ``full(state)`` is the world-1 tree: every cut leaf (the params' and
+    the AdamW trees' that mirror them, plain or as (rows, 128) QTensor
+    encodings) gathered over its cuts (a collective: every rank calls
+    it); ``writer`` is true on the world's rank 0 alone, which writes it.
+    ``template(state)`` is a full-size tree to restore into (every whole
+    leaf shared with `state`), and ``shard(full, state)`` copies this
+    rank's blocks of it into the live leaves.  A cut's encoding rows must
+    not straddle its blocks (the cut rule's 128-multiple last axis), so
+    they regroup exactly: a checkpoint saved on one layout restores at
+    world 1 and on any layout whose cuts divide, bit for bit.
+    ``barrier()`` holds every rank until a write has landed."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, cfg, plan=None):
         self.mesh = mesh
+        self.cfg, self.plan = cfg, _plan_of(mesh, plan)
 
     @property
     def writer(self) -> bool:
@@ -167,47 +219,75 @@ class MeshShardings:
     def barrier(self) -> None:
         comm.barrier(self.mesh.world_group)
 
+    def _cuts(self, path):
+        return self.plan.leaf_cuts(self.cfg, path)
+
+    def _map(self, state, fn):
+        """`state` with each cut leaf of its params, and of the AdamW
+        trees that mirror them, replaced by fn(path, leaf, param, cuts)."""
+        from repro_torch.dist.plan import flatten_with_paths
+        params = dict(flatten_with_paths(state["params"]))
+
+        def at(path, leaf):
+            cuts = self._cuts(path)
+            return fn(path, leaf, params[path], cuts) if cuts else leaf
+        out = dict(state)
+        out["params"] = _walk(state["params"], at)
+        out["opt"] = {k: _walk(v, at) if k in _MIRRORS else v
+                      for k, v in state["opt"].items()}
+        return out
+
+    def _grown(self, t, p, cuts):
+        n = math.prod(self.mesh.shape[m] for _, m in cuts)
+        if tuple(t.shape) == tuple(p.shape):
+            shape = list(p.shape)
+            for ax, m in cuts:
+                shape[ax] *= self.mesh.shape[m]
+            return tuple(shape)
+        return (t.shape[0] * n, *t.shape[1:])
+
     def full(self, state):
-        if self.mesh.ep == 1:
-            return state
-
-        def gather(enc, p):
-            return _parts(enc, lambda t: gather_expert_leaf(
-                _by_expert(t, p), self.mesh).reshape(self._grown(t, p)))
-        return _map_experts(state, gather)
-
-    def _grown(self, t, p):
-        if t.shape == p.shape:
-            return (p.shape[0], p.shape[1] * self.mesh.ep, *p.shape[2:])
-        return (t.shape[0] * self.mesh.ep, *t.shape[1:])
+        def gather(path, enc, p, cuts):
+            def one(t):
+                shape = list(p.shape)
+                for ax, m in cuts:
+                    _check_rows(t, shape, ax, path)
+                    g = self.mesh.group(m)
+                    t = _gather_axis(t, shape, ax, g)
+                    shape[ax] *= comm.size(g)
+                return t
+            return _parts(enc, one)
+        return self._map(state, gather)
 
     def template(self, state):
-        if self.mesh.ep == 1:
-            return state
-        return _map_experts(state, lambda enc, p: _parts(
-            enc, lambda t: t.new_empty(self._grown(t, p))))
+        return self._map(state, lambda path, enc, p, cuts: _parts(
+            enc, lambda t: t.new_empty(self._grown(t, p, cuts))))
 
     @torch.no_grad()
     def shard(self, full, state):
         """`full` (restored into ``template(state)``) with this rank's
-        experts copied into `state`'s live expert leaves, which take their
+        blocks copied into `state`'s live cut leaves, which take their
         places."""
-        if self.mesh.ep == 1:
-            return full
         live = []
-        _map_experts(state, lambda enc, p: live.append((enc, p)))
+        self._map(state, lambda path, enc, p, cuts: live.append((enc, p)))
         it = iter(live)
-        sl = expert_slice(self.mesh, self.mesh.ep * live[0][1].shape[1]) \
-            if live else None
 
-        def put(fenc, _):
+        def put(path, fenc, _, cuts):
             enc, p = next(it)
             if isinstance(enc, QTensor):
                 pairs = ((fenc.data, enc.data), (fenc.scale, enc.scale))
             else:
                 pairs = ((fenc, enc),)
             for f, t in pairs:
-                whole = f.reshape(p.shape[0], self.mesh.ep * p.shape[1], -1)
-                _by_expert(t, p).copy_(whole[:, sl])
+                shape = list(self._grown(p, p, cuts))
+                for ax, m in cuts:
+                    n = self.mesh.shape[m]
+                    pre = math.prod(shape[:ax])
+                    cols = f.numel() // pre
+                    f = f.reshape(pre, cols).narrow(
+                        1, _axis_index(self.mesh, m) * (cols // n),
+                        cols // n)
+                    shape[ax] //= n
+                t.copy_(f.reshape(t.shape))
             return enc
-        return _map_experts(full, put)
+        return self._map(full, put)

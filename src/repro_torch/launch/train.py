@@ -7,8 +7,9 @@ world of ranks.
       [--grad-accum N] [--guard [--guard-spike-factor F] \\
       [--guard-rollback-after K] [--guard-demote-steps N]] [--elastic] \\
       [--remat-policy {none,full,fp8_resident,pair}] \\
-      [--dist-wire {off,fp8,bf16,f32}] [--ep N] \\
-      [--obs-jsonl PATH] [--obs-prom PATH]
+      [--dist-wire {off,fp8,bf16,f32}] [--dist-schedule {posthoc,stream}] \\
+      [--tp N] [--moe-tp-combine {psum_first,local_first,reduce_scatter}] \\
+      [--mlp-tp] [--obs-jsonl PATH] [--obs-prom PATH]
 
   # four ranks (gloo on the CPU, NCCL on cards): torchrun sets the world
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
@@ -16,19 +17,32 @@ world of ranks.
 
 The flags are the reference launcher's (``repro.launch.train``), plus
 ``--device`` (``cuda``: the hand-written kernels; ``cpu``: their plain
-twins) and ``--ep``.  The world comes from torchrun's variables when they
-are set, else it is one rank; a mesh of (world / ep, ep) ranks is built
-(``launch/mesh.py``) whenever the world is larger than one, ``--ep`` is
-larger than one or a wire is asked for, through a FileStore in a
-temporary directory at world 1.  Each rank trains on its share of every
-global batch (``launch/sharding.py``).
+twins), ``--tp`` (the model axis; ``--ep`` is its alias),
+``--moe-tp-combine`` and ``--mlp-tp`` (the reference reads the last two
+from environment variables).  The world comes from torchrun's variables
+when they are set, else it is one rank; a mesh of (world / tp, tp) ranks
+is built (``launch/mesh.py``) whenever the world is larger than one,
+``--tp`` is larger than one or a wire is asked for, through a FileStore
+in a temporary directory at world 1.  Each rank trains on its share of
+every global batch (``launch/sharding.py``).
 
+- The plan: without ``--reduced``, on a mesh, the reference's production
+  plan, ``launch.sharding.make_plan(cfg, mesh)`` (``repro/launch/
+  train.py:141-142``): experts on E over the model axis where they split
+  (EP), else F-sliced (TP, ``moe_block_tp``), and FSDP over data where the
+  config says so.  With ``--reduced`` (as the reference's DP-only mesh)
+  the EP plan with the two keywords' levers.
 - ``--dist-wire fp8|bf16|f32``: the DistPlan step (the FP8 DP gradient
   wire and ZeRO-1; DistPlan's FP8-split state), over the data axis; it
-  refuses ``--ep`` > 1, as the reference's does.  ``--dist-schedule
-  stream`` raises (multi-GPU training part 2).
-- ``--ep N``: the expert-parallel all-to-all over N ranks of the model
-  axis (each holds E / N experts), gradients all-reduced in f32.
+  refuses ``--tp`` > 1, as the reference's does.  ``--dist-schedule
+  stream``: the streaming wire (each layer's buckets sent from inside the
+  backward, the layer-aligned layout); where
+  ``dist.plan.streaming_fallback_reason`` gives a reason it prints the
+  reference's WARNING and runs the post-hoc schedule on the same layout.
+- ``--tp N``: the model axis of N ranks: the expert-parallel all-to-all
+  (each rank holds E / N experts), or with TP experts and ``--mlp-tp``
+  the F-sliced stages; gradients all-reduced in f32.
+- ``--multi-pod`` raises: the pod axis is multi-GPU part 3.
 
 The steps run through ``train.loop.run``:
 
@@ -70,9 +84,10 @@ from repro_torch.configs import get_arch
 from repro_torch.core.recipes import RECIPES, get_recipe
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.dist.grad_comm import wire_grad_bytes
-from repro_torch.dist.plan import DistPlan, build_layout
+from repro_torch.dist.plan import (DistPlan, build_layout,
+                                   streaming_fallback_reason)
 from repro_torch.launch.mesh import close_mesh, init_mesh
-from repro_torch.launch.sharding import shard_batch
+from repro_torch.launch.sharding import make_plan, shard_batch
 from repro_torch.models.lm import ParallelPlan
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.fault_tolerance import ElasticTrainer
@@ -102,9 +117,19 @@ def main(argv=None):
                          "bucketed reduce-scatter with a plain payload")
     ap.add_argument("--dist-schedule", default="posthoc",
                     choices=["posthoc", "stream"],
-                    help="DP wire schedule (stream: not ported yet)")
-    ap.add_argument("--ep", type=int, default=1,
-                    help="expert-parallel ranks (the mesh's model axis)")
+                    help="DP wire schedule: posthoc (after the backward) or "
+                         "stream (each layer's buckets from inside it)")
+    ap.add_argument("--tp", "--ep", dest="tp", type=int, default=1,
+                    help="ranks of the mesh's model axis (expert-parallel "
+                         "or tensor-parallel, by the plan)")
+    ap.add_argument("--moe-tp-combine", default="local_first",
+                    choices=["psum_first", "local_first", "reduce_scatter"],
+                    help="the TP MoE block's combine")
+    ap.add_argument("--mlp-tp", action="store_true",
+                    help="F-slice the dense MLPs and shared experts over "
+                         "the model axis where (F / tp) % 128 == 0")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the reference's pod axis (not ported: part 3)")
     ap.add_argument("--remat-policy", default=None,
                     choices=["none", "full", "fp8_resident", "pair"],
                     help="activation-residency plan (default: the config's, "
@@ -136,19 +161,23 @@ def main(argv=None):
                     help="write a Prometheus text-exposition snapshot of "
                          "the metrics registry at exit")
     args = ap.parse_args(argv)
+    if args.multi_pod:
+        raise NotImplementedError(
+            "--multi-pod: the pod axis comes with multi-GPU part 3 "
+            "(ROADMAP.md, Queue 1, item 7)")
 
     dist = DistPlan(wire=args.dist_wire, schedule=args.dist_schedule) \
         if args.dist_wire != "off" else None
     world = int(os.environ.get("WORLD_SIZE", 1))
-    if world % args.ep:
-        raise ValueError(f"--ep {args.ep} does not divide the world {world}")
+    if world % args.tp:
+        raise ValueError(f"--tp {args.tp} does not divide the world {world}")
     mesh = store_dir = None
-    if world > 1 or args.ep > 1 or dist is not None:
+    if world > 1 or args.tp > 1 or dist is not None:
         store = None
         if "RANK" not in os.environ:
             store_dir = tempfile.mkdtemp(prefix="repro_torch_store_")
             store = os.path.join(store_dir, "store")
-        mesh = init_mesh(world // args.ep, args.ep, device=args.device,
+        mesh = init_mesh(world // args.tp, args.tp, device=args.device,
                          store=store)
     try:
         return _run(args, dist, mesh)
@@ -188,9 +217,17 @@ def _run(args, dist, mesh):
     print(f"[train] {args.arch} ({cfg.n_params() / 1e9:.2f}B params) "
           f"recipe={recipe.name} remat={cfg.remat_policy} "
           f"device={dev} mesh={None if mesh is None else mesh.shape}")
-    plan = ParallelPlan(mesh=mesh)
+    if mesh is not None and not args.reduced:
+        plan = make_plan(cfg, mesh, moe_tp_combine=args.moe_tp_combine,
+                         mlp_tp=args.mlp_tp)
+    else:
+        plan = ParallelPlan(mesh=mesh, moe_tp_combine=args.moe_tp_combine,
+                            mlp_tp=args.mlp_tp)
+    print(f"[train] plan: moe_mode={plan.moe_mode} fsdp_axis="
+          f"{plan.fsdp_axis} mlp_tp={plan.mlp_tp} combine="
+          f"{plan.moe_tp_combine}")
     state = init_train_state(cfg, opt, seed=0, device=dev, guard=guard,
-                             dist=dist, mesh=mesh)
+                             dist=dist, mesh=mesh, plan=plan)
     if dist is not None:
         layout = build_layout(state["params"], dist)
         n_dp = mesh.shape[dist.axis]
@@ -205,6 +242,15 @@ def _run(args, dist, mesh):
                    n_sensitive=len(layout.sensitive),
                    n_leaves=layout.n_leaves, fp8_elems=layout.fp8_elems,
                    wire_rows=layout.wire_rows, grad_bytes_per_step=gbytes)
+        if dist.schedule == "stream":
+            # the reference's visible fallback: the layered layout stays,
+            # so the ZeRO-1 state is the same either way
+            reason = streaming_fallback_reason(cfg, layout,
+                                               grad_accum=args.grad_accum)
+            if reason:
+                print(f"[train] WARNING: streaming wire unavailable "
+                      f"({reason}); falling back to the post-hoc schedule")
+                dist = dataclasses.replace(dist, schedule="posthoc")
     warmup = max(args.steps // 10, 1)
     step = make_train_step(cfg, recipe, opt, grad_accum=args.grad_accum,
                            total_steps=args.steps, warmup_steps=warmup,

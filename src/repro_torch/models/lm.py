@@ -45,10 +45,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linear import _bf16_matmul, _gelu_f32, dense_mlp
 from repro_torch.core.moe import (MoEConfig, moe_block, moe_block_decode,
                                   moe_block_decode_overlapped,
-                                  moe_block_overlapped)
+                                  moe_block_overlapped, moe_block_tp)
 from repro_torch.core.quant import QTensor, tag_saveable
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import CHUNK_ELEMS, resolve_device
+from repro_torch.dist import tp
 from repro_torch.models.layers import (apply_norm, attn_block,
                                        decode_attention, flash_attention,
                                        project_qkv, rmsnorm)
@@ -96,53 +97,176 @@ def _n_dense(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 # The parallel plan (the reference's ParallelPlan, lm.py:36-72).
 # ---------------------------------------------------------------------------
-_NEXT_SLICE = ("multi-GPU training part 2 (ROADMAP.md, Queue 1, item 7: TP "
-               "experts, FSDP and the staged layer program)")
+_PART3 = ("multi-GPU part 3 (ROADMAP.md, Queue 1, item 7: serving across "
+          "ranks, with TP decode)")
+TP_COMBINES = ("psum_first", "local_first", "reduce_scatter")
+
+
+def layer_weight_shape(cfg, name: str):
+    """The full per-layer shape of an expert, dense-MLP or shared-expert
+    weight (None for any other leaf name, or a weight the config lacks)."""
+    D, g = cfg.d_model, cfg.gate_factor
+    E, Fe = cfg.n_experts, cfg.d_ff_expert
+    Fs = cfg.n_shared_experts * Fe
+    shapes = {"w13": (D, g, cfg.d_ff), "w2": (cfg.d_ff, D)}
+    if cfg.moe:
+        shapes.update(we13=(E, D, g, Fe), we2=(E, Fe, D))
+        if Fs:
+            shapes.update(ws13=(D, g, Fs), ws2=(Fs, D))
+    shape = shapes.get(name)
+    return shape if shape is not None and all(shape) else None
+
+
+def mlp_tp_ok(F: int, tp: int) -> bool:
+    """F can TP-shard over `tp` only if the shard stays 128-tile aligned
+    (the FP8 transpose and quantize blocks), the reference's rule."""
+    return F % tp == 0 and (F // tp) % 128 == 0
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """How a run maps onto the mesh (``launch/mesh.Mesh``; None = one
-    process, every collective the identity).
+    process, every collective the identity).  The reference's levers
+    (``repro/models/lm.py:36-72``); ``launch/sharding.make_plan`` picks
+    them as the reference's launcher does.
 
-    dp_axes      axes sharding the batch: ('data',), the mesh's one data
-                 axis (the port's Megatron layout splits the global batch
-                 over every rank, the reference's ``token_axes_moe``:
-                 launch/sharding.py); any other value raises
-    tp_axis      the expert-parallel axis: 'model'; any other raises
-    moe_mode     'ep' (experts sharded over tp_axis); 'tp' raises
-    moe_overlap  a ``core.moe.DispatchPlan``: the chunked MoE blocks
-    fsdp_axis, mlp_tp, stage_layers: the reference's other levers; they
-                 raise until the next slice ports them."""
+    dp_axes         axes sharding the batch: ('data',), the mesh's one data
+                    axis (the port's Megatron layout splits the global batch
+                    over every rank, the reference's ``token_axes_moe``:
+                    launch/sharding.py); any other value raises
+    tp_axis         the model axis: 'model'; any other raises
+    moe_mode        'ep': experts sharded on E over tp_axis (the all-to-all
+                    blocks); 'tp': every rank holds every expert with its
+                    d_ff sliced over tp_axis (``core.moe.moe_block_tp``,
+                    for E < tp), the tokens of the model group gathered
+    moe_tp_combine  the TP block's combine: 'psum_first' | 'local_first' |
+                    'reduce_scatter' (``moe_block_tp``)
+    moe_overlap     a ``core.moe.DispatchPlan``: the chunked EP blocks (TP
+                    mode runs ``moe_block_tp`` whatever it says, as in the
+                    reference)
+    fsdp_axis       'data': the expert, dense-MLP and shared-expert weights
+                    are stored cut on their d_model axis over the data
+                    group and all-gathered inside their stage
+                    (``dist/tp.fsdp_gather``); None keeps them whole
+    mlp_tp          the dense MLPs and shared experts F-sliced over
+                    tp_axis where ``mlp_tp_ok(F, tp)`` (the tokens
+                    gathered, the output all-reduced), else DP mode
+    stage_layers    the reference's switch from its scanned stack to its
+                    unrolled staged program (``_run_stack_unrolled``).  The
+                    port's stack loop (``_run_blocks``) is that staged
+                    program always, so True and False run the same code
+                    and give the same bits."""
     mesh: object = None
     dp_axes: tuple = ("data",)
     tp_axis: str = "model"
     moe_mode: str = "ep"
+    moe_tp_combine: str = "local_first"
     moe_overlap: Optional[object] = None
     fsdp_axis: Optional[str] = None
     mlp_tp: bool = False
     stage_layers: bool = False
 
     def __post_init__(self):
-        for what, on in (("moe_mode='tp'", self.moe_mode == "tp"),
-                         ("fsdp_axis", self.fsdp_axis is not None),
-                         ("mlp_tp", self.mlp_tp),
-                         ("stage_layers", self.stage_layers)):
-            if on:
-                raise NotImplementedError(
-                    f"ParallelPlan {what} is not ported yet: {_NEXT_SLICE}")
-        if self.moe_mode != "ep":
+        if self.moe_mode not in ("ep", "tp"):
             raise ValueError(f"unknown moe_mode {self.moe_mode!r}")
+        if self.moe_tp_combine not in TP_COMBINES:
+            raise ValueError(f"unknown moe_tp_combine "
+                             f"{self.moe_tp_combine!r}; pick from "
+                             f"{TP_COMBINES}")
+        if self.fsdp_axis not in (None, "data"):
+            raise ValueError(f"fsdp_axis {self.fsdp_axis!r}: the mesh's "
+                             "FSDP axis is 'data' (or None)")
         if tuple(self.dp_axes) != ("data",) or self.tp_axis != "model":
             raise ValueError(
                 f"the mesh has one data axis and one model axis "
                 f"(launch/mesh.py): dp_axes=('data',), tp_axis='model'; got "
                 f"{self.dp_axes!r}, {self.tp_axis!r}")
 
+    def _group(self, axis):
+        return None if self.mesh is None else self.mesh.group(axis)
+
     @property
-    def ep_group(self):
-        """The expert-parallel group (None: no mesh, or no groups)."""
-        return None if self.mesh is None else self.mesh.group(self.tp_axis)
+    def model_group(self):
+        """The model axis's group: the EP blocks' all-to-alls and the TP
+        stages' collectives run over it (None: no mesh, or no groups)."""
+        return self._group(self.tp_axis)
+
+    @property
+    def fsdp_group(self):
+        """The group FSDP weights are cut over (None: no FSDP)."""
+        return None if self.fsdp_axis is None else \
+            self._group(self.fsdp_axis)
+
+    def _size(self, axis) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[axis]
+
+    def mlp_tp_on(self, F: int) -> bool:
+        """A dense MLP or shared expert of hidden F runs in TP mode."""
+        return self.mlp_tp and mlp_tp_ok(F, self._size(self.tp_axis))
+
+    def leaf_cuts(self, cfg, path: str) -> tuple:
+        """The (axis, mesh axis) cuts of a params leaf at its dotted path,
+        on its stacked axes: the stacked main and dense-prologue stacks'
+        weights by ``weight_cuts``; every other leaf is whole."""
+        parts = path.split(".")
+        if len(parts) != 2 or parts[0] not in ("layers", "dense_layers"):
+            return ()
+        shape = layer_weight_shape(cfg, parts[1])
+        if shape is None:
+            return ()
+        return tuple((ax + 1, m) for ax, m in self.weight_cuts(parts[1],
+                                                                shape))
+
+    def shards_weights(self, cfg) -> bool:
+        """Whether any leaf is cut (the train step's global norm then sums
+        each cut leaf's squares over its groups)."""
+        names = ("we13", "we2") if cfg.moe else ()
+        names += ("w13", "w2", "ws13", "ws2")
+        return any(self.weight_cuts(n, layer_weight_shape(cfg, n))
+                   for n in names if layer_weight_shape(cfg, n) is not None)
+
+    def weight_cuts(self, name: str, shape) -> tuple:
+        """The (axis, mesh axis) cuts of one layer's weight `name` of the
+        full (world-1) per-layer `shape` (the stacked leaf's axes less its
+        layer axis), in the reference's ``param_specs`` and stages
+        (``repro/launch/sharding.py:88-96``, ``lm.py:236-241``,
+        ``:346-358``): the experts on E over model (EP, at EP > 1) or on
+        F over model (TP), the TP MLP on F over model, and with FSDP each
+        on its d_model axis over data.  A cut applies only where it
+        divides and leaves the last axis a multiple of 128 (the state
+        encodings' rows then regroup exactly, launch/sharding.py); the
+        reference cuts wherever it divides, a divergence held in
+        ROADMAP.md, Queue 3."""
+        tp, dp = self._size(self.tp_axis), self._size("data")
+        cuts = []
+        if name in ("we13", "we2"):
+            if self.moe_mode == "ep" and tp > 1:
+                cuts.append((0, "model"))
+            elif self.moe_mode == "tp":
+                f_ax = 3 if name == "we13" else 1
+                if shape[f_ax] % tp:
+                    raise ValueError(f"{name} {tuple(shape)}: d_ff "
+                                     f"{shape[f_ax]} does not split over "
+                                     f"TP = {tp}")
+                cuts.append((f_ax, "model"))
+            d_ax = 1 if name == "we13" else 2
+        elif name in ("w13", "ws13", "w2", "ws2"):
+            gated = name in ("w13", "ws13")
+            F = shape[-1] if gated else shape[0]
+            if self.mlp_tp_on(F):
+                cuts.append((len(shape) - 1 if gated else 0, "model"))
+            d_ax = 0 if gated else 1
+        else:
+            return ()
+        if self.fsdp_axis == "data":
+            local = list(shape)
+            for ax, _ in cuts:
+                local[ax] //= tp
+            if shape[d_ax] % dp == 0:
+                local[d_ax] //= dp
+                if local[-1] % 128 == 0 and shape[-1] % 128 == 0:
+                    cuts.append((d_ax, "data"))
+        return tuple(cuts)
 
 
 NO_PLAN = ParallelPlan()
@@ -300,15 +424,45 @@ def _lm_logits(cfg, params, x):
     return logits
 
 
-def _mlp_stage(cfg, recipe: Recipe, p, x):
+def _fsdp_weight(plan, name, w, full_shape):
+    """A weight of one layer as its stage uses it: gathered over the data
+    group on its FSDP cut (``dist/tp.fsdp_gather``), as it is."""
+    for ax, mesh_ax in plan.weight_cuts(name, full_shape):
+        if mesh_ax == "data":
+            return tp.fsdp_gather(w, plan.fsdp_group, ax)
+    return w
+
+
+def _mlp_stage(cfg, recipe: Recipe, p, x, plan=None, d_ff=None):
     """Dense MLP (a dense layer's, or the shared experts' with p = {w13:
-    ws13, w2: ws2}) on x (B, S, D): ``dense_mlp``, the reference's
-    no-mesh branch (its mesh branch computes the same at one device)."""
+    ws13, w2: ws2} and d_ff their hidden) on x (B, S, D): ``dense_mlp``,
+    the reference's ``_mlp_stage``.  Without a plan (or on a plan with
+    neither lever) the weights are whole: its no-mesh branch, whose DP
+    mode computes the same at one device.  With ``plan.fsdp_axis`` the
+    weights are gathered over the data group first.  In TP mode
+    (``plan.mlp_tp_on(d_ff)``) w13 is F-sliced and w2 row-sliced over the
+    model group: the group's tokens are gathered, each rank runs its
+    slice, the input gradient's partial sum is all-reduced inside the
+    backward (``gx_groups``) and the output is all-reduced after GEMM-2,
+    each rank keeping its rows (``dist/tp.py``).  T and D pad to 128 as in
+    the reference's ``_dense_mlp_sharded`` (``dense_mlp`` pads)."""
+    plan = NO_PLAN if plan is None else plan
     B, S, D = x.shape
-    w13 = p["w13"]
-    g, F = w13.shape[-2:]
-    y = dense_mlp(recipe, cfg.act, x.reshape(B * S, D),
-                  w13.reshape(D, g * F), p["w2"])
+    w13, w2 = p["w13"], p["w2"]
+    g = w13.shape[-2]
+    F = cfg.d_ff if d_ff is None else d_ff
+    w13 = _fsdp_weight(plan, "w13", w13, (D, g, F))
+    w2 = _fsdp_weight(plan, "w2", w2, (F, D))
+    Fl = w13.shape[-1]
+    if not plan.mlp_tp_on(F):
+        y = dense_mlp(recipe, cfg.act, x.reshape(B * S, D),
+                      w13.reshape(D, g * Fl), w2)
+        return y.reshape(B, S, D)
+    group = plan.model_group
+    xf = tp.gather_rows(x.reshape(B * S, D), group)
+    y = dense_mlp(recipe, cfg.act, xf, w13.reshape(D, g * Fl), w2,
+                  gx_groups=(group,))
+    y = tp.own_rows(tp.all_reduce_sum(y, group), group)
     return y.reshape(B, S, D)
 
 
@@ -340,23 +494,49 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, plan=None):
     ``moe_block_overlapped`` at ``chunks_for(T)`` chunks, with the shared
     experts issued before the routed block, and decode
     ``moe_block_decode_overlapped`` at ``decode_chunks_for(T)``.  None
-    keeps the monolithic blocks."""
+    keeps the monolithic blocks.
+
+    ``plan.moe_mode == 'tp'`` (the reference's ``lm.py:316-488``): the
+    model group's tokens are gathered (``dist/tp.gather_rows``), every
+    rank runs ``moe_block_tp`` on its F-slice of every expert, and keeps
+    its rows of the combined output (the ``reduce_scatter`` combine gives
+    them directly, the other two all-reduce then slice); the aux loss is
+    the same on every rank of the group, and its cotangent is summed over
+    the group (``dist/tp.sum_grad``), since every rank's loss reads it.
+    Decode in TP mode raises (serving across ranks is multi-GPU part 3).
+    With ``plan.fsdp_axis`` the expert weights are gathered over the data
+    group first; W8 serving weights never are."""
     B, S, D = x.shape
     plan = NO_PLAN if plan is None else plan
     moe_overlap = plan.moe_overlap
+    if plan.moe_mode == "tp" and decode:
+        raise NotImplementedError(f"decode with moe_mode='tp': {_PART3}")
     mcfg = MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k, d_model=D,
                      d_ff=cfg.d_ff_expert, capacity_factor=cfg.capacity_factor,
-                     act=cfg.act, ep_group=plan.ep_group)
+                     act=cfg.act, ep_group=plan.model_group)
     we13, we2 = p["we13"], p["we2"]
     if isinstance(we13, QTensor):
         we13 = w8_merge_gate(we13)
     else:
-        E, Dl, g, F = we13.shape
-        we13 = we13.reshape(E, Dl, g * F)
+        E, g, Fe = cfg.n_experts, cfg.gate_factor, cfg.d_ff_expert
+        we13 = _fsdp_weight(plan, "we13", we13, (E, D, g, Fe))
+        we2 = _fsdp_weight(plan, "we2", we2, (E, Fe, D))
+        El, Dl, gl, Fl = we13.shape
+        we13 = we13.reshape(El, Dl, gl * Fl)
     xf = x.reshape(B * S, D)
     shared = {"w13": p.get("ws13"), "w2": p.get("ws2")}
+    Fs = cfg.n_shared_experts * cfg.d_ff_expert
     shared_out = None
-    if moe_overlap is None:
+    if plan.moe_mode == "tp":
+        group = plan.model_group
+        combine = plan.moe_tp_combine
+        y, m = moe_block_tp(recipe, mcfg, tp.gather_rows(xf, group),
+                            p["w_router"], we13, we2, tp_group=group,
+                            combine_mode=combine)
+        if combine != "reduce_scatter":
+            y = tp.own_rows(y, group)
+        m = dict(m, aux_loss=tp.sum_grad(m["aux_loss"], group))
+    elif moe_overlap is None:
         block = moe_block_decode if decode else moe_block
         y, m = block(recipe, mcfg, xf, p["w_router"], we13, we2)
     elif decode:
@@ -367,7 +547,7 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, plan=None):
         # the shared experts depend on x only: issued before the routed
         # block, as the reference does under its overlap plan
         if cfg.n_shared_experts:
-            shared_out = _mlp_stage(cfg, recipe, shared, x)
+            shared_out = _mlp_stage(cfg, recipe, shared, x, plan, Fs)
         y, m = moe_block_overlapped(
             recipe, mcfg, xf, p["w_router"], we13, we2,
             n_chunks=moe_overlap.chunks_for(B * S))
@@ -375,7 +555,7 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, plan=None):
     if cfg.n_shared_experts:
         if shared_out is None:
             shared_out = (_mlp_decode(cfg, shared, x) if decode
-                          else _mlp_stage(cfg, recipe, shared, x))
+                          else _mlp_stage(cfg, recipe, shared, x, plan, Fs))
         y = y + shared_out
     return y, m["aux_loss"]
 
@@ -433,44 +613,71 @@ def _sub_layer(cfg, recipe, kind, moe_layer, p, x, positions, causal=True,
         mo, aux = _moe_stage(cfg, recipe, p, h2, plan=plan)
         return x + mo, aux
     with stage_annotation("expert"):
-        mo = _mlp_stage(cfg, recipe, p, h2)
+        mo = _mlp_stage(cfg, recipe, p, h2, plan)
     return x + mo, None
+
+
+def run_block(cfg, fns, x):
+    """One checkpoint block of the config's MemoryPlan (train/memory.py)
+    over the layer functions `fns` (fn(x) -> (x, aux or None)): returns
+    (x, the block's auxes).  The block loop of ``_run_blocks`` and the
+    streamed train step's, which keeps each block's input and outputs."""
+    def block(xc):
+        auxes = []
+        for fn in fns:
+            xc, a = fn(xc)
+            auxes.append(a)
+        return xc, tuple(auxes)
+    return MemoryPlan.from_config(cfg).wrap(block)(x)
+
+
+def add_auxes(aux, auxes):
+    """aux plus a block's aux losses, in layer order (so every policy and
+    driver adds them alike)."""
+    for a in auxes:
+        if a is not None:
+            aux = aux + a
+    return aux
 
 
 def _run_blocks(cfg, layer_fns, x):
     """Run the layers in the checkpoint blocks of the config's MemoryPlan
-    (train/memory.py: one layer a block, two under 'pair'; 'none' wraps
-    nothing), the reference's unrolled driver.  layer_fns[i](x) -> (x,
-    aux or None).  Returns (x, the auxes summed in layer order, so every
-    policy adds them alike)."""
-    plan = MemoryPlan.from_config(cfg)
+    (one layer a block, two under 'pair'; 'none' wraps nothing), the
+    reference's unrolled driver.  layer_fns[i](x) -> (x, aux or None).
+    Returns (x, the auxes summed in layer order)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for fns in plan.blocks_of(layer_fns):
-        def block(xc, _fns=fns):
-            auxes = []
-            for fn in _fns:
-                xc, a = fn(xc)
-                auxes.append(a)
-            return xc, tuple(auxes)
-        x, auxes = plan.wrap(block)(x)
-        for a in auxes:
-            if a is not None:
-                aux = aux + a
+    for fns in MemoryPlan.from_config(cfg).blocks_of(layer_fns):
+        x, auxes = run_block(cfg, fns, x)
+        aux = add_auxes(aux, auxes)
     return x, aux
+
+
+def stack_layer_fns(cfg, recipe, layers, pattern, moe, positions,
+                    causal=True, plan=None):
+    """One function a layer of a stack whose layers' params are `layers`
+    (one dict a layer, in order): ``_sub_layer`` of its kind."""
+    pattern = _pattern_or_fallback(pattern, len(layers))
+    return [functools.partial(_sub_layer, cfg, recipe,
+                              pattern[i % len(pattern)], moe, p,
+                              positions=positions, causal=causal, plan=plan)
+            for i, p in enumerate(layers)]
+
+
+def decoder_stacks(cfg):
+    """(stack, pattern, n_layers, moe) of the decoder's stacked layers in
+    forward order: the dense prologue (if any), then the main stack."""
+    nd = _n_dense(cfg)
+    prologue = [("dense_layers", (cfg.pattern[0],), nd, False)] if nd else []
+    return prologue + [("layers", cfg.pattern, cfg.n_layers - nd, cfg.moe)]
 
 
 def _run_stack(cfg, recipe, stack_params, pattern, n_layers, moe, x,
                positions, causal=True, plan=None):
     """The reference's stack as a loop over layer slices in checkpoint
     blocks; returns (x, the summed aux losses)."""
-    pattern = _pattern_or_fallback(pattern, n_layers)
-    fns = [functools.partial(_sub_layer, cfg, recipe,
-                             pattern[i % len(pattern)], moe, p,
-                             positions=positions, causal=causal,
-                             plan=plan)
-           for i, p in enumerate(_train_layer_slices(stack_params,
-                                                     n_layers))]
-    return _run_blocks(cfg, fns, x)
+    return _run_blocks(cfg, stack_layer_fns(
+        cfg, recipe, _train_layer_slices(stack_params, n_layers), pattern,
+        moe, positions, causal, plan), x)
 
 
 def first_layer(cfg, params):
@@ -589,9 +796,7 @@ def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
     (``_moe_stage``).  On a mesh the batch is this rank's share and the
     loss is its mean (the train step averages the ranks')."""
     plan = NO_PLAN if plan is None else plan
-    nd = _n_dense(cfg)
-    tokens = batch["tokens"]
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, batch["tokens"])
     prefix = batch.get("prefix") if cfg.frontend != "none" else None
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
@@ -606,32 +811,42 @@ def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
         enc, a = _run_encoder(cfg, recipe, params,
                               batch["enc_input"].to(x.dtype))
         aux = aux + a
-    if nd:
-        x, a = _run_stack(cfg, recipe, params["dense_layers"],
-                          (cfg.pattern[0],), nd, False, x, positions)
+    stacks = decoder_stacks(cfg)
+    for stack, pattern, n, moe in stacks[:-1] if cfg.encdec else stacks:
+        x, a = _run_stack(cfg, recipe, params[stack], pattern, n, moe, x,
+                          positions, plan=plan)
         aux = aux + a
     if cfg.encdec:
         x, a = _run_encdec_decoder(cfg, recipe, params, x, positions, enc,
                                    plan)
-    else:
-        x, a = _run_stack(cfg, recipe, params["layers"], cfg.pattern,
-                          cfg.n_layers - nd, cfg.moe, x, positions,
-                          plan=plan)
-    aux = aux + a
-    x = _final_norm(cfg, params, x)
-    if prefix is not None:
-        x = x[:, prefix.shape[1]:]
-    logits = _lm_logits(cfg, params, x)
+        aux = aux + a
+    logits = head_logits(cfg, params, x,
+                         0 if prefix is None else prefix.shape[1])
     metrics = {"aux_loss": aux}
     if not compute_loss:
         return logits, metrics
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(tokens.shape, dtype=torch.float32,
-                          device=x.device)
-    loss = xent(logits, batch["targets"], mask) + AUX_LOSS_COEF * aux
+    loss = batch_xent(logits, batch) + AUX_LOSS_COEF * aux
     metrics["loss"] = loss
     return loss, metrics
+
+
+def head_logits(cfg, params, x, n_prefix: int = 0):
+    """The forward's tail up to the logits: the final norm, the frontend's
+    `n_prefix` rows cut off, the LM head."""
+    x = _final_norm(cfg, params, x)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    return _lm_logits(cfg, params, x)
+
+
+def batch_xent(logits, batch):
+    """The token cross-entropy of the batch's targets, under its mask (all
+    ones when it has none)."""
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(batch["tokens"].shape, dtype=torch.float32,
+                          device=logits.device)
+    return xent(logits, batch["targets"], mask)
 
 
 # ---------------------------------------------------------------------------

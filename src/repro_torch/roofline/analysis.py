@@ -31,13 +31,16 @@ executes while it runs, inside ``tally()``:
 
 The collective term counts what the collective wrappers of
 ``dist/comm.py`` hand to ``torch.distributed`` (the dispatch and combine
-messages of the MoE blocks, the DP wire's bucket messages and amax
-agreement, the ZeRO-1 gather, the plain step's gradient all-reduce): each
-call records its kind and buffer bytes in the open tally.  ``coll_bytes``
+messages of the EP blocks, the TP stages' token gathers, combine
+all-reduces or reduce-scatters and input-gradient all-reduces, the FSDP
+weight gathers and their gradients' reduce-scatters, the DP wire's bucket
+messages and amax agreement, the ZeRO-1 gather, the plain step's
+gradient all-reduce): each call records its kind and buffer bytes in the
+open tally.  ``coll_bytes``
 is what one rank of a modelled world of ``n_chips`` ranks puts on the
 interconnect for those buffers, the ring factors of
-``dist/comm.wire_factor`` (all-to-all and all-gather (n-1)/n, all-reduce
-2(n-1)/n), the model ``dist/grad_comm.wire_grad_bytes`` uses; on one card
+``dist/comm.wire_factor`` (all-to-all, all-gather and reduce-scatter
+(n-1)/n, all-reduce 2(n-1)/n), the model ``dist/grad_comm.wire_grad_bytes`` uses; on one card
 (n_chips = 1) that is 0 whatever the buffers, which
 ``Tally.coll_buffer_bytes`` still reports.  ``collective_bytes(hlo_text)``
 is not ported: its input is HLO text.

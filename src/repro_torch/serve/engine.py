@@ -115,9 +115,10 @@ class ServeEngine:
     `plan` (``models.lm.ParallelPlan``): its ``moe_overlap`` (a
     ``core.moe.DispatchPlan``) runs the MoE layers of the prefill and
     decode steps through the chunked blocks (None keeps the monolithic
-    ones), and its mesh runs them over the expert-parallel group (the prefill's all-to-alls, the
-    decode combine's all-reduce); serving across ranks (each rank its
-    experts) comes with multi-GPU training part 2 (ROADMAP.md).
+    ones), and its mesh runs them over the expert-parallel group (the
+    prefill's all-to-alls, the decode combine's all-reduce).  Serving
+    across ranks (each rank its experts) and TP experts
+    (``moe_mode='tp'``) come with multi-GPU part 3 (ROADMAP.md).
     """
 
     def __init__(self, cfg: ArchConfig, recipe: Recipe, params,
@@ -129,8 +130,12 @@ class ServeEngine:
         self.plan = NO_PLAN if plan is None else plan
         if self.plan.mesh is not None and self.plan.mesh.world > 1:
             raise NotImplementedError(
-                "serving across ranks comes with multi-GPU training part 2 "
+                "serving across ranks comes with multi-GPU part 3 "
                 "(ROADMAP.md, Queue 1, item 7); a mesh of one rank runs")
+        if self.plan.moe_mode == "tp":
+            raise NotImplementedError(
+                "serving with moe_mode='tp' (TP decode) comes with "
+                "multi-GPU part 3 (ROADMAP.md, Queue 1, item 7)")
         self.tel = telemetry if telemetry is not None else null_telemetry()
         if ecfg.role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"unknown role {ecfg.role!r}")

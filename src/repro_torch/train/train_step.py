@@ -94,6 +94,10 @@ def make_train_step(cfg: ArchConfig, recipe: Recipe, opt: adamw.AdamWConfig,
                                      warmup_steps=warmup_steps, guard=guard)
     mesh = plan.mesh
     on_mesh = mesh is not None and mesh.has_groups
+    # a cut leaf's squares are summed over its groups (identities on a
+    # group-less mesh, so with and without groups the norm adds alike)
+    mesh_norm = mesh is not None and (mesh.ep > 1
+                                      or plan.shards_weights(cfg))
 
     def train_step(state, batch):
         params = state["params"]
@@ -104,13 +108,13 @@ def make_train_step(cfg: ArchConfig, recipe: Recipe, opt: adamw.AdamWConfig,
                                                 grad_accum, guard is not None,
                                                 plan)
         if on_mesh:
-            grads = reduce_grads(grads, mesh)
+            grads = reduce_grads(grads, mesh, cfg, plan)
             loss, metrics = _mean_metrics(loss, metrics, mesh.world_group,
                                           mesh.world)
         lr_scale = schedules.warmup_cosine(
             state["opt"]["step"], total_steps=total_steps,
             warmup_steps=warmup_steps)
-        gnorm = mesh_global_norm(grads, mesh) if on_mesh and mesh.ep > 1 \
+        gnorm = mesh_global_norm(grads, mesh, cfg, plan) if mesh_norm \
             else adamw.global_norm(grads)
         flags = None
         if guard is not None:
@@ -136,15 +140,19 @@ def make_train_step(cfg: ArchConfig, recipe: Recipe, opt: adamw.AdamWConfig,
     train_step.guard = guard
     if on_mesh:
         from repro_torch.launch.sharding import MeshShardings
-        train_step.shardings = MeshShardings(mesh)
+        train_step.shardings = MeshShardings(mesh, cfg, plan)
     return train_step
 
 
 @torch.no_grad()
-def reduce_grads(grads, mesh):
+def reduce_grads(grads, mesh, cfg, plan=None):
     """Every leaf's gradient summed in f32 over its group
-    (``launch.sharding.grad_group``) and divided by the world size; a leaf
-    at a time, each bf16 gradient freed as its f32 mean is made."""
+    (``launch.sharding.grad_group``: what the stages' collectives left to
+    sum; `plan` defaults to the EP plan of `mesh`) and divided by the
+    world size; a leaf at a time, each bf16 gradient freed as its f32
+    mean is made.  The means stay f32, as the f32 DP wire's do (the two
+    steps agree bit for bit), so a leaf's mean is one f32 allocation
+    (12 GiB for grok1_314b's we13)."""
     from repro_torch.launch.sharding import grad_group
 
     def walk(tree, path=""):
@@ -158,26 +166,26 @@ def reduce_grads(grads, mesh):
             g32 = g.to(torch.float32, copy=True)
             tree[k] = None
             del g
-            comm.all_reduce_(g32, grad_group(p, mesh))
+            comm.all_reduce_(g32, grad_group(p, mesh, cfg, plan))
             out[k] = g32.div_(mesh.world)
         return out
     return walk(grads)
 
 
 @torch.no_grad()
-def mesh_global_norm(grads, mesh) -> torch.Tensor:
-    """The global norm at EP > 1: a rank holds only its experts'
-    gradients, so each expert leaf's sum of squares is summed over the
-    model axis first; the replicated leaves' are the same on every rank.
-    The leaves add in ``adamw.global_norm``'s order."""
+def mesh_global_norm(grads, mesh, cfg, plan=None) -> torch.Tensor:
+    """The global norm when leaves are cut (EP > 1, TP, FSDP): a rank
+    holds only its block of a cut leaf's gradient, so that leaf's sum of
+    squares is summed over its cuts' groups first
+    (``launch.sharding.norm_groups``); the whole leaves' are the same on
+    every rank.  The leaves add in ``adamw.global_norm``'s order."""
     from repro_torch.dist.plan import flatten_with_paths
-    from repro_torch.launch.sharding import is_expert_leaf
+    from repro_torch.launch.sharding import norm_groups
     total = None
     for p, g in flatten_with_paths(grads, sort=False):
         part = _sq_sum(g)
-        if is_expert_leaf(p):
-            part = comm.all_reduce_(part.reshape(1).clone(),
-                                    mesh.model_group)[0]
+        for group in norm_groups(p, mesh, cfg, plan):
+            part = comm.all_reduce_(part.reshape(1).clone(), group)[0]
         total = part if total is None else total + part
     return torch.sqrt(total)
 
@@ -309,6 +317,260 @@ def _dist_global_norm(params, layout, owned, sens_g, n_dp: int, rank: int,
     return torch.sqrt(total)
 
 
+# ---------------------------------------------------------------------------
+# The streaming schedule (the reference's _streamed_grads, train_step.py:
+# 127-336): the staged forward keeps each block's input and outputs, the
+# backward walks the blocks in reverse, and each layer's buckets go on the
+# wire as soon as its gradients exist.
+# ---------------------------------------------------------------------------
+def _streamed_grads(cfg, recipe, lplan, params, batch, layout, group,
+                    n_dp: int, wire: str, grad_accum: int = 1, guard=None):
+    """Returns (loss, metrics, owned, sens_done, sens_raw, wire_bad):
+    `owned` aligns with layout.buckets (the layered layout) and holds each
+    bucket's reduced f32 shard; `sens_done` maps a stack-tagged sensitive
+    leaf's path to its reduced, restacked f32 gradient (each layer's
+    slice sent with that layer's buckets); `sens_raw` maps the other
+    sensitive leaves' (embedding, final norm, head) flatten indices to
+    their local gradients, which the caller reduces post hoc.
+
+    Each block's layer parameters are fresh leaves (a layer slice of the
+    stacked leaf, detached), so a block's backward writes that layer's
+    gradients alone (no full-size stacked gradient a block).  Each block
+    runs under the config's MemoryPlan (``pair``: two-layer blocks), its
+    input and outputs kept; the backward is ``torch.autograd.backward`` on
+    the block's outputs (the residual's cotangent and AUX_LOSS_COEF for
+    each aux loss).  The wire: the moment a layer's gradients exist, its
+    buckets are flattened, quantized and put on an ``async_op``
+    all-to-all (``grad_comm.issue_reduce_scatter``, range
+    ``wire/bucket{i}_{stack}_l{l}``) and its stack-tagged sensitive slices
+    all-reduced (``wire/sensitive_{stack}_l{l}``); the received shards
+    are read after the backward, where the guard's verdicts are taken
+    together (one host read).  grad_accum > 1: every microbatch's flats
+    and slices add up locally (f32) and are sent once, from the last
+    microbatch's backward, divided by grad_accum as the post-hoc sums
+    are; the post-hoc step gives the same bits."""
+    from repro_torch.dist import grad_comm
+    from repro_torch.dist.plan import bucket_flat_parts, flatten_with_paths
+    from repro_torch.models import lm
+    from repro_torch.obs.trace import annotate
+    from repro_torch.train.memory import MemoryPlan
+
+    mem = MemoryPlan.from_config(cfg)
+    flat_params = flatten_with_paths(params)
+    index = {p: i for i, (p, _) in enumerate(flat_params)}
+    layer_buckets = {}
+    for bi, b in enumerate(layout.buckets):
+        layer_buckets.setdefault((b.stack, b.layer), []).append((bi, b))
+    sens_stacked = {s.index: s for s in layout.sensitive
+                    if s.stack is not None}
+    armed = quant.stats_armed()
+    dev = flat_params[0][1].device
+
+    inflight = [None] * len(layout.buckets)
+    flat_acc = [None] * len(layout.buckets)
+    sens_acc = {}                    # (index, layer) -> local f32 sum
+    sens_parts = {}                  # index -> {layer: reduced slice}
+    sens_raw = {}
+    wire_sv = []
+    losses, ms = [], []
+    ends = ["embed", "final_norm_s", "final_norm_b", "lm_head"]
+    ends = [n for n in ends if n in params]
+
+    for m in range(grad_accum):
+        mb = batch if grad_accum == 1 else {k: v[m]
+                                            for k, v in batch.items()}
+        emit = m == grad_accum - 1
+        for n in ends:
+            params[n].grad = None
+        x0 = lm._embed_tokens(cfg, params, mb["tokens"])
+        positions = torch.arange(x0.shape[1], device=x0.device)
+        x = x0.detach().requires_grad_()
+        recs = []
+        aux = torch.zeros((), dtype=torch.float32, device=x0.device)
+        for stack, pattern, n, moe in lm.decoder_stacks(cfg):
+            # fresh leaves a layer: a block's backward writes its own
+            leaves = [{name: leaf[li].detach().requires_grad_()
+                       for name, leaf in params[stack].items()}
+                      for li in range(n)]
+            fns = lm.stack_layer_fns(cfg, recipe, leaves, pattern, moe,
+                                     positions, plan=lplan)
+            stack_aux = torch.zeros((), dtype=torch.float32,
+                                    device=x0.device)
+            for layers in mem.layer_blocks(n):
+                x_in = x
+                x_out, auxes = lm.run_block(cfg, [fns[i] for i in layers],
+                                            x_in)
+                stack_aux = lm.add_auxes(stack_aux, auxes)
+                recs.append((stack, layers, [leaves[i] for i in layers],
+                             x_in, x_out, auxes))
+                x = x_out.detach().requires_grad_()
+            aux = aux + stack_aux
+        xent = lm.batch_xent(lm.head_logits(cfg, params, x), mb)
+        loss = xent + lm.AUX_LOSS_COEF * aux
+        head = [params[n] for n in ends if n != "embed"
+                or cfg.tie_embeddings]
+        torch.autograd.backward(xent, inputs=[x] + head)
+        g_x = x.grad
+        g_aux = torch.full((), lm.AUX_LOSS_COEF, dtype=torch.float32,
+                           device=x0.device)
+        while recs:          # each block's record freed once it is used
+            stack, layers, leaves, x_in, x_out, auxes = recs.pop()
+            outs = [x_out] + [a for a in auxes if a is not None]
+            grads = [g_x] + [g_aux] * (len(outs) - 1)
+            torch.autograd.backward(outs, grads, inputs=[x_in] + [
+                t for lp in leaves for t in lp.values()])
+            g_x = x_in.grad
+            del outs, x_out, auxes
+            for li, lp in reversed(list(zip(layers, leaves))):
+                g_leaf = {}
+                for name, t in lp.items():
+                    g = t.grad
+                    g_leaf[index[f"{stack}.{name}"]] = \
+                        torch.zeros_like(t) if g is None else g
+                    t.grad = None
+                for bi, b in layer_buckets.get((stack, li), ()):
+                    gdt = torch.float32 if grad_accum > 1 or any(
+                        g_leaf[sl.index].dtype == torch.float32
+                        for sl in b.slots) else \
+                        g_leaf[b.slots[0].index].dtype
+                    flat = bucket_flat_parts(b, lambda sl: g_leaf[sl.index],
+                                             gdt)
+                    if flat_acc[bi] is not None:
+                        flat = flat_acc[bi].add_(flat)
+                    if not emit:
+                        flat_acc[bi] = flat
+                        continue
+                    flat_acc[bi] = None
+                    if grad_accum > 1:
+                        flat = flat.div_(grad_accum)
+                    with annotate(f"wire/bucket{bi}_{stack}_l{li}"):
+                        ctx = quant.collect_stats() if armed \
+                            else contextlib.nullcontext()
+                        with ctx as col:
+                            inflight[bi] = grad_comm.issue_reduce_scatter(
+                                flat, group, n_dp, wire)
+                        if armed:
+                            wire_sv.append(_drain_into(col, dev))
+                    del flat
+                for i, g in g_leaf.items():
+                    if i not in sens_stacked:
+                        continue
+                    key = (i, li)
+                    if grad_accum > 1:
+                        g = g.to(torch.float32)
+                        if key in sens_acc:
+                            g = sens_acc.pop(key).add_(g)
+                    if not emit:
+                        sens_acc[key] = g
+                        continue
+                    if grad_accum > 1:
+                        g = g.div_(grad_accum)
+                    with annotate(f"wire/sensitive_{stack}_l{li}"):
+                        sens_parts.setdefault(i, {})[li] = \
+                            grad_comm.reduce_sensitive(g, group, n_dp, wire)
+                del g_leaf
+        torch.autograd.backward(x0, g_x)
+        del g_x, x0
+        for n in ends:
+            i = index[n]
+            g = params[n].grad
+            g = torch.zeros_like(params[n]) if g is None else g
+            params[n].grad = None
+            if grad_accum > 1:
+                g = g.to(torch.float32)
+                g = g if i not in sens_raw else sens_raw[i].add_(g)
+            sens_raw[i] = g
+        metrics = {"aux_loss": aux.detach(), "loss": loss.detach()}
+        if armed:
+            sv = quant.drain_stats(dev)
+            sm = quant.site_maxima(sv)
+            metrics.update(quant_sat_frac=sm[0], quant_flush_frac=sm[1],
+                           quant_site_stats=sv)
+        losses.append(loss.detach())
+        ms.append(metrics)
+    if grad_accum > 1:
+        sens_raw = {i: g.div_(grad_accum) for i, g in sens_raw.items()}
+        loss = torch.stack(losses).sum() / grad_accum
+        metrics = {k: torch.stack([mm[k] for mm in ms]).mean(dim=0)
+                   for k in ms[0]}
+    else:
+        loss, metrics = losses[0], ms[0]
+    sens_done = {sens_stacked[i].path: torch.stack(
+        [pieces[li] for li in range(len(pieces))])
+        for i, pieces in sens_parts.items()}
+    # the shards are read here, after the backward: the guard's verdicts
+    # first (collectives, in bucket order), read on the host once
+    wire_bad = None
+    if guard is not None:
+        bads = torch.stack([f.bad(guard) for f in inflight]) if inflight \
+            else torch.zeros((0,), dtype=torch.bool, device=dev)
+        flags = bads.tolist()
+        owned = [f.finish(bad) for f, bad in zip(inflight, flags)]
+        wire_bad = bads.any()
+        if wire_sv:
+            sites = metrics["quant_site_stats"]
+            for sv in wire_sv:
+                sites = torch.maximum(sites, sv)
+            sm = quant.site_maxima(sites)
+            metrics.update(quant_site_stats=sites, quant_sat_frac=sm[0],
+                           quant_flush_frac=sm[1])
+    else:
+        owned = [f.finish() for f in inflight]
+    return loss, metrics, owned, sens_done, sens_raw, wire_bad
+
+
+def _drain_into(col, dev) -> torch.Tensor:
+    """A nested collector's stats, max-merged (zeros if none)."""
+    out = quant.zero_stats(dev)
+    for v in col.vals:
+        out = torch.maximum(out, v)
+    return out
+
+
+def _posthoc_grads(cfg, recipe, lplan, params, batch, layout, group,
+                   n_dp: int, wire: str, grad_accum: int = 1, guard=None):
+    """The post-hoc schedule, ``_streamed_grads``'s returns: the whole
+    backward, then one fused uint8 message a bucket (scales agreed
+    first), each leaf's gradient freed once its last bucket is reduced."""
+    from repro_torch.dist import grad_comm
+    from repro_torch.dist.plan import bucket_flat, flatten_with_paths
+    loss, metrics, grads = _local_grads(cfg, recipe, params, batch,
+                                        grad_accum, guard is not None, lplan)
+    gleaves = [g for _, g in flatten_with_paths(grads)]
+    del grads
+    left = {}
+    for b in layout.buckets:
+        for sl in b.slots:
+            left[sl.index] = left.get(sl.index, 0) + 1
+    owned, wire_bad = [], None
+    for b in layout.buckets:
+        gdt = torch.float32 if any(
+            gleaves[sl.index].dtype == torch.float32
+            for sl in b.slots) else gleaves[b.slots[0].index].dtype
+        flat = bucket_flat(b, gleaves, gdt)
+        if guard is not None:
+            o, bad = grad_comm.reduce_scatter_bucket(flat, group, n_dp, wire,
+                                                     guard=guard)
+            wire_bad = bad if wire_bad is None else wire_bad | bad
+        else:
+            o = grad_comm.reduce_scatter_bucket(flat, group, n_dp, wire)
+        owned.append(o)
+        del flat
+        for sl in b.slots:
+            left[sl.index] -= 1
+            if not left[sl.index]:
+                gleaves[sl.index] = None
+    if guard is not None:
+        # the wire quantize's stats, recorded after forward()'s
+        wire_sv = quant.drain_stats(loss.device)
+        sites = torch.maximum(metrics["quant_site_stats"], wire_sv)
+        sm = quant.site_maxima(sites)
+        metrics.update(quant_site_stats=sites, quant_sat_frac=sm[0],
+                       quant_flush_frac=sm[1])
+    sens_raw = {i: gleaves[i] for i, _ in layout.sensitive}
+    return loss, metrics, owned, {}, sens_raw, wire_bad
+
+
 def _make_dist_train_step(cfg: ArchConfig, recipe: Recipe,
                           opt: adamw.AdamWConfig, dist, plan, *,
                           grad_accum: int, total_steps: int,
@@ -316,7 +578,8 @@ def _make_dist_train_step(cfg: ArchConfig, recipe: Recipe,
     from repro_torch.dist import grad_comm
     from repro_torch.dist import opt_state as ost
     from repro_torch.dist.plan import (bucket_flat, bucket_scatter,
-                                       build_layout, flatten_with_paths)
+                                       build_layout, flatten_with_paths,
+                                       streaming_fallback_reason)
 
     mesh = plan.mesh
     if mesh is None or dist.axis not in mesh.axis_names:
@@ -335,10 +598,21 @@ def _make_dist_train_step(cfg: ArchConfig, recipe: Recipe,
             f"DP size {n_dp} does not divide DistPlan.shard_multiple="
             f"{dist.shard_multiple}: bucket rows pad to shard_multiple, so "
             f"ZeRO-1 shards would be unequal")
+    stream = dist.schedule == "stream"
+
+    def refuse_stream(layout=None):
+        reason = streaming_fallback_reason(cfg, layout, grad_accum)
+        if reason:
+            raise ValueError(
+                f"DistPlan schedule='stream' cannot run: {reason}; use "
+                f"schedule='posthoc' (launch/train.py falls back to it)")
+    if stream:
+        refuse_stream()
     group = mesh.group(dist.axis)
     rank = comm.rank(group)
     # the forward is replica-local: no expert-parallel group
-    local_plan = dataclasses.replace(plan, mesh=None)
+    local_plan = dataclasses.replace(plan, mesh=None, moe_mode="ep",
+                                     fsdp_axis=None, mlp_tp=False)
     wire = dist.wire
     layouts = {}
 
@@ -348,46 +622,27 @@ def _make_dist_train_step(cfg: ArchConfig, recipe: Recipe,
         key = tuple((p, tuple(t.shape)) for p, t in flat_params)
         if key not in layouts:
             layouts[key] = build_layout(params, dist)
+            if stream:
+                refuse_stream(layouts[key])
         layout = layouts[key]
         pleaves = [t for _, t in flat_params]
         ctx = quant.collect_stats() if guard is not None \
             else contextlib.nullcontext()
         with ctx:
-            loss, metrics, grads = _local_grads(cfg, recipe, params, batch,
-                                                grad_accum, guard is not None,
-                                                local_plan)
-            gleaves = [g for _, g in flatten_with_paths(grads)]
-            del grads
-            # one fused uint8 message a bucket, scales agreed first; a
-            # bucket's gradients are freed once it is reduced
-            owned, wire_bad = [], None
-            for b in layout.buckets:
-                gdt = torch.float32 if any(
-                    gleaves[s.index].dtype == torch.float32
-                    for s in b.slots) else gleaves[b.slots[0].index].dtype
-                flat = bucket_flat(b, gleaves, gdt)
-                if guard is not None:
-                    o, bad = grad_comm.reduce_scatter_bucket(
-                        flat, group, n_dp, wire, guard=guard)
-                    wire_bad = bad if wire_bad is None else wire_bad | bad
-                else:
-                    o = grad_comm.reduce_scatter_bucket(flat, group, n_dp,
-                                                        wire)
-                owned.append(o)
-                del flat
-                for s in b.slots:
-                    gleaves[s.index] = None
-            if guard is not None:
-                # the wire quantize's stats, recorded after forward()'s
-                wire_sv = quant.drain_stats(loss.device)
-                sites = torch.maximum(metrics["quant_site_stats"], wire_sv)
-                sm = quant.site_maxima(sites)
-                metrics.update(quant_site_stats=sites, quant_sat_frac=sm[0],
-                               quant_flush_frac=sm[1])
-        sens_g = {p: grad_comm.reduce_sensitive(gleaves[i], group, n_dp,
-                                                wire)
+            if stream:
+                loss, metrics, owned, sens_done, sens_raw, wire_bad = \
+                    _streamed_grads(cfg, recipe, local_plan, params, batch,
+                                    layout, group, n_dp, wire, grad_accum,
+                                    guard)
+            else:
+                loss, metrics, owned, sens_done, sens_raw, wire_bad = \
+                    _posthoc_grads(cfg, recipe, local_plan, params, batch,
+                                   layout, group, n_dp, wire, grad_accum,
+                                   guard)
+        sens_g = {p: sens_done[p] if p in sens_done else
+                  grad_comm.reduce_sensitive(sens_raw[i], group, n_dp, wire)
                   for i, p in layout.sensitive}
-        del gleaves
+        del sens_done, sens_raw
 
         gnorm = _dist_global_norm(params, layout, owned, sens_g, n_dp, rank,
                                   group)
@@ -428,8 +683,12 @@ def _make_dist_train_step(cfg: ArchConfig, recipe: Recipe,
                 ost.flat_bucket_update(opt, st_b, o_g, clip, lr, b1c, b2c,
                                        p_shard, flags, skip_mask)
                 full = grad_comm.all_gather_shard(p_shard, group)
-                for i, piece in bucket_scatter(b, full, pleaves).items():
+                # a layered bucket writes one layer slice of its leaves
+                for key, piece in bucket_scatter(b, full, pleaves).items():
+                    i, li = key if isinstance(key, tuple) else (key, None)
                     leaf = pleaves[i].detach()
+                    if li is not None:
+                        leaf = leaf[li]
                     if keep is not None:
                         piece = torch.where(keep, leaf, piece)
                     leaf.copy_(piece)
@@ -460,21 +719,26 @@ def _make_dist_train_step(cfg: ArchConfig, recipe: Recipe,
 def init_train_state(cfg: ArchConfig, opt: adamw.AdamWConfig, seed: int = 0,
                      dtype=torch.bfloat16, device="cuda",
                      params=None, guard: Optional[guards.GuardPlan] = None,
-                     dist=None, mesh=None) -> Dict[str, Any]:
+                     dist=None, mesh=None, plan=None) -> Dict[str, Any]:
     """{'params': leaves that require grad, 'opt': AdamW state[, 'guard':
     the guard's carried state]}.  `params` (e.g. the reference's
     init_params tree carried across by ``weights.params_from_numpy``)
     replaces the port's own random init.  With an active `dist`
     (DistPlan) the optimizer state is the ZeRO-1 state of this replica on
-    `mesh`'s data axis (``dist.opt_state.init_dist_state``); on a mesh
-    with EP > 1 the expert leaves are cut to this rank's experts
-    (``launch.sharding.shard_params``)."""
+    `mesh`'s data axis (``dist.opt_state.init_dist_state``).  On a mesh
+    the leaves are cut to this rank's blocks by `plan` (a
+    ``models.lm.ParallelPlan``; default the EP plan of `mesh`: the expert
+    leaves at EP > 1), ``launch.sharding.shard_params``."""
     if params is None:
         from repro_torch.models.lm import init_params
         params = init_params(cfg, seed=seed, dtype=dtype, device=device)
-    if mesh is not None and mesh.ep > 1:
+    if plan is not None and mesh is None:
+        mesh = plan.mesh
+    if dist is not None and dist.active:
+        plan = None         # the wire's forward is replica-local and whole
+    if mesh is not None:
         from repro_torch.launch.sharding import shard_params
-        params = shard_params(params, mesh)
+        params = shard_params(params, mesh, cfg, plan)
     for p in adamw.tree_leaves(params):
         p.requires_grad_()
     if dist is not None and dist.active:

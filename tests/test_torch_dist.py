@@ -82,10 +82,16 @@ def test_wire_models_equal_the_references():
         grad_comm.wire_grad_bytes(n, 8, "fp8") >= 3.0
 
 
-def test_stream_schedule_and_layered_layout_raise():
-    for kw in (dict(schedule="stream"), dict(layered=True)):
-        with pytest.raises(NotImplementedError, match="part 2"):
-            plan.DistPlan(**kw)
+def test_stream_schedule_needs_the_layered_layout():
+    """schedule='stream' takes the layered layout by default and raises
+    ValueError without it, as the reference's DistPlan does; the layered
+    layout also runs post hoc (the controlled baseline)."""
+    assert plan.DistPlan(schedule="stream").layered
+    assert plan.DistPlan(layered=True).schedule == "posthoc"
+    with pytest.raises(ValueError, match="layer-aligned"):
+        plan.DistPlan(schedule="stream", layered=False)
+    with pytest.raises(ValueError, match="layer-aligned"):
+        jplan.DistPlan(schedule="stream", layered=False)
 
 
 def test_wire_message_is_the_references_bytes():

@@ -245,19 +245,44 @@ def test_ep_checkpoint_restores_across_ep_sizes(tmp_path):
                                       np.asarray(v)), (part, k)
 
 
-@pytest.mark.parametrize("kw, err", [
-    (dict(moe_mode="tp"), NotImplementedError),
-    (dict(fsdp_axis="data"), NotImplementedError),
-    (dict(mlp_tp=True), NotImplementedError),
-    (dict(stage_layers=True), NotImplementedError),
-    (dict(tp_axis="data"), ValueError),
-    (dict(dp_axes=("data", "model")), ValueError),
-], ids=["moe_tp", "fsdp", "mlp_tp", "stage_layers", "tp_axis", "dp_axes"])
-def test_parallel_plan_refuses_what_it_does_not_map(kw, err):
-    """ParallelPlan's levers of the next slice raise naming it; the axes
-    are the mesh's own (one data axis, one model axis), so any other
-    dp_axes or tp_axis raises instead of regrouping the experts."""
+@pytest.mark.parametrize("kw, match", [
+    (dict(moe_tp_combine="psum_last"), "moe_tp_combine"),
+    (dict(moe_mode="dp"), "moe_mode"),
+    (dict(fsdp_axis="model"), "fsdp_axis"),
+    (dict(tp_axis="data"), "tp_axis='model'"),
+    (dict(dp_axes=("data", "model")), "tp_axis='model'"),
+], ids=["moe_tp_combine", "moe_mode", "fsdp_axis", "tp_axis", "dp_axes"])
+def test_parallel_plan_refuses_what_it_does_not_map(kw, match):
+    """An unknown combine or MoE mode, an FSDP axis other than 'data', and
+    axes other than the mesh's own (one data axis, one model axis) raise
+    ValueError instead of regrouping the weights."""
     from repro_torch.models.lm import ParallelPlan
-    with pytest.raises(err, match="part 2" if err is NotImplementedError
-                       else "tp_axis='model'"):
+    with pytest.raises(ValueError, match=match):
         ParallelPlan(**kw)
+
+
+@pytest.mark.parametrize("what", ["engine", "decode", "multi_pod"])
+def test_what_part_3_ports_raises(what):
+    """Serving with TP experts (the engine and the decode stage under
+    moe_mode='tp') and the launcher's pod axis raise NotImplementedError
+    naming multi-GPU part 3; nothing falls back to EP or to one pod."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    cfg = get_arch("grok1_314b").reduced()
+    plan = lm.ParallelPlan(mesh=make_test_mesh(), moe_mode="tp")
+    with pytest.raises(NotImplementedError, match="part 3"):
+        if what == "engine":
+            from repro_torch.serve.engine import ServeEngine
+            ServeEngine(cfg, get_recipe("fp8_flow"), {}, device="cpu",
+                        plan=plan)
+        elif what == "decode":
+            p = lm.layer_slice(lm.init_params(cfg, device="cpu")["layers"],
+                               0)
+            x = torch.zeros((2, 1, cfg.d_model), dtype=torch.bfloat16)
+            lm._moe_stage(cfg, get_recipe("fp8_flow"), p, x, decode=True,
+                          plan=plan)
+        else:
+            from repro_torch.launch.train import main
+            main(["--reduced", "--device", "cpu", "--multi-pod"])

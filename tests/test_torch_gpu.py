@@ -1880,3 +1880,116 @@ def test_flat_bucket_update_kernel_equals_its_twin_on_card(card, pol,
             iv = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
             assert torch.equal(x.view(iv[x.element_size()]),
                                y.view(iv[y.element_size()])), k
+
+
+# ---------------------------------------------------------------------------
+# Multi-GPU part 2 on an NCCL group of one rank: the FSDP gather and its
+# reduce-scatter, the TP expert block, the streaming wire.
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_fsdp_gather_and_its_reduce_scatter_are_copies_on_card(nccl):
+    """dist/tp.fsdp_gather on the data group of one rank: forward the
+    shard back on its cut axis, backward the gradient, both bit for bit
+    (an all-gather and a reduce-scatter of one rank are copies), for each
+    FSDP axis a stage gathers on."""
+    from repro_torch.dist import comm, tp
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for shape, axis in (((4, 256, 2, 384), 1), ((4, 384, 256), 2),
+                        ((256, 2, 384), 0), ((384, 256), 1)):
+        w = torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        comm.reset_counts()
+        full = tp.fsdp_gather(w, nccl.data_group, axis)
+        assert torch.equal(full.view(torch.int16), w.detach().view(
+            torch.int16))
+        ct = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        full.backward(ct)
+        assert torch.equal(w.grad.view(torch.int16), ct.view(torch.int16))
+        c = comm.counts()
+        assert c["all-gather"]["calls"] == c["reduce-scatter"]["calls"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["psum_first", "local_first",
+                                     "reduce_scatter"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_tp_block_with_a_group_equals_it_without_on_card(nccl, combine,
+                                                         masked):
+    """moe_block_tp on the card with the model group of one rank and with
+    no group: the output and the x / router / w13 / w2 gradients bit for
+    bit (each collective a copy), 2 activation casts, and Dgrad-1 on #3
+    (or #5) then #1: no #4 / #6 launch."""
+    from repro_torch import kernels
+    from repro_torch.core import casts, moe
+    from repro_torch.core.recipes import get_recipe
+    recipe = get_recipe("fp8_flow", masked_experts=masked,
+                        swiglu_epilogue=masked)
+    T, D, F, E = 512, 512, 256, 4
+    cfg = moe.MoEConfig(n_experts=E, top_k=2, d_model=D, d_ff=F,
+                        capacity_factor=2.0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    inputs = (torch.randn((T, D), generator=gen, device="cuda").to(
+                  torch.bfloat16),
+              torch.randn((D, E), generator=gen, device="cuda") * 0.02,
+              (torch.randn((E, D, 2 * F), generator=gen, device="cuda")
+               * 0.05).to(torch.bfloat16),
+              (torch.randn((E, F, D), generator=gen, device="cuda")
+               * 0.05).to(torch.bfloat16))
+    out = []
+    for group in (None, nccl.model_group):
+        ts = [t.clone().requires_grad_() for t in inputs]
+        kernels.reset_launches()
+        with casts.ledger() as led:
+            y, _ = moe.moe_block_tp(recipe, cfg, *ts, tp_group=group,
+                                    combine_mode=combine)
+            (y.to(torch.float32) ** 2).sum().backward()
+        assert led.activation_casts() == 2
+        quant_out = "masked_grouped_gemm_fp8_quant_out" if masked \
+            else "grouped_gemm_fp8_quant_out"
+        assert kernels.LAUNCHES[quant_out] == 0
+        assert kernels.LAUNCHES["quantize_rowwise"] > 0
+        out.append([y] + [t.grad for t in ts])
+    for a, b in zip(*out):
+        assert torch.equal(a.view(torch.int16) if a.element_size() == 2
+                           else a.view(torch.int32),
+                           b.view(torch.int16) if b.element_size() == 2
+                           else b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_streamed_step_equals_the_posthoc_layered_step_on_card(nccl):
+    """A reduced deepseek_v2_lite (dense prologue, shared experts, 2
+    layers) trained 3 steps through the DistPlan step on the card:
+    schedule='stream' against posthoc over the same layered layout, the
+    losses and every parameter byte bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist.plan import DistPlan
+    from repro_torch.models.lm import ParallelPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_arch("deepseek_v2_lite").reduced(),
+                              d_ff_expert=256)
+    opt = AdamWConfig(lr=3e-3)
+    runs = []
+    for kw in (dict(schedule="stream"), dict(layered=True)):
+        dist = DistPlan(wire="fp8", **kw)
+        state = init_train_state(cfg, opt, seed=0, device="cuda", dist=dist,
+                                 mesh=nccl)
+        step = make_train_step(cfg, get_recipe("fp8_flow"), opt, dist=dist,
+                               plan=ParallelPlan(mesh=nccl), warmup_steps=5)
+        losses = []
+        for i in range(3):
+            batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                          global_batch=4), i, device="cuda")
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        runs.append((losses, state["params"]))
+    (la, pa), (lb, pb) = runs
+    assert la == lb
+    for k in pa["layers"]:
+        a, b = pa["layers"][k].detach(), pb["layers"][k].detach()
+        iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        assert torch.equal(a.view(iv), b.view(iv)), k

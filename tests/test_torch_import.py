@@ -1,6 +1,7 @@
 """repro_torch stands alone: every module (the multi-GPU ones too: the
-mesh, the sharding, the collectives, the DP wire and its plan, the FP8
-psum), the chip scripts and the port's examples import without jax or
+mesh, the sharding and make_plan, the collectives and the TP / FSDP
+autograd collectives, the DP wire with its streaming schedule and its
+layered plan, the FP8 psum, the TP expert block), the chip scripts and the port's examples import without jax or
 the JAX package, weights cross
 over with their bits, and asking for CUDA without a card raises instead
 of falling back."""
@@ -41,7 +42,8 @@ configs |= {f"repro_torch.{m}" for m in (
     "dist.scale_sync", "serve.prefix_cache", "serve.transfer",
     "serve.router", "obs.report", "obs.trace", "roofline.analysis",
     "launch.mesh", "launch.sharding", "dist.comm", "dist.plan",
-    "dist.grad_comm", "runtime.compression")}
+    "dist.grad_comm", "runtime.compression", "dist.tp", "core.moe",
+    "core.linear", "models.lm", "train.train_step", "launch.train")}
 assert configs <= set(names), sorted(configs - set(names))
 import chip_depths, chip_profile, chip_smoke
 sys.path.insert(0, "examples")

@@ -212,10 +212,11 @@ def test_warmup_cosine_matches_reference(step):
 
 
 def test_unported_training_options_raise():
-    """What is still unported raises, naming its slice: the streaming
-    wire schedule (``DistPlan(schedule='stream')``, ``--dist-schedule
-    stream``) and a DistPlan step without a mesh; the FP8 DP wire itself
-    (``--dist-wire fp8``, at world 1 on a gloo group) now trains
+    """What is still unported raises, naming its slice: the pod axis
+    (``--multi-pod``, multi-GPU part 3); a DistPlan step without a mesh
+    and a streaming DistPlan without the layered layout raise ValueError.
+    The streaming wire (``--dist-schedule stream``) and the FP8 DP wire
+    itself (``--dist-wire fp8``, at world 1 on a gloo group) now train
     (tests/test_torch_dist_train.py holds it to the reference's bars), as
     do the guard, gradient accumulation, save_h and the FP8-split state
     (tests/test_torch_guards.py, test_torch_runtime.py and
@@ -231,12 +232,15 @@ def test_unported_training_options_raise():
     from repro_torch.dist.plan import DistPlan
     with pytest.raises(ValueError, match="plan.mesh"):
         make_train_step(cfg, recipe, adamw.AdamWConfig(), dist=DistPlan())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        DistPlan(schedule="stream")
+    with pytest.raises(ValueError, match="layer-aligned"):
+        DistPlan(schedule="stream", layered=False)
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["--reduced", "--device", "cpu", "--dist-wire", "fp8",
-              "--dist-schedule", "stream"])
+    with pytest.raises(NotImplementedError, match="part 3"):
+        main(["--reduced", "--device", "cpu", "--multi-pod"])
+    streamed = main(["--reduced", "--device", "cpu", "--dist-wire", "fp8",
+                     "--dist-schedule", "stream", "--steps", "1",
+                     "--seq-len", "32", "--global-batch", "2"])
+    assert len(streamed) == 1 and np.isfinite(streamed[0])
     wired = main(["--reduced", "--device", "cpu", "--dist-wire", "fp8",
                   "--steps", "1", "--seq-len", "32", "--global-batch", "2"])
     assert len(wired) == 1 and np.isfinite(wired[0])

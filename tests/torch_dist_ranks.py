@@ -72,6 +72,52 @@ def ep_block(mesh, spec, arrays, cases):
     return out
 
 
+def tp_block(mesh, spec, arrays, cases):
+    """Each case ('recipe|tp|combine') of moe_block_tp on this rank: the
+    whole x and router, its F-slice of every expert (w13 (E, D, 2, F) and
+    w2 (E, F, D) cut on F over the model axis).  The output is replicated
+    (own rows under reduce_scatter); each rank backprops the cotangent of
+    the one loss sum(y**2) (the replicated output's, or its rows').
+    Returns per case the output, drop fraction, gradients, activation
+    casts, the collectives by kind and the ledger's tags."""
+    from repro_torch.dist import comm
+    x, wr, w13, w2 = arrays
+    E, topk, cf = spec
+    tp, m = mesh.ep, mesh.model_index
+    F = w2.shape[1]
+    fl = F // tp
+    out = []
+    for case in cases:
+        name, _, combine = case.split("|")
+        recipe = recipe_of(name)
+        cfg = moe.MoEConfig(n_experts=E, top_k=topk, d_model=x.shape[1],
+                            d_ff=fl, capacity_factor=cf)
+        xs = torch.tensor(x).to(torch.bfloat16)
+        wrt = torch.tensor(wr)
+        w13t = torch.tensor(np.ascontiguousarray(
+            w13[..., m * fl:(m + 1) * fl]))
+        w2t = torch.tensor(np.ascontiguousarray(w2[:, m * fl:(m + 1) * fl]))
+        for t in (xs, wrt, w13t, w2t):
+            t.requires_grad_()
+        comm.reset_counts()
+        with casts.ledger() as led:
+            y, met = moe.moe_block_tp(
+                recipe, cfg, xs, wrt, w13t.reshape(E, x.shape[1], 2 * fl),
+                w2t, tp_group=mesh.model_group, combine_mode=combine)
+            (y.to(torch.float32) ** 2).sum().backward()
+        out.append(dict(y=np32(y), drop=float(met["drop_frac"]),
+                        gx=np32(xs.grad), gwr=np32(wrt.grad),
+                        gw13=np32(w13t.grad), gw2=np32(w2t.grad),
+                        casts=led.activation_casts(), coll=comm.counts(),
+                        tags=sorted(f"{k}:{t}" for (k, t) in led.by_tag())))
+    return out
+
+
+def train_many(mesh, jobs):
+    """``train`` for each (args, kwargs) of `jobs` in one process."""
+    return [train(mesh, *a, **kw) for a, kw in jobs]
+
+
 # ---------------------------------------------------------------------------
 # Training on a mesh.
 # ---------------------------------------------------------------------------
@@ -92,7 +138,9 @@ def tree_np(tree):
 def train(mesh, arch, recipe_name, wire, n_steps, *, state_policy=None,
           seq_len=64, global_batch=8, lr=3e-3, ep_cf=None, guard=False,
           faults=(), ckpt_dir=None, ckpt_every=50, full_state=False,
-          n_total=None, init_grads=False, min_fp8_size=2048):
+          n_total=None, init_grads=False, min_fp8_size=2048, plan_kw=None,
+          cfg_kw=None, dist_kw=None, remat=None, grad_accum=1,
+          order_log=False):
     """`n_steps` steps of `arch` (reduced) on this rank's share of the
     global batches through loop.run: the DistPlan step for a `wire`, the
     plain step for None (f32 all-reduce; EP over the mesh's model axis).
@@ -102,12 +150,19 @@ def train(mesh, arch, recipe_name, wire, n_steps, *, state_policy=None,
     `full_state` the gathered optimizer state as bytes, and with
     `init_grads` the plain step's reduced f32 gradients of the first
     global batch at the initial params (gathered experts), of the loss
-    without the router's aux term (a mean of each rank's on a mesh)."""
+    without the router's aux term (a mean of each rank's on a mesh).
+    `plan_kw`: the ParallelPlan's levers (TP experts, FSDP, the TP MLP);
+    `cfg_kw`: fields of the reduced config replaced; `dist_kw`: the
+    DistPlan's (schedule, layered); `remat`: the config's remat policy;
+    every cut leaf is gathered for the returned params and gradients.
+    `order_log`: each step's launch order, 'a2a' for an all-to-all and
+    'gemm' for a grouped-GEMM kernel wrapper call, and its all-to-all
+    count."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.dist.plan import DistPlan
-    from repro_torch.launch.sharding import gather_expert_leaf, shard_batch
+    from repro_torch.launch.sharding import gather_leaf, shard_batch
     from repro_torch.models.lm import ParallelPlan
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime import fault_injection as fi
@@ -118,6 +173,11 @@ def train(mesh, arch, recipe_name, wire, n_steps, *, state_policy=None,
     cfg = get_arch(arch).reduced()
     if ep_cf is not None:
         cfg = dataclasses.replace(cfg, capacity_factor=ep_cf)
+    if cfg_kw:
+        cfg = dataclasses.replace(cfg, **cfg_kw)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=remat)
+    pplan = ParallelPlan(mesh=mesh, **(plan_kw or {}))
     recipe = recipe_of(recipe_name)
     if wire is None:
         opt = AdamWConfig(lr=lr, state_policy=state_policy)
@@ -125,18 +185,37 @@ def train(mesh, arch, recipe_name, wire, n_steps, *, state_policy=None,
     else:
         opt = AdamWConfig(lr=lr)
         dist = DistPlan(wire=wire, policy=state_policy,
-                        min_fp8_size=min_fp8_size)
+                        min_fp8_size=min_fp8_size, **(dist_kw or {}))
     gplan = G.GuardPlan() if guard else None
     state = init_train_state(cfg, opt, seed=0, device="cpu", dist=dist,
-                             mesh=mesh, guard=gplan)
-    step = make_train_step(cfg, recipe, opt, dist=dist,
-                           plan=ParallelPlan(mesh=mesh),
+                             mesh=mesh, guard=gplan, plan=pplan)
+    step = make_train_step(cfg, recipe, opt, dist=dist, plan=pplan,
+                           grad_accum=grad_accum,
                            total_steps=n_total or 400, warmup_steps=5,
                            guard=gplan)
-    flags, gnorms = [], []
+    flags, gnorms, orders = [], [], []
+    events, patched = [], []
+    if order_log:
+        from repro_torch.dist import comm
+        from repro_torch.kernels import ops
+
+        def logged(mod, name, what):
+            fn = getattr(mod, name)
+
+            def call(*a, **kw):
+                if what != "a2a" or a[1] is not None:   # a launch
+                    events.append(what)
+                return fn(*a, **kw)
+            patched.append((mod, name, fn))
+            setattr(mod, name, call)
+        logged(comm, "all_to_all", "a2a")
+        for name in [n for n in vars(ops) if n.startswith("grouped_gemm")]:
+            logged(ops, name, "gemm")
 
     def flagged(st, batch, _step=step):
+        events.clear()
         st, m = _step(st, batch)
+        orders.append(list(events))
         gnorms.append(float(m["grad_norm"]))
         if "guard_flags" in m:
             flags.append(int(m["guard_flags"]))
@@ -157,12 +236,11 @@ def train(mesh, arch, recipe_name, wire, n_steps, *, state_policy=None,
         from repro_torch.models import lm
         coef, lm.AUX_LOSS_COEF = lm.AUX_LOSS_COEF, 0.0
         _, _, g = _local_grads(cfg, recipe, state["params"], batch, 1, False,
-                               ParallelPlan(mesh=mesh))
+                               pplan)
         lm.AUX_LOSS_COEF = coef
-        g = reduce_grads(g, mesh) if mesh.has_groups else g
-        res["grads"] = {k: np32(gather_expert_leaf(v, mesh)
-                                if k in ("we13", "we2") else v)
-                        for k, v in g["layers"].items()}
+        g = reduce_grads(g, mesh, cfg, pplan) if mesh.has_groups else g
+        res["grads"] = {k: np32(gather_leaf(v, mesh, pplan.leaf_cuts(
+            cfg, f"layers.{k}"))) for k, v in g["layers"].items()}
     drops, overflow = [], []
     d0, e0 = moe._dispatch_plan, moe._expert_plan
 
@@ -183,15 +261,16 @@ def train(mesh, arch, recipe_name, wire, n_steps, *, state_policy=None,
         state, hist = run(step, state, DataConfig(
             vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch),
             n_steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-            log_fn=logs.append, guard_policy=policy,
+            log_fn=logs.append, guard_policy=policy, grad_accum=grad_accum,
             batch_fn=lambda b: shard_batch(b, mesh))
     moe._dispatch_plan, moe._expert_plan = d0, e0
+    for mod, name, fn in patched:
+        setattr(mod, name, fn)
     params = {}
     for k, v in state["params"].items():
         if isinstance(v, dict):
-            params[k] = {n: gather_expert_leaf(t.detach(), mesh)
-                         if n in ("we13", "we2") else t
-                         for n, t in v.items()}
+            params[k] = {n: gather_leaf(t.detach(), mesh, pplan.leaf_cuts(
+                cfg, f"{k}.{n}")) for n, t in v.items()}
         else:
             params[k] = v
     res.update(losses=[h["loss"] for h in hist], drops=drops, flags=flags,
@@ -199,7 +278,7 @@ def train(mesh, arch, recipe_name, wire, n_steps, *, state_policy=None,
                overflow=overflow, params=tree_np(params),
                casts=led.activation_casts(),
                tags=sorted(f"{k}:{t}" for (k, t) in led.by_tag()),
-               logs=logs)
+               logs=logs, orders=orders)
     if full_state:
         z = getattr(step, "shardings", None)
         res["opt"] = tree_np(z.full(state)["opt"] if z is not None

@@ -12,6 +12,12 @@ with XLA_FLAGS forcing the host devices.  Tasks:
                    the drop fraction and the gradients of sum(y**2) by x,
                    w_router, w13 and w2 (train blocks), each case named in
                    the input's `cases`
+  tp_blocks        moe_block_tp in a jitted check_vma=False shard_map over
+                   a (1, TP) mesh: x and the router replicated, w13
+                   (E, D, 2, F) and w2 (E, F, D) F-sliced over 'model';
+                   the output (replicated, or row-sliced under
+                   reduce_scatter) and the gradients of sum(y**2), each
+                   case 'recipe|tp|combine'
   reduce_scatter   grad_comm.reduce_scatter_bucket over a (n, 1) mesh, one
                    (n, rows, TILE) input a case
   compressed_psum  runtime.compression.compressed_psum over n devices
@@ -89,6 +95,49 @@ def ep_blocks(inp):
     return out
 
 
+def tp_blocks(inp):
+    x = jnp.asarray(inp["x"]).astype(jnp.bfloat16)
+    wr, w13, w2 = (jnp.asarray(inp[k]) for k in ("wr", "w13", "w2"))
+    E, topk = int(inp["spec"][0]), int(inp["spec"][1])
+    cf = float(inp["spec"][2])
+    D, F = x.shape[1], w2.shape[1]
+    out = {}
+    for i, case in enumerate(str(c) for c in inp["cases"]):
+        recipe_name, tp, combine = case.split("|")
+        tp = int(tp)
+        recipe = _recipe(recipe_name)
+        mesh = _mesh(tp)
+        cfg = jmoe.MoEConfig(n_experts=E, top_k=topk, d_model=D, d_ff=F,
+                             capacity_factor=cf)
+
+        def body(xl, wrl, w13l, w2l, _r=recipe, _c=combine):
+            El, Dl, gl, Fl = w13l.shape
+            y, m = jmoe.moe_block_tp(_r, cfg, xl, wrl,
+                                     w13l.reshape(El, Dl, gl * Fl), w2l,
+                                     tp_axis="model", combine_mode=_c)
+            return y, m["drop_frac"][None]
+
+        yspec = P("model", None) if combine == "reduce_scatter" \
+            else P(None, None)
+        f = shard_map(body, mesh=mesh,
+                      in_specs=(P(None, None), P(None, None),
+                                P(None, None, None, "model"),
+                                P(None, "model", None)),
+                      out_specs=(yspec, P("model")), check_vma=False)
+
+        def loss(*a, _f=f):
+            y, drop = _f(*a)
+            return jnp.sum(y.astype(jnp.float32) ** 2), (y, drop)
+
+        (_, (y, drop)), grads = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1, 2, 3), has_aux=True))(x, wr, w13, w2)
+        out[f"y_{i}"] = np.asarray(y, np.float32)
+        out[f"drop_{i}"] = np.asarray(drop, np.float32)
+        for name, g in zip(("x", "wr", "w13", "w2"), grads):
+            out[f"g{name}_{i}"] = np.asarray(g, np.float32)
+    return out
+
+
 def _mesh(n, axes=("data", "model"), data=False):
     """The first n host devices as a (1, n) mesh, or (n, 1) for `data`."""
     from jax.sharding import Mesh
@@ -136,7 +185,8 @@ def compressed_psum(inp):
     return out
 
 
-TASKS = {"ep_blocks": ep_blocks, "reduce_scatter": reduce_scatter,
+TASKS = {"ep_blocks": ep_blocks, "tp_blocks": tp_blocks,
+         "reduce_scatter": reduce_scatter,
          "compressed_psum": compressed_psum}
 
 
