@@ -269,6 +269,19 @@ Phases (any failure raises and the script exits non-zero):
      a flipped wire byte flagged and recovered; ms stream / posthoc
      layered / flat, wire ms, exposed wire ms measured beside
      grad_comm.stream_exposed_us, peak;
+ 42. serving across ranks and the pod axis on that group: qwen3 (depth
+     4) served under make_plan (EP, W8 experts from the serving cut),
+     phase 3's tokens bit for bit, and through serve_step with plan=
+     (the group-less tokens); grok1_314b (depth 4) served with TP experts
+     (moe_block_tp on W8), the group-less TP run's tokens bit for bit and
+     logits cosine >= 0.999 against its EP run on the same weights; qwen3
+     and grok with TP experts under the masked recipe (#5, #7), the
+     padded runs' tokens bit for bit; #3,
+     #5 and #7 at the TP decode shapes (and #3 at the production axis's
+     F-slice); collectives a tick by kind and bytes, tokens/s and peak a
+     run; deepseek_v2_lite (depth 4) trained on a (1, 1, 1) pod mesh,
+     phase 40's (1, 1) losses bit for bit; the serve launcher --tp 1 on a
+     world-1 FileStore mesh;
   9. the {"kernels": [...]} summary line (the eleven kernels, #1's
      linear mode and the AdamW update, with the new shapes' rows), then
      the result line.
@@ -4217,8 +4230,9 @@ def nccl_two_ranks_probe():
         exit_codes=[p.exitcode for p in ps], ranks=said)}))
 
 
-def multi_gpu_phases(dev, groupless, serve_tokens):
-    """Phases 37-41 on one NCCL group; returns their launches by path."""
+def multi_gpu_phases(dev, groupless, serve_tokens, timings=None):
+    """Phases 37-42 on one NCCL group; returns their launches by path.
+    Phase 42's kernel rows go into `timings` when it is given."""
     from repro_torch.launch.mesh import close_mesh
     mesh = nccl_mesh()
     try:
@@ -4226,8 +4240,15 @@ def multi_gpu_phases(dev, groupless, serve_tokens):
                             serve_tokens)
         launches.update(dp_wire_phase(dev, mesh))
         launches["compression"] = compression_phase(dev, mesh)
-        launches.update(tp_fsdp_phase(dev, mesh, groupless["mono"]))
+        tp_launches, dsv2_mesh_losses = tp_fsdp_phase(dev, mesh,
+                                                      groupless["mono"])
+        launches.update(tp_launches)
         launches.update(stream_phase(dev, mesh))
+        ranks_launches, rows = serve_ranks_phase(dev, mesh, serve_tokens,
+                                                 dsv2_mesh_losses)
+        launches.update(ranks_launches)
+        if timings is not None:
+            add_rows(timings, rows)
     finally:
         close_mesh()
     return launches
@@ -4444,7 +4465,7 @@ def tp_fsdp_phase(dev, mesh, ep_losses):
                          peak_gib=r["max_memory_allocated_gib"])
                  for k, r in rows.items()},
         seconds=time.perf_counter() - t_phase)}))
-    return launches
+    return launches, rows["dsv2_mesh"]["losses"]
 
 
 def stream_train_run(cfg, dev, label, mesh, dist_kw, *, grad_accum=1,
@@ -4699,6 +4720,393 @@ def stream_phase(dev, mesh):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 42: serving across ranks on the NCCL group of one rank (the engine,
+# serve_step and the launcher on make_plan; TP decode through moe_block_tp
+# on W8 experts) and the pod axis.  What differs between ranks is held on
+# the CPU (tests/test_torch_serve_ranks.py, tests/test_torch_pod.py).
+# ---------------------------------------------------------------------------
+PATH_KERNELS.update({
+    "ranks_serve": PATH_KERNELS["serve"],
+    "ranks_serve_step": PATH_KERNELS["serve"],
+    # qwen3 with TP experts: the TP decode's (E, 128) groups through the
+    # padded kernels, and the masked recipe's #5 and #7
+    "ranks_tp_serve": PATH_KERNELS["serve"],
+    "ranks_tp_masked_serve": PATH_KERNELS["masked_serve"],
+    "grok_tp_masked_serve": PATH_KERNELS["grok_masked_serve"],
+    # TP experts: the rows quantized and permuted into E groups of C_exp
+    # (no all-to-all), the padded GEMMs, GeGLU then #1
+    "grok_tp_serve": PATH_KERNELS["grok_serve"],
+    "dsv2_pod_train": PATH_KERNELS["dsv2_train"]})
+PATH_RECIPES.update({"ranks_serve": ("fp8_flow", {}),
+                     "ranks_serve_step": ("fp8_flow", {}),
+                     "ranks_tp_serve": ("fp8_flow", {}),
+                     "ranks_tp_masked_serve": ("fp8_flow", MASKED),
+                     "tp_serve": ("fp8_flow", {}),
+                     "tp_masked_serve": ("fp8_flow", MASKED),
+                     "pod_train": ("fp8_flow", {})})
+# grok1_314b's TP decode at the reference's production model axis (16):
+# each rank's F-slice (32768 / 16 = 2048) of every expert
+TP_PRODUCTION = 16
+# the TP decode block's expert groups: C_exp = round_up(8 * 2 / 8 * 1.25,
+# 128) for an 8-slot decode batch
+TP_DECODE_C = 128
+# the fixed-batch path of phase 42: prompts and new tokens a request
+STEP_B, STEP_PROMPT, STEP_NEW = 8, 16, 8
+
+
+def serve_trace(cfg):
+    """make_serve's 16 greedy requests (prompts of 3-48 tokens, 16 new)."""
+    from repro_torch.serve.scheduler import Request
+    r = np.random.default_rng(0)
+    return [Request(prompt=[int(t) for t in
+                            r.integers(1, cfg.vocab, int(r.integers(3, 49)))],
+                    max_new_tokens=16) for _ in range(16)]
+
+
+def ranks_serve_run(cfg, dev, label, params, plan):
+    """serve_trace through a ServeEngine on `params` (W8, shared by the
+    runs) under `plan`: the tokens, each tick's logits (the prefill's last
+    row; the decode step's rows with its active mask), and a row with
+    tokens/s, the collectives a tick by kind and bytes, the peak and the
+    launches (counts set to 0 just before the run)."""
+    from repro_torch import kernels
+    from repro_torch.dist import comm
+    from repro_torch.serve import engine as E
+    ecfg = E.ServeConfig(max_batch=8, page_size=8, n_pages=128,
+                         max_pages_per_req=8, token_budget=512,
+                         prefill_buckets=(16, 32, 64), fp8_kv=True,
+                         w8_weights=True, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = E.ServeEngine(cfg, recipe_for(label), params, ecfg, device=dev,
+                        plan=plan)
+    reqs = serve_trace(cfg)
+    ticks = []
+    dec0, pre0 = E.paged_decode_step, E.paged_prefill
+
+    def dec(*a, **kw):
+        lg = dec0(*a, **kw)
+        ticks.append((lg[:, -1], a[7]))
+        return lg
+
+    def pre(*a, **kw):
+        lg = pre0(*a, **kw)
+        ticks.append((lg[:, -1], None))
+        return lg
+
+    E.paged_decode_step, E.paged_prefill = dec, pre
+    try:
+        kernels.reset_launches()
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.run(reqs, realtime=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, coll = dict(kernels.LAUNCHES), comm.counts()
+    finally:
+        E.paged_decode_step, E.paged_prefill = dec0, pre0
+    tokens = [results[q.rid]["tokens"] for q in reqs]
+    n_tok = sum(len(t) for t in tokens)
+    check(len(results) == len(reqs) and all(len(t) == 16 for t in tokens),
+          f"{label}: not every request finished its 16 tokens")
+    check(all(0 <= t < cfg.vocab for ts in tokens for t in ts),
+          f"{label}: a token outside the vocabulary")
+    check(eng.alloc.free_pages == ecfg.n_pages - 1,
+          f"{label}: pages were not returned")
+    check_launches(label, launches)
+    n_ticks = results.stats["ticks"]
+    row = dict(
+        label=label, plan=None if plan is None else dict(
+            moe_mode=plan.moe_mode, combine=plan.moe_tp_combine,
+            mesh=None if plan.mesh is None else plan.mesh.shape,
+            groups=plan.mesh is not None and plan.mesh.has_groups),
+        tokens=n_tok, seconds=dt, tokens_per_s=n_tok / dt, ticks=n_ticks,
+        collectives=coll, collectives_per_tick={
+            k: dict(calls=v["calls"] / n_ticks, bytes=v["bytes"] / n_ticks)
+            for k, v in coll.items()},
+        tokens_sha256=hashlib.sha256(json.dumps(tokens).encode())
+        .hexdigest(),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+    print(json.dumps({"ranks_serve_run": row}))
+    del eng
+    torch.cuda.empty_cache()
+    return tokens, ticks, row
+
+
+def ticks_cosine(a, b):
+    """The logits cosine of two runs' ticks over their live rows, up to
+    and including the first tick whose greedy tokens differ (later ticks
+    see other inputs); returns (cosine, ticks compared, all tokens
+    equal)."""
+    dot = na = nb = 0.0
+    n, same = 0, True
+    for (la, ma), (lb, mb) in zip(a, b):
+        if ma is not None:
+            la, lb = la[ma], lb[mb]
+        x, y = la.double(), lb.double()
+        dot += float((x * y).sum())
+        na += float((x * x).sum())
+        nb += float((y * y).sum())
+        n += 1
+        if not torch.equal(la.argmax(-1), lb.argmax(-1)):
+            same = False
+            break
+    same = same and len(a) == len(b)
+    return dot / max((na * nb) ** 0.5, 1e-300), n, same
+
+
+def ranks_serve_step(cfg, dev, params, plan):
+    """The fixed-batch path (serve_step.make_prefill / make_serve_step)
+    with and without `plan`: STEP_B prompts of STEP_PROMPT tokens fed one
+    token a step, then STEP_NEW greedy tokens; the prefill's logits of the
+    whole prompts.  Returns (tokens, prefill logits) a run, the plan's
+    launches and collectives."""
+    from repro_torch import kernels
+    from repro_torch.dist import comm
+    from repro_torch.models.lm import init_cache
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompts = torch.randint(1, cfg.vocab, (STEP_B, STEP_PROMPT),
+                            generator=gen, device=dev)
+    recipe = recipe_for("ranks_serve_step")
+    out = {}
+    for name, pl in (("groupless", None), ("plan", plan)):
+        kernels.reset_launches()
+        comm.reset_counts()
+        prefill = make_prefill(cfg, recipe, plan=pl)
+        step = make_serve_step(cfg, recipe, plan=pl)
+        cache = init_cache(cfg, STEP_B, STEP_PROMPT + STEP_NEW, device=dev)
+        with torch.inference_mode():
+            lg = prefill(params, {"tokens": prompts})
+            tok, toks = prompts[:, :1], []
+            for t in range(STEP_PROMPT + STEP_NEW - 1):
+                nxt, cache = step(params, cache, tok, t)
+                tok = prompts[:, t + 1:t + 2] if t + 1 < STEP_PROMPT \
+                    else nxt
+                if t + 1 >= STEP_PROMPT:
+                    toks.append(nxt[:, 0])
+        out[name] = dict(tokens=torch.stack(toks, 1).tolist(), logits=lg,
+                         launches=dict(kernels.LAUNCHES),
+                         collectives=comm.counts())
+        del cache
+    return out
+
+
+def tp_decode_kernel_checks(cfg, peaks, dev, mm):
+    """#3 (GEMM-1 and GEMM-2), #5 (both) and #7 (GEMM-1 with the SwiGLU
+    epilogue) at the TP decode block's shapes: E groups of C_exp = 128
+    rows of which the decode plan `mm` (its live rows an expert, from
+    grok's TP decode steps) fills a few; each against its twin, timed
+    beside its bound and torch.bmm (the masked rows beside the padded
+    kernel).  First the F of this phase's world-1 runs (every expert's
+    whole F, its first experts where the stack passes GEMM_CHECK_ELEMS),
+    then the F-slice a rank holds at the reference's production model
+    axis (TP_PRODUCTION).  grok's GeGLU runs #5 then #1 on a masked
+    recipe; #7 is what a SwiGLU config's TP decode runs."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    D, F, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    C = TP_DECODE_C
+    record = KernelRows(peaks)
+    for tp in (1, TP_PRODUCTION):
+        Fl = F // tp
+        Eg = experts_checked(E, D * 2 * Fl)
+        m = mm[:Eg].contiguous()
+        tag = f"grok tp_decode tp={tp}" + (f" ({Eg} of {E} E)" if Eg < E
+                                           else "")
+        print(json.dumps({"masked_plan": dict(
+            path="grok tp_decode", tp=tp, **live_stats(m, C))}))
+        w13 = blockq(gen, dev, Eg, D, 2 * Fl)
+        w2 = blockq(gen, dev, Eg, Fl, D)
+        check_gemm(record, f"{tag} gemm1", *dispatch_rows(gen, dev, m, C, D),
+                   w13)
+        check_gemm(record, f"{tag} gemm2",
+                   *dispatch_rows(gen, dev, m, C, Fl), w2)
+        if tp == 1:
+            check_masked_gemm(record, f"{tag} gemm1",
+                              *dispatch_rows(gen, dev, m, C, D), w13, m)
+            check_masked_gemm(record, f"{tag} gemm2",
+                              *dispatch_rows(gen, dev, m, C, Fl), w2, m)
+            check_masked_swiglu(record, f"{tag} gemm1 (SwiGLU epilogue)",
+                                *dispatch_rows(gen, dev, m, C, D), w13, m)
+        del w13, w2
+        torch.cuda.empty_cache()
+    return record.rows
+
+
+def launcher_tp_run(out_dir):
+    """The serve launcher with --tp 1 in a subprocess on the card: a world
+    of one on a FileStore (NCCL), make_plan (deepseek_v2_lite whole: EP),
+    its serving cut and W8 experts; it must exit 0 and report its mesh."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "deepseek_v2_lite", "--device", "cuda", "--tp", "1",
+           "--requests", "8", "--max-new", "8"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    print(run.stdout.strip())
+    check(run.returncode == 0,
+          f"the launcher --tp 1 exited {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    check("mesh={'data': 1, 'model': 1} moe_mode=ep" in run.stdout,
+          "the launcher --tp 1 did not serve on its (1, 1) mesh")
+    return dict(command=" ".join(cmd[1:]),
+                seconds=time.perf_counter() - t0)
+
+
+def serve_ranks_phase(dev, mesh, serve_tokens, dsv2_mesh_losses):
+    """Phase 42: serving across ranks on the NCCL group of one rank.
+    qwen3_moe_235b at depth 4 through the engine under make_plan(cfg,
+    mesh) (EP; its FSDP lever is a training layout and serving keeps the
+    weights whole but for the experts' cut), its W8 experts from the
+    serving cut: phase 3's tokens bit for bit; the fixed-batch path with
+    plan= against the group-less one: the same tokens; with TP experts (a
+    lever at TP = 1), masked the padded tokens.  grok1_314b at
+    depth 4 with TP experts on the group (moe_block_tp on W8 experts,
+    every expert's whole F at TP = 1): the group-less TP run's tokens bit
+    for bit, the logits at cosine >= 0.999 against the EP run
+    (moe_block_decode) on the same weights, masked the padded tokens.
+    #3, #5 and #7 at the TP decode shapes.  deepseek_v2_lite depth 4 trained on a (1, 1, 1) pod
+    mesh: the (1, 1) mesh run's losses bit for bit (phase 40).  The serve
+    launcher with --tp 1 on a world-1 FileStore mesh.  Collectives a
+    tick by kind and bytes, tokens/s and peak a run."""
+    from repro_torch.core import moe
+    from repro_torch.launch.mesh import init_mesh, make_test_mesh
+    from repro_torch.launch.sharding import make_plan, serving_cut
+    from repro_torch.models.lm import ParallelPlan, init_params
+    from repro_torch.serve.w8 import quantize_params_for_serving
+    t_phase = time.perf_counter()
+    launches, runs = {}, {}
+
+    def w8_cut(cfg, plan):
+        p = serving_cut(init_params(cfg, seed=0, device=dev), cfg, plan)
+        p = quantize_params_for_serving(p)
+        torch.cuda.empty_cache()
+        return p
+
+    cfg = serve_config()
+    plan = make_plan(cfg, mesh)
+    check(plan.moe_mode == "ep" and plan.dp_axes == ("data",),
+          f"make_plan on (1, 1): {plan}")
+    params = w8_cut(cfg, plan)
+    tokens, _, runs["qwen3"] = ranks_serve_run(cfg, dev, "ranks_serve",
+                                               params, plan)
+    launches["ranks_serve"] = runs["qwen3"]["launches"]
+    check(tokens == serve_tokens, "ranks_serve: the engine under make_plan "
+          "on the NCCL group generated other tokens than phase 3")
+    check(runs["qwen3"]["collectives"]["all-gather"]["calls"]
+          >= runs["qwen3"]["ticks"]
+          and runs["qwen3"]["collectives"]["all-to-all"]["calls"] > 0,
+          f"ranks_serve: collectives {runs['qwen3']['collectives']}")
+    # TP experts on qwen3 (a lever at TP = 1: make_plan picks EP for 128
+    # experts): the masked recipe's tokens the padded run's bit for bit
+    q_tp = ParallelPlan(mesh=mesh, moe_mode="tp")
+    q_tp_tokens, _, runs["qwen3_tp"] = ranks_serve_run(
+        cfg, dev, "ranks_tp_serve", params, q_tp)
+    q_tpm_tokens, _, runs["qwen3_tp_masked"] = ranks_serve_run(
+        cfg, dev, "ranks_tp_masked_serve", params, q_tp)
+    check(q_tpm_tokens == q_tp_tokens, "qwen3 TP: the masked recipe "
+          "generated other tokens than the padded one")
+    launches["ranks_tp_serve"] = runs["qwen3_tp"]["launches"]
+    launches["ranks_tp_masked_serve"] = runs["qwen3_tp_masked"]["launches"]
+    step = ranks_serve_step(cfg, dev, params, plan)
+    check(step["plan"]["tokens"] == step["groupless"]["tokens"],
+          "serve_step with plan= generated other tokens than without")
+    check_launches("ranks_serve_step", step["plan"]["launches"])
+    launches["ranks_serve_step"] = step["plan"]["launches"]
+    step_row = dict(
+        prefill_logits_bitwise=torch.equal(step["plan"]["logits"],
+                                           step["groupless"]["logits"]),
+        collectives=step["plan"]["collectives"],
+        tokens_sha256=hashlib.sha256(json.dumps(
+            step["plan"]["tokens"]).encode()).hexdigest())
+    del params, step
+    torch.cuda.empty_cache()
+
+    gcfg = arch_config("grok1_314b", GROK_SERVE_LAYERS)
+    tp_plan = ParallelPlan(mesh=mesh, moe_mode="tp")
+    params = w8_cut(gcfg, tp_plan)
+    decode_ids, route0 = [], moe.router_topk
+
+    def route(x, w_router, top_k):
+        p, ids, aux = route0(x, w_router, top_k)
+        if x.shape[0] == 8:                 # the 8-slot decode batch
+            decode_ids.append(ids)
+        return p, ids, aux
+
+    moe.router_topk = route
+    try:
+        tp_tokens, tp_ticks, runs["grok_tp"] = ranks_serve_run(
+            gcfg, dev, "grok_tp_serve", params, tp_plan)
+    finally:
+        moe.router_topk = route0
+    launches["grok_tp_serve"] = runs["grok_tp"]["launches"]
+    check(runs["grok_tp"]["collectives"]["all-to-all"]["calls"] == 0
+          and runs["grok_tp"]["collectives"]["all-reduce"]["calls"] > 0,
+          f"grok_tp_serve: collectives {runs['grok_tp']['collectives']}")
+    gl_tokens, gl_ticks, runs["grok_tp_groupless"] = ranks_serve_run(
+        gcfg, dev, "grok_tp_serve", params,
+        ParallelPlan(mesh=make_test_mesh(dev), moe_mode="tp"))
+    check(tp_tokens == gl_tokens, "grok TP on the NCCL group generated "
+          "other tokens than the group-less TP run")
+    logits_bitwise = all(torch.equal(a[0], b[0])
+                         for a, b in zip(tp_ticks, gl_ticks))
+    del gl_ticks
+    gm_tokens, _, runs["grok_tp_masked"] = ranks_serve_run(
+        gcfg, dev, "grok_tp_masked_serve", params, tp_plan)
+    check(gm_tokens == tp_tokens, "grok TP: the masked recipe generated "
+          "other tokens than the padded one")
+    launches["grok_tp_masked_serve"] = runs["grok_tp_masked"]["launches"]
+    ep_tokens, ep_ticks, runs["grok_ep"] = ranks_serve_run(
+        gcfg, dev, "grok_serve", params, None)
+    tp_ep_cos, n_cmp, tp_ep_same = ticks_cosine(tp_ticks, ep_ticks)
+    check(tp_ep_cos >= 0.999, f"grok TP vs EP logits cosine {tp_ep_cos}")
+    del tp_ticks, ep_ticks, params
+    torch.cuda.empty_cache()
+    E = gcfg.n_experts
+    mms = sorted((torch.bincount(ids.reshape(-1), minlength=E)
+                  .to(torch.int32) for ids in decode_ids),
+                 key=lambda m: int((m > 0).sum()))
+    rows = tp_decode_kernel_checks(gcfg, PEAKS, dev, mms[len(mms) // 2])
+
+    pod_mesh = init_mesh(1, 1, pod=1, device=dev, timeout_s=300)
+    check(pod_mesh.axis_names == ("pod", "data", "model"),
+          f"the pod mesh's axes {pod_mesh.axis_names}")
+    dcfg = arch_config("deepseek_v2_lite", DSV2_TRAIN_LAYERS)
+    pod_row = tp_train_run(dcfg, dev, "dsv2_pod_train", pod_mesh, {},
+                           state_policy="f32")
+    check(pod_row["losses"] == dsv2_mesh_losses,
+          f"dsv2 on the (1, 1, 1) pod mesh: losses {pod_row['losses']}, "
+          f"the (1, 1) mesh's {dsv2_mesh_losses}")
+    launches["dsv2_pod_train"] = pod_row["launches"]
+    launcher = launcher_tp_run(ROOT / "build" / "smoke_launcher_tp")
+    print(json.dumps({"serve_ranks": dict(
+        config=f"qwen3_moe_235b and grok1_314b at depth 4 (W8 experts "
+               f"from the serving cut), serve_trace (16 x 16 tokens); "
+               f"deepseek_v2_lite depth {DSV2_TRAIN_LAYERS} {TP_STEPS} "
+               f"steps on a (1, 1, 1) pod mesh",
+        world=mesh.world, backend="nccl",
+        by_run={k: dict(tokens_per_s=r["tokens_per_s"], ticks=r["ticks"],
+                        collectives_per_tick=r["collectives_per_tick"],
+                        peak_gib=r["max_memory_allocated_gib"])
+                for k, r in runs.items()},
+        serve_step=step_row, grok_tp_vs_groupless_logits_bitwise=
+        logits_bitwise, grok_tp_vs_ep=dict(
+            cosine=tp_ep_cos, ticks_compared=n_cmp,
+            tokens_equal=tp_ep_same and tp_tokens == ep_tokens),
+        tp_decode_plans=[m.tolist() for m in mms[:4]],
+        pod=dict(losses=pod_row["losses"], ms=pod_row["ms_per_step_warm"],
+                 collectives=pod_row["collectives_per_step"],
+                 peak_gib=pod_row["max_memory_allocated_gib"]),
+        launcher=launcher, seconds=time.perf_counter() - t_phase)}))
+    return launches, rows
+
+
 def qtensor_of(d, s):
     """A row-tiled (E, C, K) QTensor of payload d and scales s."""
     from repro_torch.core.quant import QTensor
@@ -4750,7 +5158,7 @@ def main() -> int:
     if "--nccl-two-ranks" in sys.argv:
         nccl_two_ranks_probe()
     if "--multi-gpu" in sys.argv:
-        # phases 37-41 alone, after what they compare with: phase 3's
+        # phases 37-42 alone, after what they compare with: phase 3's
         # tokens and phase 35's group-less losses
         _, tokens, _ = serve_path(serve_config(), dev)
         tcfg = train_config()
@@ -4762,7 +5170,7 @@ def main() -> int:
             groupless[f"{name}2"] = overlap_train_run(tcfg, dev, label,
                                                       2)[0]["losses"]
         multi_gpu_phases(dev, groupless, tokens)
-        print("chip_smoke --multi-gpu: phases 37-41 passed")
+        print("chip_smoke --multi-gpu: phases 37-42 passed")
         return 0
     cfg = serve_config()
     timings = kernel_checks(cfg, PEAKS, dev, floor_ms)
@@ -4944,9 +5352,10 @@ def main() -> int:
     add_rows(timings, ovl_timings)
     expected_m_phase(tcfg, dev, train_plan)
 
-    # the multi-GPU training path on an NCCL group of one rank (phases
-    # 37-39)
-    launches.update(multi_gpu_phases(dev, ovl_losses, serve_tokens))
+    # the multi-GPU training and serving paths on an NCCL group of one
+    # rank (phases 37-42)
+    launches.update(multi_gpu_phases(dev, ovl_losses, serve_tokens,
+                                     timings))
 
     from repro_torch.kernels import (adamw_update, fp8_transpose,
                                      fused_permute_pad, fused_swiglu_quant,

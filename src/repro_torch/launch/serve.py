@@ -1,15 +1,31 @@
 """Serving launcher: the continuous-batching engine over paged FP8 KV and
-W8-resident expert weights, on one device.
+W8-resident expert weights, on one device or a world of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_235b \\
       --reduced --device cuda [--recipe {fp8_flow,bf16}] [--requests 16] \\
       [--bf16-kv] [--no-w8] [--prefix-cache] [--disagg \\
       [--prefill-replicas 1] [--decode-replicas 1] [--transfer-budget B]] \\
-      [--obs-jsonl run.jsonl] [--obs-prom metrics.prom]
+      [--obs-jsonl run.jsonl] [--obs-prom metrics.prom] [--tp N] \
+      [--moe-tp-combine {psum_first,local_first,reduce_scatter}]
+
+  # two ranks (gloo on the CPU, NCCL on cards): torchrun sets the world
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --reduced --device cpu --tp 2
 
 The flags are the reference launcher's (``repro.launch.serve``) plus
-``--device``; every replica of a ``--disagg`` fleet runs on that one
-device.  ``python -m repro_torch.obs.report run.jsonl`` renders what
+``--device``, ``--tp`` (the model axis; ``--ep`` is its alias) and
+``--moe-tp-combine`` (the reference reads it from the environment).
+Every replica of a ``--disagg`` fleet runs on that one device (on each
+rank).  The world comes from torchrun's variables when they are set,
+else it is one rank; a mesh of (world / tp, tp) ranks is built
+(``launch/mesh.py``) when the world is larger than one or ``--tp`` is
+given, through a FileStore in a temporary directory at world 1.  Without
+``--reduced`` the plan is the reference's ``make_plan(cfg, mesh)``
+(``repro/launch/serve.py:71-77``): EP experts where E splits over the
+model axis, else TP experts; with ``--reduced`` the EP plan.  Every rank
+makes the world-1 weights, keeps its serving cut of the experts
+(``launch.sharding.serving_cut``) and quantizes that, and serves the
+same requests; ``--obs-*`` write on rank 0 only.  ``python -m repro_torch.obs.report run.jsonl`` renders what
 ``--obs-jsonl`` writes.  ``--arch`` takes the
 attention-only decoders: qwen15_05b, qwen3_moe_235b, deepseek_v2_lite,
 deepseek_v3_671b, starcoder2_15b, gemma3_4b, gemma2_9b and grok1_314b.
@@ -26,15 +42,21 @@ layers).
 """
 import argparse
 import dataclasses
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
 
 from repro_torch.configs import get_arch
 from repro_torch.core.recipes import RECIPES, get_recipe
-from repro_torch.models.lm import _paged_stacks, init_params
+from repro_torch.launch.mesh import close_mesh, init_mesh
+from repro_torch.launch.sharding import make_plan, serving_cut
+from repro_torch.models.lm import ParallelPlan, _paged_stacks, init_params
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.scheduler import Request
+from repro_torch.serve.w8 import quantize_params_for_serving
 
 
 def main(argv=None):
@@ -81,14 +103,52 @@ def main(argv=None):
                          "the serve metrics registry at exit")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain twins)")
+    ap.add_argument("--tp", "--ep", dest="tp", type=int, default=None,
+                    help="ranks of the mesh's model axis (expert-parallel "
+                         "or tensor-parallel experts, by the plan); given, "
+                         "or at a world above one, a mesh is built")
+    ap.add_argument("--moe-tp-combine", default="local_first",
+                    choices=["psum_first", "local_first", "reduce_scatter"],
+                    help="the TP MoE block's combine")
     args = ap.parse_args(argv)
 
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    tp = args.tp or 1
+    if world % tp:
+        raise ValueError(f"--tp {tp} does not divide the world {world}")
+    mesh = store_dir = None
+    if world > 1 or args.tp is not None:
+        store = None
+        if "RANK" not in os.environ:
+            store_dir = tempfile.mkdtemp(prefix="repro_torch_store_")
+            store = os.path.join(store_dir, "store")
+        mesh = init_mesh(world // tp, tp, device=args.device, store=store)
+    try:
+        return _run(args, mesh)
+    finally:
+        if mesh is not None:
+            close_mesh()
+        if store_dir is not None:
+            shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _run(args, mesh):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     _paged_stacks(cfg)              # refuses a stack the engine cannot page
     recipe = get_recipe(args.recipe)
-    params = init_params(cfg, seed=0, device=args.device)
+    device = args.device if mesh is None else mesh.device
+    if mesh is not None and not args.reduced:
+        plan = make_plan(cfg, mesh, moe_tp_combine=args.moe_tp_combine)
+    else:
+        plan = ParallelPlan(mesh=mesh, moe_tp_combine=args.moe_tp_combine)
+    lead = mesh is None or mesh.rank == 0
+    # every rank makes the world-1 weights and keeps its serving cut, W8
+    # once for every replica of a fleet
+    params = serving_cut(init_params(cfg, seed=0, device=device), cfg, plan)
+    if not args.no_w8 and recipe.name == "fp8_flow":
+        params = quantize_params_for_serving(params)
     ecfg = ServeConfig(
         max_batch=args.max_batch, page_size=args.page_size,
         n_pages=args.n_pages, max_pages_per_req=args.max_pages,
@@ -98,7 +158,8 @@ def main(argv=None):
         seed=args.seed)
     from repro_torch.obs.sink import JsonlSink, Telemetry, null_telemetry
     if args.obs_jsonl is not None or args.obs_prom is not None:
-        sinks = (JsonlSink(args.obs_jsonl),) if args.obs_jsonl else ()
+        sinks = (JsonlSink(args.obs_jsonl),) if args.obs_jsonl and lead \
+            else ()
         tel = Telemetry(sinks=sinks)
     else:
         tel = null_telemetry()
@@ -106,11 +167,11 @@ def main(argv=None):
         from repro_torch.serve.router import DisaggConfig, DisaggRouter
         pes = [ServeEngine(cfg, recipe, params,
                            dataclasses.replace(ecfg, role="prefill"),
-                           device=args.device, telemetry=tel)
+                           device=device, telemetry=tel, plan=plan)
                for _ in range(args.prefill_replicas)]
         des = [ServeEngine(cfg, recipe, params,
                            dataclasses.replace(ecfg, role="decode"),
-                           device=args.device, telemetry=tel)
+                           device=device, telemetry=tel, plan=plan)
                for _ in range(args.decode_replicas)]
         runner = DisaggRouter(
             pes, des, dcfg=DisaggConfig(
@@ -120,12 +181,14 @@ def main(argv=None):
               f"{len(des)} decode replicas, transfer budget "
               f"{args.transfer_budget / 2**20:.2f} MiB/cycle")
     else:
-        engine = ServeEngine(cfg, recipe, params, ecfg, device=args.device,
-                             telemetry=tel)
+        engine = ServeEngine(cfg, recipe, params, ecfg, device=device,
+                             telemetry=tel, plan=plan)
         runner = engine
-    print(f"[serve] {args.arch} recipe={recipe.name} device={args.device} "
+    print(f"[serve] {args.arch} recipe={recipe.name} device={device} "
           f"kv={'fp8' if ecfg.fp8_kv else 'bf16'} w8={ecfg.w8_weights} "
-          f"pool={engine.kv_bytes() / 2**20:.1f} MiB")
+          f"pool={engine.kv_bytes() / 2**20:.1f} MiB mesh="
+          f"{None if mesh is None else mesh.shape} moe_mode={plan.moe_mode}"
+          f" rank={0 if mesh is None else mesh.rank}")
 
     r = np.random.default_rng(args.seed)
     reqs = [Request(prompt=[int(t) for t in
@@ -138,7 +201,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     n_tok = sum(len(v["tokens"]) for v in results.values())
     print(f"[serve] {len(results)}/{args.requests} requests, {n_tok} tokens "
-          f"in {dt:.2f}s ({n_tok / dt:.1f} tok/s on {args.device}), "
+          f"in {dt:.2f}s ({n_tok / dt:.1f} tok/s on {device}), "
           f"max concurrent {engine.max_concurrent}")
     s = results.stats
     print(f"[serve] ticks={s['ticks']} admitted={s['admitted']} "
@@ -159,14 +222,15 @@ def main(argv=None):
               f"{s['prefix_lookups']} hit_tokens={s['prefix_hit_tokens']}"
               f"/{total_prompt} shared_pages={s['shared_pages']} "
               f"cache_evictions={s['cache_evictions']}")
-    if args.obs_prom is not None:
+    if args.obs_prom is not None and lead:
         tel.write_prometheus(args.obs_prom)
         print(f"[serve] wrote metrics snapshot to {args.obs_prom}")
-    if args.obs_jsonl is not None:
+    if args.obs_jsonl is not None and lead:
         tel.emit_registry()
         tel.close()
         print(f"[serve] wrote telemetry to {args.obs_jsonl} "
               f"(report: python -m repro_torch.obs.report {args.obs_jsonl})")
+    return results
 
 
 if __name__ == "__main__":

@@ -28,6 +28,21 @@ post-hoc gradient sum: what its stage's collectives have not summed yet.
 
 The loss is the mean over the global batch: each rank's loss is the mean
 over its share, and the train step averages the ranks' (equal shares).
+On a pod mesh the batch is cut over every rank all the same, the
+replicated leaves' gradients are summed over pod x data (x model), and
+FSDP and ZeRO-1 stay over ``data`` (the reference's rules, its
+``:1-8``).
+
+Serving (``serving_cut``) cuts only the routed experts of the world-1
+tree, before the W8 quantize, so that no rank ever holds the whole W8
+tree: ``moe_mode='ep'`` keeps the rank's E / tp experts (at its model
+index), ``'tp'`` every expert's F-slice (we13's and we2's F axis, at a
+multiple of 128).  Attention, the embeddings, the LM head, the dense
+MLPs, the shared experts, the router and the norms stay whole on every
+rank, and every rank holds the same rows (``ParallelPlan.for_serving``).
+The W8 tiles are (1, 1, 128, 1, 128) and (1, 1, 128, 128)
+(``serve/w8.py``), so cutting then quantizing gives the bits of
+quantizing then cutting.
 
 ``MeshShardings`` moves the plain step's state between the ranks and a
 checkpoint: the checkpoint holds the world-1 tree, gathered over every
@@ -67,6 +82,64 @@ def make_plan(cfg, mesh, *, moe_tp_combine: str = "local_first",
                         moe_tp_combine=moe_tp_combine, mlp_tp=mlp_tp)
 
 
+def serving_axis(cfg, plan, name: str):
+    """The stacked axis the serving cut takes of expert leaf `name`
+    ('we13' (L, E, D, g, Fe) or 'we2' (L, E, Fe, D)) under `plan`, with
+    the size it must have whole: E at EP > 1, Fe in TP mode (at TP > 1),
+    None for no cut.  Raises where the cut does not divide, or leaves an
+    F-slice that is not a multiple of 128 (the W8 and GEMM tiles)."""
+    mesh = plan.mesh
+    tp = 1 if mesh is None else mesh.shape[plan.tp_axis]
+    if name not in ("we13", "we2") or not cfg.moe or tp == 1:
+        return None
+    if plan.moe_mode == "ep":
+        if cfg.n_experts % tp:
+            raise ValueError(f"{cfg.n_experts} experts do not split over "
+                             f"EP = {tp}")
+        return 1, cfg.n_experts
+    F = cfg.d_ff_expert
+    if F % tp or (F // tp) % TILE:
+        raise ValueError(f"{name}: d_ff_expert {F} over TP = {tp} leaves an "
+                         f"F-slice of {F / tp:g}, not a multiple of {TILE}")
+    return (4 if name == "we13" else 2), F
+
+
+def _narrow(t, ax: int, n: int, i: int):
+    w = t.shape[ax] // n
+    return t.narrow(ax, i * w, w).clone()
+
+
+def serving_cut(params, cfg, plan):
+    """This rank's serving weights from the world-1 tree (module
+    docstring): the routed experts cut on E (EP) or F (TP) over the model
+    axis at the rank's model index, copies, every other leaf as it is.
+    A leaf already at the cut's size is taken as this rank's; W8 leaves
+    (QTensors) cut their scales with their payload."""
+    mesh = plan.mesh
+    if mesh is None or "layers" not in params:
+        return params
+    layers = dict(params["layers"])
+    for name in ("we13", "we2"):
+        cut = serving_axis(cfg, plan, name)
+        leaf = layers.get(name)
+        if cut is None or leaf is None:
+            continue
+        ax, whole = cut
+        n, i = mesh.shape[plan.tp_axis], mesh.model_index
+        size = leaf.shape[ax]
+        if size == whole // n:
+            continue
+        if size != whole:
+            raise ValueError(f"layers.{name} {tuple(leaf.shape)}: axis {ax} "
+                             f"is neither {whole} nor its cut {whole // n}")
+        if isinstance(leaf, QTensor):
+            layers[name] = QTensor(_narrow(leaf.data, ax, n, i),
+                                   _narrow(leaf.scale, ax, n, i), leaf.tile)
+        else:
+            layers[name] = _narrow(leaf, ax, n, i)
+    return dict(params, layers=layers)
+
+
 def _plan_of(mesh, plan):
     if plan is not None:
         return plan
@@ -79,10 +152,6 @@ def _walk(tree, fn, path=""):
         return {k: _walk(v, fn, f"{path}.{k}" if path else k)
                 for k, v in tree.items()}
     return fn(path, tree)
-
-
-def _axis_index(mesh, mesh_axis: str) -> int:
-    return mesh.model_index if mesh_axis == "model" else mesh.data_index
 
 
 def shard_params(params, mesh, cfg, plan=None):
@@ -102,7 +171,7 @@ def shard_params(params, mesh, cfg, plan=None):
                 raise ValueError(f"{path} {tuple(leaf.shape)}: axis {ax} "
                                  f"does not split over {m} = {n}")
             w = leaf.shape[ax] // n
-            leaf = leaf.narrow(ax, _axis_index(mesh, m) * w, w)
+            leaf = leaf.narrow(ax, mesh.index(m) * w, w)
         return whole if leaf.shape == whole.shape else leaf.clone()
     return _walk(params, cut)
 
@@ -133,20 +202,15 @@ def grad_group(path: str, mesh, cfg, plan=None):
     TP: the model group's tokens are gathered, so each F-slice's gradient
     is whole) and for the router in TP mode (replicated over the group
     with the same gradient on every rank); 'data' for an FSDP-cut leaf
-    (its gather's backward reduce-scattered it).  None: nothing left."""
+    (its gather's backward reduce-scattered it).  A pod axis is never
+    done.  None: nothing left."""
     plan = _plan_of(mesh, plan)
-    axes = {m for _, m in plan.leaf_cuts(cfg, path)}
+    done = {m for _, m in plan.leaf_cuts(cfg, path)}
     if (path.split(".")[-1] == "w_router" and plan.moe_mode == "tp"
             and cfg.moe):
-        axes.add("model")
-    need_data, need_model = "data" not in axes, "model" not in axes
-    if need_data and need_model:
-        return mesh.world_group
-    if need_data:
-        return mesh.data_group
-    if need_model:
-        return mesh.model_group
-    return None
+        done.add("model")
+    left = tuple(a for a in mesh.axis_names if a not in done)
+    return mesh.group(left) if left else None
 
 
 def norm_groups(path: str, mesh, cfg, plan=None) -> tuple:
@@ -285,7 +349,7 @@ class MeshShardings:
                     pre = math.prod(shape[:ax])
                     cols = f.numel() // pre
                     f = f.reshape(pre, cols).narrow(
-                        1, _axis_index(self.mesh, m) * (cols // n),
+                        1, self.mesh.index(m) * (cols // n),
                         cols // n)
                     shape[ax] //= n
                 t.copy_(f.reshape(t.shape))

@@ -42,7 +42,12 @@ every global batch (``launch/sharding.py``).
 - ``--tp N``: the model axis of N ranks: the expert-parallel all-to-all
   (each rank holds E / N experts), or with TP experts and ``--mlp-tp``
   the F-sliced stages; gradients all-reduced in f32.
-- ``--multi-pod`` raises: the pod axis is multi-GPU part 3.
+- ``--multi-pod``: the reference's pod axis (``make_production_mesh(
+  multi_pod=True)``): a (pod, data, model) mesh of (2, world / (2 tp),
+  tp) ranks (a world that does not divide raises).  The batch is cut over
+  every rank, the replicated leaves' gradients are summed over pod x data
+  (x model), FSDP stays over data; the DistPlan wire refuses the pod
+  axis, as the reference's does (it needs a DP-only mesh).
 
 The steps run through ``train.loop.run``:
 
@@ -95,6 +100,10 @@ from repro_torch.train.guards import GuardPlan, GuardPolicy
 from repro_torch.train.loop import run as run_loop
 from repro_torch.train.train_step import init_train_state, make_train_step
 
+# the reference's multi-pod production mesh has two pods
+# (repro/launch/mesh.py: make_production_mesh(multi_pod=True), (2, 16, 16))
+POD = 2
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -129,7 +138,8 @@ def main(argv=None):
                     help="F-slice the dense MLPs and shared experts over "
                          "the model axis where (F / tp) % 128 == 0")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the reference's pod axis (not ported: part 3)")
+                    help="a leading pod axis of 2 (pure data parallelism): "
+                         "a (2, world / (2 tp), tp) mesh")
     ap.add_argument("--remat-policy", default=None,
                     choices=["none", "full", "fp8_resident", "pair"],
                     help="activation-residency plan (default: the config's, "
@@ -161,24 +171,22 @@ def main(argv=None):
                     help="write a Prometheus text-exposition snapshot of "
                          "the metrics registry at exit")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the pod axis comes with multi-GPU part 3 "
-            "(ROADMAP.md, Queue 1, item 7)")
-
     dist = DistPlan(wire=args.dist_wire, schedule=args.dist_schedule) \
         if args.dist_wire != "off" else None
     world = int(os.environ.get("WORLD_SIZE", 1))
-    if world % args.tp:
-        raise ValueError(f"--tp {args.tp} does not divide the world {world}")
+    pod = POD if args.multi_pod else None
+    if world % (args.tp * (pod or 1)):
+        raise ValueError(f"--tp {args.tp}" + (f" x --multi-pod's {pod} pods"
+                                               if pod else "")
+                         + f" does not divide the world {world}")
     mesh = store_dir = None
-    if world > 1 or args.tp > 1 or dist is not None:
+    if world > 1 or args.tp > 1 or dist is not None or pod:
         store = None
         if "RANK" not in os.environ:
             store_dir = tempfile.mkdtemp(prefix="repro_torch_store_")
             store = os.path.join(store_dir, "store")
-        mesh = init_mesh(world // args.tp, args.tp, device=args.device,
-                         store=store)
+        mesh = init_mesh(world // args.tp // (pod or 1), args.tp, pod=pod,
+                         device=args.device, store=store)
     try:
         return _run(args, dist, mesh)
     finally:

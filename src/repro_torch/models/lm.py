@@ -49,7 +49,7 @@ from repro_torch.core.moe import (MoEConfig, moe_block, moe_block_decode,
 from repro_torch.core.quant import QTensor, tag_saveable
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import CHUNK_ELEMS, resolve_device
-from repro_torch.dist import tp
+from repro_torch.dist import comm, tp
 from repro_torch.models.layers import (apply_norm, attn_block,
                                        decode_attention, flash_attention,
                                        project_qkv, rmsnorm)
@@ -97,8 +97,6 @@ def _n_dense(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 # The parallel plan (the reference's ParallelPlan, lm.py:36-72).
 # ---------------------------------------------------------------------------
-_PART3 = ("multi-GPU part 3 (ROADMAP.md, Queue 1, item 7: serving across "
-          "ranks, with TP decode)")
 TP_COMBINES = ("psum_first", "local_first", "reduce_scatter")
 
 
@@ -130,10 +128,12 @@ class ParallelPlan:
     (``repro/models/lm.py:36-72``); ``launch/sharding.make_plan`` picks
     them as the reference's launcher does.
 
-    dp_axes         axes sharding the batch: ('data',), the mesh's one data
-                    axis (the port's Megatron layout splits the global batch
-                    over every rank, the reference's ``token_axes_moe``:
-                    launch/sharding.py); any other value raises
+    dp_axes         axes sharding the batch: the mesh's data-parallel
+                    axes, ('data',) or, on a pod mesh, ('pod', 'data') (the
+                    default picks them from the mesh); the port's Megatron
+                    layout splits the global batch over every rank, the
+                    reference's ``token_axes_moe`` (launch/sharding.py);
+                    any other value raises
     tp_axis         the model axis: 'model'; any other raises
     moe_mode        'ep': experts sharded on E over tp_axis (the all-to-all
                     blocks); 'tp': every rank holds every expert with its
@@ -155,9 +155,16 @@ class ParallelPlan:
                     unrolled staged program (``_run_stack_unrolled``).  The
                     port's stack loop (``_run_blocks``) is that staged
                     program always, so True and False run the same code
-                    and give the same bits."""
+                    and give the same bits
+    serving         the serving layout (``for_serving()``): every rank
+                    holds the same rows, and each MoE stage cuts them as
+                    the reference's ``shard_map`` boundary does
+                    (``_serving_split``) and gathers the output back, so
+                    every rank ends the stage with the same rows.  Its
+                    weights are the serving cut (launch/sharding.py): the
+                    experts cut, every other leaf whole."""
     mesh: object = None
-    dp_axes: tuple = ("data",)
+    dp_axes: Optional[tuple] = None
     tp_axis: str = "model"
     moe_mode: str = "ep"
     moe_tp_combine: str = "local_first"
@@ -165,6 +172,7 @@ class ParallelPlan:
     fsdp_axis: Optional[str] = None
     mlp_tp: bool = False
     stage_layers: bool = False
+    serving: bool = False
 
     def __post_init__(self):
         if self.moe_mode not in ("ep", "tp"):
@@ -176,11 +184,24 @@ class ParallelPlan:
         if self.fsdp_axis not in (None, "data"):
             raise ValueError(f"fsdp_axis {self.fsdp_axis!r}: the mesh's "
                              "FSDP axis is 'data' (or None)")
-        if tuple(self.dp_axes) != ("data",) or self.tp_axis != "model":
+        want = ("data",) if self.mesh is None else tuple(
+            a for a in ("pod", "data") if a in self.mesh.axis_names)
+        if self.dp_axes is None:
+            object.__setattr__(self, "dp_axes", want)
+        ok = (want,) if self.mesh is not None else (want, ("pod", "data"))
+        if tuple(self.dp_axes) not in ok or self.tp_axis != "model":
             raise ValueError(
-                f"the mesh has one data axis and one model axis "
-                f"(launch/mesh.py): dp_axes=('data',), tp_axis='model'; got "
-                f"{self.dp_axes!r}, {self.tp_axis!r}")
+                f"the mesh's data-parallel axes are {want!r} and its model "
+                f"axis 'model' (launch/mesh.py): dp_axes={want!r}, "
+                f"tp_axis='model'; got {self.dp_axes!r}, {self.tp_axis!r}")
+
+    def for_serving(self) -> "ParallelPlan":
+        """This plan in the serving layout: the rows replicated, the
+        experts cut as ``launch.sharding.serving_cut`` cuts them, every
+        other weight whole (no FSDP gather, no TP MLP; the reference's
+        other layouts give the same arithmetic)."""
+        return dataclasses.replace(self, serving=True, fsdp_axis=None,
+                                   mlp_tp=False)
 
     def _group(self, axis):
         return None if self.mesh is None else self.mesh.group(axis)
@@ -484,6 +505,44 @@ def _mlp_decode(cfg, p, x):
     return _bf16_matmul(a.to(x.dtype), p["w2"].to(x.dtype))
 
 
+def _serving_split(plan, x, split_seq: bool):
+    """The reference's ``shard_map`` boundary of a MoE stage in the
+    serving layout (every rank holds the same x (B, S, D); its
+    ``lm.py:395-426``): B cut over the pod x data group where it divides
+    (``dp3``), and, where `split_seq` (an EP prefill: ``token_axes_moe``),
+    S over the model group where it divides (``seq3``); otherwise the rows
+    stay replicated.  Capacities and drops follow each rank's own T, as
+    in the reference.  Returns (this rank's block, the groups its output
+    is gathered over: (dp, seq), None where not cut)."""
+    mesh = plan.mesh
+    if mesh is None or not mesh.has_groups:
+        return x, None, None
+    B, S, _ = x.shape
+    dp_g = seq_g = None
+    n_dp, tp = mesh.dp_size, mesh.shape[plan.tp_axis]
+    if n_dp > 1 and B % n_dp == 0:
+        b = B // n_dp
+        x = x[mesh.dp_index * b:(mesh.dp_index + 1) * b]
+        dp_g = mesh.dp_group
+    if split_seq and tp > 1 and S % tp == 0:
+        s = S // tp
+        x = x[:, mesh.model_index * s:(mesh.model_index + 1) * s]
+        seq_g = plan.model_group
+    return x, dp_g, seq_g
+
+
+def _serving_join(y, dp_g, seq_g):
+    """The blocks of ``_serving_split`` gathered back into (B, S, D) on
+    every rank (S over the model group, then B over the dp group, each in
+    rank order)."""
+    if seq_g is not None:
+        y = comm.all_gather(y.transpose(0, 1).contiguous(),
+                            seq_g).transpose(0, 1)
+    if dp_g is not None:
+        y = comm.all_gather(y.contiguous(), dp_g)
+    return y
+
+
 def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, plan=None):
     """x (B, S, D) -> (B, S, D), aux loss.  Prefill runs ``moe_block``,
     decode ``moe_block_decode`` (the reference's 'ep' and 'decode' modes)
@@ -496,21 +555,26 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, plan=None):
     ``moe_block_decode_overlapped`` at ``decode_chunks_for(T)``.  None
     keeps the monolithic blocks.
 
-    ``plan.moe_mode == 'tp'`` (the reference's ``lm.py:316-488``): the
-    model group's tokens are gathered (``dist/tp.gather_rows``), every
-    rank runs ``moe_block_tp`` on its F-slice of every expert, and keeps
-    its rows of the combined output (the ``reduce_scatter`` combine gives
-    them directly, the other two all-reduce then slice); the aux loss is
-    the same on every rank of the group, and its cotangent is summed over
-    the group (``dist/tp.sum_grad``), since every rank's loss reads it.
-    Decode in TP mode raises (serving across ranks is multi-GPU part 3).
+    ``plan.moe_mode == 'tp'`` (the reference's ``lm.py:316-488``): every
+    rank runs ``moe_block_tp`` on its F-slice of every expert, in prefill
+    and in decode (``lm.py:347-350``, ``:377-380``).  In training the
+    model group's tokens are gathered (``dist/tp.gather_rows``) and each
+    rank keeps its rows of the combined output (the ``reduce_scatter``
+    combine gives them directly, the other two all-reduce then slice);
+    the aux loss is the same on every rank of the group, and its cotangent
+    is summed over the group (``dist/tp.sum_grad``), since every rank's
+    loss reads it.
+
+    ``plan.serving`` (the serving layout: every rank holds the same rows)
+    cuts the rows as the reference's boundary does (``_serving_split``:
+    a decode step's and a TP stage's over the pod x data group only, an
+    EP prefill's over the model group too) and gathers the output back.
     With ``plan.fsdp_axis`` the expert weights are gathered over the data
     group first; W8 serving weights never are."""
     B, S, D = x.shape
     plan = NO_PLAN if plan is None else plan
     moe_overlap = plan.moe_overlap
-    if plan.moe_mode == "tp" and decode:
-        raise NotImplementedError(f"decode with moe_mode='tp': {_PART3}")
+    tp_mode = plan.moe_mode == "tp"
     mcfg = MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k, d_model=D,
                      d_ff=cfg.d_ff_expert, capacity_factor=cfg.capacity_factor,
                      act=cfg.act, ep_group=plan.model_group)
@@ -523,26 +587,36 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, plan=None):
         we2 = _fsdp_weight(plan, "we2", we2, (E, Fe, D))
         El, Dl, gl, Fl = we13.shape
         we13 = we13.reshape(El, Dl, gl * Fl)
-    xf = x.reshape(B * S, D)
+    xs, dp_g, seq_g = x, None, None
+    if plan.serving:
+        xs, dp_g, seq_g = _serving_split(plan, x, split_seq=not (
+            decode or tp_mode))
+    Bl, Sl = xs.shape[:2]
+    xf = xs.reshape(Bl * Sl, D)
     shared = {"w13": p.get("ws13"), "w2": p.get("ws2")}
     Fs = cfg.n_shared_experts * cfg.d_ff_expert
     shared_out = None
-    if plan.moe_mode == "tp":
+    if tp_mode:
         group = plan.model_group
         combine = plan.moe_tp_combine
-        y, m = moe_block_tp(recipe, mcfg, tp.gather_rows(xf, group),
-                            p["w_router"], we13, we2, tp_group=group,
-                            combine_mode=combine)
-        if combine != "reduce_scatter":
-            y = tp.own_rows(y, group)
-        m = dict(m, aux_loss=tp.sum_grad(m["aux_loss"], group))
+        # training gathers the model group's rows; serving holds them
+        rows = xf if plan.serving else tp.gather_rows(xf, group)
+        y, m = moe_block_tp(recipe, mcfg, rows, p["w_router"], we13, we2,
+                            tp_group=group, combine_mode=combine)
+        if plan.serving:
+            if combine == "reduce_scatter":
+                y = comm.all_gather(y, group)
+        else:
+            if combine != "reduce_scatter":
+                y = tp.own_rows(y, group)
+            m = dict(m, aux_loss=tp.sum_grad(m["aux_loss"], group))
     elif moe_overlap is None:
         block = moe_block_decode if decode else moe_block
         y, m = block(recipe, mcfg, xf, p["w_router"], we13, we2)
     elif decode:
         y, m = moe_block_decode_overlapped(
             recipe, mcfg, xf, p["w_router"], we13, we2,
-            n_chunks=moe_overlap.decode_chunks_for(B * S))
+            n_chunks=moe_overlap.decode_chunks_for(Bl * Sl))
     else:
         # the shared experts depend on x only: issued before the routed
         # block, as the reference does under its overlap plan
@@ -550,8 +624,8 @@ def _moe_stage(cfg, recipe: Recipe, p, x, decode=False, plan=None):
             shared_out = _mlp_stage(cfg, recipe, shared, x, plan, Fs)
         y, m = moe_block_overlapped(
             recipe, mcfg, xf, p["w_router"], we13, we2,
-            n_chunks=moe_overlap.chunks_for(B * S))
-    y = y.reshape(B, S, D)
+            n_chunks=moe_overlap.chunks_for(Bl * Sl))
+    y = _serving_join(y.reshape(Bl, Sl, D), dp_g, seq_g)
     if cfg.n_shared_experts:
         if shared_out is None:
             shared_out = (_mlp_decode(cfg, shared, x) if decode
@@ -573,8 +647,12 @@ def _train_layer_slices(stack_params, n: int):
     Deeper stacks unbind, whose backward stacks the layers' gradients
     once; indexing would give the stacked leaf a full-size zero gradient
     per layer."""
-    per_leaf = {name: ((leaf.squeeze(0),) if n == 1 else leaf.unbind(0))
-                for name, leaf in stack_params.items()}
+    def split(leaf):
+        if isinstance(leaf, QTensor):           # W8 serving weights
+            return [QTensor(leaf.data[i], leaf.scale[i], leaf.tile[1:])
+                    for i in range(n)]
+        return (leaf.squeeze(0),) if n == 1 else leaf.unbind(0)
+    per_leaf = {name: split(leaf) for name, leaf in stack_params.items()}
     return [{name: v[i] for name, v in per_leaf.items()} for i in range(n)]
 
 
@@ -794,7 +872,9 @@ def forward(cfg: ArchConfig, recipe: Recipe, params, batch,
     `plan` (a ``ParallelPlan``) maps the MoE layers onto the mesh's
     expert-parallel group and carries the chunked blocks' DispatchPlan
     (``_moe_stage``).  On a mesh the batch is this rank's share and the
-    loss is its mean (the train step averages the ranks')."""
+    loss is its mean (the train step averages the ranks'); under a
+    serving plan (``ParallelPlan.for_serving``, ``serve_step.
+    make_prefill``) every rank holds the whole batch."""
     plan = NO_PLAN if plan is None else plan
     x = _embed_tokens(cfg, params, batch["tokens"])
     prefix = batch.get("prefix") if cfg.frontend != "none" else None
@@ -956,9 +1036,12 @@ def decode_step(cfg: ArchConfig, recipe: Recipe, params, cache, tokens, pos,
     position, the fixed-batch path) or a (B,) tensor of per-request
     positions (cache rows [0, pos_b) hold the history).  The cache (from
     ``init_cache``) is updated in place but for the SSM conv histories,
-    which are replaced.  `plan`: as ``forward``'s, its decode depth.
-    Returns (logits (B, 1, V), the cache)."""
-    plan = NO_PLAN if plan is None else plan
+    which are replaced.  `plan`: as ``forward``'s, its decode depth, in
+    the serving layout (``ParallelPlan.for_serving``): every rank holds
+    the same rows and the same cache, its experts cut by
+    ``launch.sharding.serving_cut``.  Returns (logits (B, 1, V), the
+    cache)."""
+    plan = (NO_PLAN if plan is None else plan).for_serving()
     x = _embed_tokens(cfg, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
@@ -1071,9 +1154,9 @@ def paged_decode_step(cfg: ArchConfig, recipe: Recipe, params, pools,
 
     tokens (B, 1) int; pos (B,) per-request positions of this token; active
     (B,) bool (inactive slots write to the scratch page; their outputs are
-    garbage); page_tables (B, max_pages).  `plan`: as ``forward``'s, its
-    decode depth.  Returns logits (B, 1, V)."""
-    plan = NO_PLAN if plan is None else plan
+    garbage); page_tables (B, max_pages).  `plan`: as ``decode_step``'s
+    (the serving layout).  Returns logits (B, 1, V)."""
+    plan = (NO_PLAN if plan is None else plan).for_serving()
     x = _embed_tokens(cfg, params, tokens)
     B = x.shape[0]
     pos = pos.to(torch.int64)
@@ -1096,9 +1179,9 @@ def paged_prefill(cfg: ArchConfig, recipe: Recipe, params, pools,
     tokens (1, S), right-padded to the bucket S; `length` valid tokens in
     this chunk at absolute offset `start`; rows >= length land on the
     scratch page.  history=True attends to the rows [0, start) already in
-    the pages.  `plan`: as ``forward``'s.  Returns logits (1, 1, V) at
-    position start + length - 1."""
-    plan = NO_PLAN if plan is None else plan
+    the pages.  `plan`: as ``decode_step``'s (the serving layout).
+    Returns logits (1, 1, V) at position start + length - 1."""
+    plan = (NO_PLAN if plan is None else plan).for_serving()
     x = _embed_tokens(cfg, params, tokens)
     S = x.shape[1]
     rel = torch.arange(S, device=x.device)

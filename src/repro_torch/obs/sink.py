@@ -195,6 +195,15 @@ class _NullTelemetry(Telemetry):
         self.enabled = False
 
 
+def on_rank(tel: Telemetry, mesh) -> Telemetry:
+    """`tel` on the world's rank 0 (or without a mesh); on any other rank
+    a telemetry over the same registry whose records reach no sink, so
+    only rank 0 writes."""
+    if mesh is None or mesh.rank == 0 or not tel.enabled:
+        return tel
+    return Telemetry(registry=tel.registry, clock=tel.clock)
+
+
 def null_telemetry(log_fn=None) -> Telemetry:
     """A telemetry handle that keeps registry bookkeeping (cheap, host-side)
     but sinks nothing; with log_fn set, events still render human lines, so

@@ -26,6 +26,22 @@ a ``prefill`` replica parks each finished prefill in ``handoff`` for the
 router (serve/router.py) to migrate its KV pages, bit for bit, to a
 ``decode`` replica (serve/transfer.py), which admits nothing itself.
 Telemetry reads host state only, so it adds no host sync to a tick.
+
+Across ranks (a ``plan`` on a mesh of more than one rank, or of one rank
+with its groups): every rank runs the same scheduler, allocator, prefix
+cache and role on the same requests, and its pool holds the same bytes
+as every other rank's.  Its weights are the serving cut of the world-1
+tree (``launch.sharding.serving_cut``, before the W8 quantize): its
+experts (EP) or every expert's F-slice (TP); every other leaf whole.
+Every rank runs every row; each MoE stage cuts the rows as the
+reference does and gathers its output back (``models.lm._moe_stage``),
+so every rank samples every row from the same logits with the same
+generator, and the world-1 engine's draws are kept at any temperature.
+Once a tick the sampled tokens are compared across the world (one int32
+all-gather, counted): a rank that sampled differently raises on every
+rank.  Telemetry sinks write on the world's rank 0 only.  With
+``realtime`` arrivals the ranks admit what every rank's clock has seen
+arrive (one int32 all-reduce a loop while requests are pending).
 """
 from __future__ import annotations
 
@@ -41,10 +57,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import check_decode_recipe
 from repro_torch.core.recipes import Recipe
 from repro_torch.device import resolve_device
+from repro_torch.dist import comm
+from repro_torch.launch.sharding import serving_cut
 from repro_torch.models.lm import (NO_PLAN, paged_decode_step,
                                    paged_prefill)
 from repro_torch.obs.metrics import po2_buckets
-from repro_torch.obs.sink import null_telemetry
+from repro_torch.obs.sink import null_telemetry, on_rank
 from repro_torch.serve.paged_kv import (PageAllocator, copy_page,
                                         init_paged_cache, pool_nbytes)
 from repro_torch.serve.scheduler import Request, RequestState, Scheduler
@@ -106,19 +124,37 @@ def sample_tokens(logits, temps, top_k: int, generator=None):
     return torch.where(sampled_rows, sampled, greedy)
 
 
+def arrivals_due(pending, now: float, realtime: bool, group,
+                 device) -> int:
+    """How many of the `pending` requests (sorted by arrival) to submit
+    now: all of them closed-loop; with `realtime` those whose arrival
+    time has passed, agreed as the least over `group`'s ranks (every
+    rank then submits the same requests)."""
+    if not realtime:
+        return len(pending)
+    n = 0
+    while n < len(pending) and pending[n].arrival_time <= now:
+        n += 1
+    if group is None or not pending:
+        return n
+    return -int(comm.agree_max_int(torch.tensor(-n, device=device), group))
+
+
 class ServeEngine:
     """Continuous-batching serving over paged FP8 KV + W8-resident weights.
 
         eng = ServeEngine(cfg, recipe, params, ServeConfig(...), device="cuda")
         results = eng.run([Request(prompt=[...], max_new_tokens=8), ...])
 
-    `plan` (``models.lm.ParallelPlan``): its ``moe_overlap`` (a
-    ``core.moe.DispatchPlan``) runs the MoE layers of the prefill and
-    decode steps through the chunked blocks (None keeps the monolithic
-    ones), and its mesh runs them over the expert-parallel group (the
-    prefill's all-to-alls, the decode combine's all-reduce).  Serving
-    across ranks (each rank its experts) and TP experts
-    (``moe_mode='tp'``) come with multi-GPU part 3 (ROADMAP.md).
+    `plan` (``models.lm.ParallelPlan``, in its serving layout): its
+    ``moe_overlap`` (a ``core.moe.DispatchPlan``) runs the MoE layers of
+    the prefill and decode steps through the chunked blocks (None keeps
+    the monolithic ones); its mesh runs them over the model group (EP:
+    the prefill's all-to-alls and the decode combine's all-reduce; TP
+    experts, ``moe_mode='tp'``: ``moe_block_tp``'s combine) and cuts the
+    batch over the pod x data group; `params` is the world-1 tree (or
+    this rank's serving cut of it).  Every rank of the mesh runs an
+    engine on the same requests (module docstring).
     """
 
     def __init__(self, cfg: ArchConfig, recipe: Recipe, params,
@@ -127,16 +163,12 @@ class ServeEngine:
         check_decode_recipe(recipe)
         self.device = resolve_device(device)
         self.cfg, self.recipe, self.ecfg = cfg, recipe, ecfg
-        self.plan = NO_PLAN if plan is None else plan
-        if self.plan.mesh is not None and self.plan.mesh.world > 1:
-            raise NotImplementedError(
-                "serving across ranks comes with multi-GPU part 3 "
-                "(ROADMAP.md, Queue 1, item 7); a mesh of one rank runs")
-        if self.plan.moe_mode == "tp":
-            raise NotImplementedError(
-                "serving with moe_mode='tp' (TP decode) comes with "
-                "multi-GPU part 3 (ROADMAP.md, Queue 1, item 7)")
-        self.tel = telemetry if telemetry is not None else null_telemetry()
+        self.plan = (NO_PLAN if plan is None else plan).for_serving()
+        # the group the ranks' sampled tokens are compared over
+        self.agree_group = None if self.plan.mesh is None \
+            else self.plan.mesh.world_group
+        self.tel = on_rank(telemetry if telemetry is not None
+                           else null_telemetry(), self.plan.mesh)
         if ecfg.role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"unknown role {ecfg.role!r}")
         if ecfg.prefill_chunk is not None and (
@@ -145,7 +177,7 @@ class ServeEngine:
             raise ValueError(
                 f"prefill_chunk {ecfg.prefill_chunk} must be in "
                 f"[1, {max(ecfg.prefill_buckets)}] (largest bucket)")
-        params = params_to(params, self.device)
+        params = params_to(serving_cut(params, cfg, self.plan), self.device)
         if ecfg.w8_weights and recipe.name == "fp8_flow":
             from repro_torch.serve.w8 import quantize_params_for_serving
             params = quantize_params_for_serving(params)
@@ -323,7 +355,7 @@ class ServeEngine:
             out["decode_toks"] = sample_tokens(lg[:, -1, :],
                                                self._tensor(temps),
                                                ecfg.top_k, self.gen)
-        out = {k: v.tolist() for k, v in out.items()}   # one host sync
+        out = self._agreed(out)                        # one host sync
         self._tick_count += 1
         self.max_concurrent = max(self.max_concurrent,
                                   len(decode_slots) + (pf is not None))
@@ -366,6 +398,28 @@ class ServeEngine:
             if st is not None:
                 self._emit(st, int(out["decode_toks"][s]), now, results)
         return True
+
+    def _agreed(self, out: dict) -> dict:
+        """The tick's sampled tokens on the host, compared across the
+        world's ranks (one int32 all-gather): a rank whose tokens differ
+        from rank 0's raises, on every rank."""
+        keys = list(out)
+        flat = torch.cat([out[k].reshape(-1) for k in keys]).to(torch.int32)
+        if self.agree_group is None:
+            rows = [flat.tolist()]
+        else:
+            rows = comm.all_gather(flat[None], self.agree_group).tolist()
+        bad = [r for r, row in enumerate(rows) if row != rows[0]]
+        if bad:
+            raise RuntimeError(
+                f"tick {self._tick_count}: ranks {bad} sampled other tokens "
+                f"than rank 0 ({[rows[r] for r in bad]} against {rows[0]})")
+        got, i = {}, 0
+        for k in keys:
+            n = out[k].numel()
+            got[k] = rows[0][i] if out[k].ndim == 0 else rows[0][i:i + n]
+            i += n
+        return got
 
     def _emit(self, st: RequestState, tok: int, now: float,
               results: Dict[int, dict]) -> None:
@@ -506,8 +560,8 @@ class ServeEngine:
         idle_spins = 0
         while pending or not self.sched.idle():
             now = time.perf_counter() - t0
-            while pending and (not realtime
-                               or pending[0].arrival_time <= now):
+            for _ in range(arrivals_due(pending, now, realtime,
+                                        self.agree_group, self.device)):
                 self.submit(pending.popleft())
             if self.tick(now, results):
                 idle_spins = 0

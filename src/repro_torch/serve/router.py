@@ -27,6 +27,17 @@ same cooperative loop ServeEngine.run uses, generalized to N engines — and
 merges per-request results/stats into one TraceResults.  Every routing
 decision lands in telemetry (`route` records + per-replica counters) so the
 reporter can show placement quality next to hit rates.
+
+Across ranks, every engine of a fleet shares one plan and mesh (as
+``repro/launch/serve.py:97-108`` builds them) and every rank runs the
+same fleet on the same requests: the routing, the drain order and the
+migrations are host decisions on state that is the same on every rank
+(the scores read the schedulers and the radix trees, and the donor order
+follows the ticks), so they are the same on every rank; each engine
+compares its sampled tokens across the world every tick, and realtime
+arrivals are agreed as the engine's are (``engine.arrivals_due``).  A
+page migration runs on each rank from its own pool, which holds the same
+bytes as every other rank's.  Telemetry writes on rank 0 only.
 """
 from __future__ import annotations
 
@@ -35,8 +46,8 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
-from repro_torch.obs.sink import null_telemetry
-from repro_torch.serve.engine import ServeEngine, TraceResults
+from repro_torch.obs.sink import null_telemetry, on_rank
+from repro_torch.serve.engine import ServeEngine, TraceResults, arrivals_due
 from repro_torch.serve.scheduler import Request
 
 
@@ -56,8 +67,13 @@ class ReplicaRouter:
         if not engines:
             raise ValueError("router needs at least one replica")
         self.engines = list(engines)
+        meshes = [getattr(getattr(e, "plan", None), "mesh", None)
+                  for e in self.engines]
+        if any(m != meshes[0] for m in meshes):
+            raise ValueError("a fleet's engines share one plan's mesh")
         self.rcfg = rcfg
-        self.tel = telemetry if telemetry is not None else null_telemetry()
+        self.tel = on_rank(telemetry if telemetry is not None
+                           else null_telemetry(), meshes[0])
         self.n_routed = 0
         self._rr = 0                      # round-robin tie-break cursor
         self.route_counts = [0] * len(self.engines)
@@ -134,8 +150,10 @@ class ReplicaRouter:
         idle_spins = 0
         while pending or self._busy():
             now = time.perf_counter() - t0
-            while pending and (not realtime
-                               or pending[0].arrival_time <= now):
+            lead = self.engines[0]
+            for _ in range(arrivals_due(pending, now, realtime,
+                                        getattr(lead, "agree_group", None),
+                                        getattr(lead, "device", None))):
                 self.route(pending.popleft())
             progressed = any([e.tick(now, results) for e in self.engines])
             # Drain runs every loop and counts as progress: on a SATURATED

@@ -10,6 +10,13 @@ where temp <= 0, else temperature and optional top-k), and ``pos`` is a
 scalar (every request at one position) or a (B,) tensor.  The prefill
 fills no cache, as the reference's does not: a prompt is fed through the
 serve step token by token.
+
+``plan=`` (a ``models.lm.ParallelPlan``, the reference's argument at
+``repro/serve/serve_step.py:18`` and ``:46``, a keyword here) runs the
+step in the serving layout on its mesh: every rank holds the whole batch
+and cache and its serving cut of the weights
+(``launch.sharding.serving_cut``), the MoE stages cut the rows as the
+reference does, and every rank gets the same tokens.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from repro_torch.models.lm import decode_step, forward
 from repro_torch.serve.engine import sample_tokens
 
 
-def make_serve_step(cfg: ArchConfig, recipe: Recipe, top_k: int = 0):
+def make_serve_step(cfg: ArchConfig, recipe: Recipe, top_k: int = 0, *,
+                    plan=None):
     """Returns serve_step(params, cache, tokens, pos[, temps, generator]).
 
     tokens (B, 1) int; pos a scalar or (B,) positions; temps optional (B,)
@@ -35,7 +43,8 @@ def make_serve_step(cfg: ArchConfig, recipe: Recipe, top_k: int = 0):
             # perfectly correlated: degenerate "temperature" sampling
             raise ValueError("stochastic sampling (temps) needs a "
                              "torch.Generator threaded through the loop")
-        logits, cache = decode_step(cfg, recipe, params, cache, tokens, pos)
+        logits, cache = decode_step(cfg, recipe, params, cache, tokens, pos,
+                                    plan=plan)
         if temps is None:
             temps = torch.zeros((tokens.shape[0],), dtype=torch.float32,
                                 device=logits.device)
@@ -45,7 +54,7 @@ def make_serve_step(cfg: ArchConfig, recipe: Recipe, top_k: int = 0):
     return serve_step
 
 
-def make_prefill(cfg: ArchConfig, recipe: Recipe):
+def make_prefill(cfg: ArchConfig, recipe: Recipe, *, plan=None):
     """Returns prefill(params, batch) -> the last position's logits (B, V):
     the training forward without the loss, on ``forward``'s batch (the
     tokens, and a frontend's 'prefix' or an encoder-decoder's
@@ -53,7 +62,9 @@ def make_prefill(cfg: ArchConfig, recipe: Recipe):
 
     @torch.no_grad()
     def prefill(params, batch):
-        logits, _ = forward(cfg, recipe, params, batch, compute_loss=False)
+        logits, _ = forward(cfg, recipe, params, batch, compute_loss=False,
+                            plan=None if plan is None else
+                            plan.for_serving())
         return logits[:, -1, :]
 
     return prefill

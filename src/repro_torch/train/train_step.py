@@ -591,7 +591,9 @@ def _make_dist_train_step(cfg: ArchConfig, recipe: Recipe,
         raise ValueError(
             f"the DistPlan wire runs the forward replica-locally over "
             f"'{dist.axis}'; model-parallel axes {nontrivial} are not "
-            f"supported with it (as in the reference): use dist=None")
+            f"supported with it: the reference's wire needs a DP-only mesh "
+            f"and refuses a model or pod axis larger than one "
+            f"(repro/train/train_step.py:361-368): use dist=None")
     n_dp = mesh.shape[dist.axis]
     if dist.shard_multiple % n_dp != 0:
         raise ValueError(

@@ -263,26 +263,54 @@ def test_parallel_plan_refuses_what_it_does_not_map(kw, match):
 
 @pytest.mark.parametrize("what", ["engine", "decode", "multi_pod"])
 def test_what_part_3_ports_raises(what):
-    """Serving with TP experts (the engine and the decode stage under
-    moe_mode='tp') and the launcher's pod axis raise NotImplementedError
-    naming multi-GPU part 3; nothing falls back to EP or to one pod."""
+    """What multi-GPU part 3 ports, and what of it still raises.  Serving
+    with TP experts runs: the engine under moe_mode='tp' gives the EP
+    engine's tokens, and the decode stage under moe_mode='tp'
+    (moe_block_tp) the EP decode stage's output (cosine >= 0.999); an
+    F-slice off the 128 grid raises.  The launcher's pod axis builds a
+    (2, world / 2, 1) mesh, and a world that does not divide raises
+    ValueError; nothing falls back to EP or to one pod."""
+    import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.core.recipes import get_recipe
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import Mesh, make_test_mesh
+    from repro_torch.launch.sharding import serving_cut
     from repro_torch.models import lm
     cfg = get_arch("grok1_314b").reduced()
+    recipe = get_recipe("fp8_flow")
     plan = lm.ParallelPlan(mesh=make_test_mesh(), moe_mode="tp")
-    with pytest.raises(NotImplementedError, match="part 3"):
-        if what == "engine":
-            from repro_torch.serve.engine import ServeEngine
-            ServeEngine(cfg, get_recipe("fp8_flow"), {}, device="cpu",
-                        plan=plan)
-        elif what == "decode":
-            p = lm.layer_slice(lm.init_params(cfg, device="cpu")["layers"],
-                               0)
-            x = torch.zeros((2, 1, cfg.d_model), dtype=torch.bfloat16)
-            lm._moe_stage(cfg, get_recipe("fp8_flow"), p, x, decode=True,
-                          plan=plan)
-        else:
-            from repro_torch.launch.train import main
+    ep = lm.ParallelPlan(mesh=make_test_mesh())
+    if what == "engine":
+        from repro_torch.serve.engine import ServeConfig, ServeEngine
+        from repro_torch.serve.scheduler import Request
+        params = lm.init_params(cfg, device="cpu")
+        toks = []
+        for pl in (plan, ep):
+            eng = ServeEngine(cfg, recipe, params, ServeConfig(
+                max_batch=2, page_size=8, n_pages=16, max_pages_per_req=4,
+                token_budget=64, prefill_buckets=(16,), w8_weights=True),
+                device="cpu", plan=pl)
+            res = eng.run([Request(prompt=[5, 9, 11, 3], max_new_tokens=3),
+                           Request(prompt=[7, 2], max_new_tokens=3)],
+                          realtime=False)
+            toks.append(sorted(v["tokens"] for v in res.values()))
+        assert toks[0] == toks[1]
+        wide = dataclasses.replace(cfg, d_ff_expert=192)
+        with pytest.raises(ValueError, match="not a multiple of 128"):
+            serving_cut(lm.init_params(wide, device="cpu"), wide,
+                        lm.ParallelPlan(mesh=Mesh(dp=1, ep=2, rank=0,
+                                                  device="cpu"),
+                                        moe_mode="tp"))
+    elif what == "decode":
+        p = lm.layer_slice(lm.init_params(cfg, device="cpu")["layers"], 0)
+        x = torch.randn((2, 1, cfg.d_model), generator=torch.Generator(
+            ).manual_seed(0)).to(torch.bfloat16)
+        with torch.no_grad():
+            y = [lm._moe_stage(cfg, recipe, p, x, decode=True, plan=pl)[0]
+                 for pl in (plan, ep)]
+        a, b = (t.to(torch.float64).ravel() for t in y)
+        assert float(a @ b / (a.norm() * b.norm())) >= 0.999
+    else:
+        from repro_torch.launch.train import main
+        with pytest.raises(ValueError, match="does not divide the world"):
             main(["--reduced", "--device", "cpu", "--multi-pod"])

@@ -1993,3 +1993,74 @@ def test_streamed_step_equals_the_posthoc_layered_step_on_card(nccl):
         a, b = pa["layers"][k].detach(), pb["layers"][k].detach()
         iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
         assert torch.equal(a.view(iv), b.view(iv)), k
+
+
+# ---------------------------------------------------------------------------
+# Serving across ranks: the serving cut and TP decode on the card.
+# ---------------------------------------------------------------------------
+def _grok_layer(dev, d_ff=256):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import init_params
+    cfg = dataclasses.replace(get_arch("grok1_314b").reduced(),
+                              d_ff_expert=d_ff, n_layers=1)
+    return cfg, init_params(cfg, seed=3, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ep", "tp"])
+def test_serving_cut_on_card(card, mode):
+    """On the card, each of two model ranks' serving cut, quantized to W8,
+    is bit for bit its block of the quantized world-1 tree, and the two
+    blocks tile the whole (EP on E, TP on F)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import serving_axis, serving_cut
+    from repro_torch.models.lm import ParallelPlan
+    from repro_torch.serve.w8 import quantize_params_for_serving
+    cfg, params = _grok_layer(card)
+    whole = quantize_params_for_serving(params)["layers"]
+    blocks = {"we13": [], "we2": []}
+    for r in (0, 1):
+        plan = ParallelPlan(mesh=Mesh(dp=1, ep=2, rank=r, device=card),
+                            moe_mode=mode)
+        cut = quantize_params_for_serving(serving_cut(params, cfg,
+                                                      plan))["layers"]
+        for k in blocks:
+            assert cut[k].data.is_cuda
+            blocks[k].append(cut[k])
+    for k, (a, b) in blocks.items():
+        ax = serving_axis(cfg, plan, k)[0]
+        data = torch.cat([a.data.view(torch.uint8), b.data.view(torch.uint8)],
+                         ax)
+        assert torch.equal(data, whole[k].data.view(torch.uint8))
+        assert torch.equal(torch.cat([a.scale, b.scale], ax),
+                           whole[k].scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["local_first", "reduce_scatter"])
+def test_tp_decode_with_a_group_equals_it_without_on_card(nccl, combine):
+    """The decode MoE stage in TP mode (moe_block_tp on W8 experts, the
+    serving layout) with the model group of one rank and with none: the
+    same bits (each collective a copy), through #1, #2 and #3."""
+    from repro_torch import kernels
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve.w8 import quantize_params_for_serving
+    cfg, params = _grok_layer("cuda")
+    p = lm.layer_slice(quantize_params_for_serving(params)["layers"], 0)
+    x = torch.randn((8, 1, cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda").to(torch.bfloat16)
+    out = []
+    for mesh in (make_test_mesh("cuda"), nccl):
+        plan = lm.ParallelPlan(mesh=mesh, moe_mode="tp",
+                               moe_tp_combine=combine).for_serving()
+        kernels.reset_launches()
+        with torch.inference_mode():
+            y, _ = lm._moe_stage(cfg, get_recipe("fp8_flow"), p, x,
+                                 decode=True, plan=plan)
+        assert all(kernels.LAUNCHES[k] > 0 for k in (
+            "quantize_rowwise", "fused_permute_pad", "grouped_gemm_fp8"))
+        out.append(y)
+    assert torch.equal(out[0].view(torch.int16), out[1].view(torch.int16))

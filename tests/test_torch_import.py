@@ -1,5 +1,6 @@
 """repro_torch stands alone: every module (the multi-GPU ones too: the
-mesh, the sharding and make_plan, the collectives and the TP / FSDP
+mesh with its pod axis, the sharding, make_plan and the serving cut, the
+engine and launcher across ranks, the collectives and the TP / FSDP
 autograd collectives, the DP wire with its streaming schedule and its
 layered plan, the FP8 psum, the TP expert block), the chip scripts and the port's examples import without jax or
 the JAX package, weights cross
@@ -43,7 +44,8 @@ configs |= {f"repro_torch.{m}" for m in (
     "serve.router", "obs.report", "obs.trace", "roofline.analysis",
     "launch.mesh", "launch.sharding", "dist.comm", "dist.plan",
     "dist.grad_comm", "runtime.compression", "dist.tp", "core.moe",
-    "core.linear", "models.lm", "train.train_step", "launch.train")}
+    "core.linear", "models.lm", "train.train_step", "launch.train",
+    "launch.serve", "serve.engine", "serve.w8")}
 assert configs <= set(names), sorted(configs - set(names))
 import chip_depths, chip_profile, chip_smoke
 sys.path.insert(0, "examples")

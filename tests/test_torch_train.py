@@ -212,8 +212,9 @@ def test_warmup_cosine_matches_reference(step):
 
 
 def test_unported_training_options_raise():
-    """What is still unported raises, naming its slice: the pod axis
-    (``--multi-pod``, multi-GPU part 3); a DistPlan step without a mesh
+    """What the launcher and the step cannot run raises: ``--multi-pod``
+    at a world that does not divide into two pods (the pod axis itself
+    trains: tests/test_torch_pod.py); a DistPlan step without a mesh
     and a streaming DistPlan without the layered layout raise ValueError.
     The streaming wire (``--dist-schedule stream``) and the FP8 DP wire
     itself (``--dist-wire fp8``, at world 1 on a gloo group) now train
@@ -235,7 +236,7 @@ def test_unported_training_options_raise():
     with pytest.raises(ValueError, match="layer-aligned"):
         DistPlan(schedule="stream", layered=False)
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="part 3"):
+    with pytest.raises(ValueError, match="does not divide the world 1"):
         main(["--reduced", "--device", "cpu", "--multi-pod"])
     streamed = main(["--reduced", "--device", "cpu", "--dist-wire", "fp8",
                      "--dist-schedule", "stream", "--steps", "1",

@@ -1,9 +1,10 @@
 """Run a function on N CPU ranks over gloo, and the reference on N forced
 host devices, for the port's multi-rank tests.
 
-``run_ranks(fn, world, tmp, ep=1, args=(), kwargs=None)`` spawns
-`world` processes (one intra-op thread each), joins them to a mesh of
-(world / ep, ep) through a FileStore under `tmp`, calls ``fn(mesh, *args,
+``run_ranks(fn, world, tmp, ep=1, args=(), kwargs=None, pod=None)``
+spawns `world` processes (one intra-op thread each), joins them to a
+mesh of (world / ep, ep) (with `pod`, the (pod, world / (pod * ep), ep)
+mesh) through a FileStore under `tmp`, calls ``fn(mesh, *args,
 **kwargs)`` on each, and
 returns the ranks' return values (picklable; numpy arrays travel as
 they are).  Every group has a timeout and every join one, so a hang fails
@@ -29,14 +30,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 
 
-def _child(rank, fn, world, ep, store, out_dir, args, kwargs):
+def _child(rank, fn, world, ep, pod, store, out_dir, args, kwargs):
     import torch
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import close_mesh, init_mesh
     path = os.path.join(out_dir, f"rank{rank}.pkl")
     try:
-        mesh = init_mesh(world // ep, ep, device="cpu", store=store,
-                         rank=rank, timeout_s=TIMEOUT_S)
+        mesh = init_mesh(world // ep // (pod or 1), ep, pod=pod,
+                         device="cpu", store=store, rank=rank,
+                         timeout_s=TIMEOUT_S)
         res = fn(mesh, *args, **kwargs)
         close_mesh()
         with open(path, "wb") as f:
@@ -47,14 +49,14 @@ def _child(rank, fn, world, ep, store, out_dir, args, kwargs):
         raise
 
 
-def run_ranks(fn, world, tmp, ep=1, args=(), kwargs=None):
+def run_ranks(fn, world, tmp, ep=1, args=(), kwargs=None, pod=None):
     tmp = str(tmp)
     run_dir = os.path.join(tmp, f"ranks_{world}_{ep}_{len(os.listdir(tmp))}")
     os.makedirs(run_dir)
     store = os.path.join(run_dir, "store")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_child,
-                         args=(r, fn, world, ep, store, run_dir, args,
+                         args=(r, fn, world, ep, pod, store, run_dir, args,
                                kwargs or {}))
              for r in range(world)]
     for p in procs:

@@ -305,3 +305,197 @@ def wire_rank(mesh, grads, wires):
         out[f"coll_{wire}"] = comm.counts()
     out["psum"] = compressed_psum(g.clone(), mesh.data_group).numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Serving across ranks.
+# ---------------------------------------------------------------------------
+def serve_config(arch, cfg_kw=None):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).reduced()
+    return dataclasses.replace(cfg, **(cfg_kw or {}))
+
+
+def serve_trace(vocab, seed, n=5, new=4):
+    """`n` greedy requests, prompts of 3-20 tokens, `new` tokens each."""
+    from repro_torch.serve.scheduler import Request
+    r = np.random.default_rng(seed)
+    return [Request(prompt=[int(t) for t in r.integers(1, vocab,
+                                                       int(r.integers(3, 21)))],
+                    max_new_tokens=new) for _ in range(n)]
+
+
+SERVE_KW = dict(max_batch=4, page_size=8, n_pages=48, max_pages_per_req=4,
+                token_budget=256, prefill_buckets=(16, 32), fp8_kv=True,
+                w8_weights=True)
+
+
+def serve(mesh, jobs):
+    """Each job (a dict) served on this rank, returning per job the
+    tokens by request, the logits each tick sampled from (the prefill's
+    last row, the decode step's live rows), the collectives by kind, the
+    engine's stats, or the error a job raised.  Job keys: arch, cfg_kw,
+    seed, plan_kw (None: no plan; else a ParallelPlan on `mesh`),
+    kind ('engine', 'fleet': a 1 + 1 DisaggRouter, 'serve_step': the
+    fixed-batch path), skew_rank (that rank's sampled tokens are moved by
+    one), n, new, params_np (the reference's numpy tree, else the port's
+    init_params(seed 0)), ecfg_kw (ServeConfig fields over SERVE_KW),
+    spacing (the requests arrive that many seconds apart and the engine
+    runs in real time)."""
+    from repro_torch.weights import params_from_numpy
+    from repro_torch.dist import comm
+    from repro_torch.models.lm import ParallelPlan, init_params
+    from repro_torch.serve import engine as E
+    out = []
+    for job in jobs:
+        cfg = serve_config(job["arch"], job.get("cfg_kw"))
+        recipe = recipe_of(job.get("recipe", "fp8_flow"))
+        pkw = job.get("plan_kw")
+        plan = None if pkw is None else ParallelPlan(mesh=mesh, **pkw)
+        params = params_from_numpy(job["params_np"], device="cpu") \
+            if "params_np" in job else init_params(cfg, seed=0, device="cpu")
+        reqs = serve_trace(cfg.vocab, job["seed"], job.get("n", 5),
+                           job.get("new", 4))
+        spacing = job.get("spacing")
+        for i, q in enumerate(reqs):
+            q.arrival_time = i * (spacing or 0.0)
+        logits = []
+        decode0, prefill0, sample0 = (E.paged_decode_step, E.paged_prefill,
+                                      E.sample_tokens)
+
+        def dec(*a, **kw):
+            lg = decode0(*a, **kw)
+            live = a[7] if len(a) > 7 else kw["active"]
+            logits.append(np32(lg[live.bool(), -1]))
+            return lg
+
+        def pre(*a, **kw):
+            lg = prefill0(*a, **kw)
+            logits.append(np32(lg[:, -1]))
+            return lg
+
+        def skewed(lg, temps, top_k, generator=None):
+            t = sample0(lg, temps, top_k, generator)
+            return (t + 1) % cfg.vocab if mesh.rank == job["skew_rank"] \
+                else t
+        E.paged_decode_step, E.paged_prefill = dec, pre
+        if job.get("skew_rank") is not None:
+            E.sample_tokens = skewed
+        comm.reset_counts()
+        res = dict(error=None)
+        try:
+            if job.get("kind", "engine") == "serve_step":
+                res["tokens"] = _serve_step_tokens(cfg, recipe, params,
+                                                   plan, reqs)
+            else:
+                runner = _runner(cfg, recipe, params, plan,
+                                 job.get("kind", "engine"),
+                                 job.get("ecfg_kw"))
+                results = runner.run(reqs, realtime=spacing is not None)
+                res["tokens"] = [results[q.rid]["tokens"] for q in reqs]
+                res["stats"] = {k: v for k, v in results.stats.items()
+                                if not isinstance(v, (list, dict))}
+        except RuntimeError as e:
+            res["error"] = str(e)
+        finally:
+            E.paged_decode_step, E.paged_prefill, E.sample_tokens = (
+                decode0, prefill0, sample0)
+        res.update(logits=logits, coll=comm.counts())
+        out.append(res)
+    return out
+
+
+def _runner(cfg, recipe, params, plan, kind, ecfg_kw=None):
+    import dataclasses
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    ecfg = ServeConfig(**dict(SERVE_KW, **(ecfg_kw or {})))
+    if kind == "engine":
+        return ServeEngine(cfg, recipe, params, ecfg, device="cpu",
+                           plan=plan)
+    from repro_torch.serve.router import DisaggRouter
+    pe = ServeEngine(cfg, recipe, params,
+                     dataclasses.replace(ecfg, role="prefill"),
+                     device="cpu", plan=plan)
+    de = ServeEngine(cfg, recipe, params,
+                     dataclasses.replace(ecfg, role="decode"),
+                     device="cpu", plan=plan)
+    return DisaggRouter([pe], [de])
+
+
+def _serve_step_tokens(cfg, recipe, params, plan, reqs):
+    """The fixed-batch path on the trace's prompts cut to their shortest
+    length: every prompt fed token by token through ``make_serve_step``
+    (W8 experts of the serving cut), then the new tokens greedily."""
+    from repro_torch.launch.sharding import serving_cut
+    from repro_torch.models.lm import init_cache
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.serve.w8 import quantize_params_for_serving
+    if plan is not None:
+        params = serving_cut(params, cfg, plan)
+    params = quantize_params_for_serving(params)
+    P = min(len(q.prompt) for q in reqs)
+    new = reqs[0].max_new_tokens
+    B = len(reqs)
+    cache = init_cache(cfg, B, P + new, device="cpu")
+    step = make_serve_step(cfg, recipe, plan=plan)
+    prompts = torch.tensor([q.prompt[:P] for q in reqs])
+    gen = []
+    with torch.inference_mode():
+        tok = prompts[:, :1]
+        for t in range(P + new - 1):
+            nxt, cache = step(params, cache, tok, t)
+            tok = prompts[:, t + 1:t + 2] if t + 1 < P else nxt
+            if t + 1 >= P:
+                gen.append(nxt[:, 0].tolist())
+    return [list(col) for col in zip(*gen)]
+
+
+def moe_stage_decode(mesh, d_ff, arrays, cases):
+    """Each case ('mode|weights') of the port's decode MoE stage of
+    reduced grok1_314b (d_ff_expert `d_ff`) on this rank: the stacked
+    world-1 leaves cut by ``serving_cut`` and, for 'w8', quantized after
+    the cut (and, as a check, quantized first and then cut: the same
+    bits); the output on x_decode (B, 1, D) under the serving plan."""
+    from repro_torch.core.recipes import get_recipe
+    from repro_torch.launch.sharding import serving_cut
+    from repro_torch.models import lm
+    from repro_torch.serve.w8 import quantize_params_for_serving
+    cfg = serve_config("grok1_314b", dict(d_ff_expert=d_ff))
+    x, wr, w13, w2 = arrays
+    xs = torch.tensor(x).to(torch.bfloat16)[:, None]
+    whole = {"layers": {"w_router": torch.tensor(wr)[None],
+                        "we13": torch.tensor(w13).to(torch.bfloat16)[None],
+                        "we2": torch.tensor(w2).to(torch.bfloat16)[None]}}
+    out = []
+    for case in cases:
+        mode, weights = case.split("|")
+        plan = lm.ParallelPlan(mesh=mesh, moe_mode=mode).for_serving()
+        params = serving_cut(whole, cfg, plan)
+        same = True
+        if weights == "w8":
+            params = quantize_params_for_serving(params)
+            first = serving_cut(quantize_params_for_serving(whole), cfg,
+                                plan)
+            for k in ("we13", "we2"):
+                a, b = params["layers"][k], first["layers"][k]
+                same &= (torch.equal(a.data.view(torch.uint8),
+                                     b.data.view(torch.uint8))
+                         and torch.equal(a.scale, b.scale))
+        p = lm.layer_slice(params["layers"], 0)
+        with torch.inference_mode():
+            y, _ = lm._moe_stage(cfg, get_recipe("fp8_flow"), p, xs,
+                                 decode=True, plan=plan)
+        out.append(dict(y=np32(y[:, 0]), cut_then_quantize=bool(same),
+                        shapes={k: tuple(p[k].shape) for k in ("we13",
+                                                                "we2")}))
+    return out
+
+
+def launch_train(mesh, argv):
+    """``launch.train.main(argv)`` on this rank of an already joined
+    world (its WORLD_SIZE set as torchrun would): the losses."""
+    import os
+    from repro_torch.launch.train import main
+    os.environ["WORLD_SIZE"] = str(mesh.world)
+    return main(list(argv))

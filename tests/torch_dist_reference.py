@@ -18,6 +18,20 @@ with XLA_FLAGS forcing the host devices.  Tasks:
                    the output (replicated, or row-sliced under
                    reduce_scatter) and the gradients of sum(y**2), each
                    case 'recipe|tp|combine'
+  moe_stage_decode the reference's decode MoE stage (``models.lm._moe_stage``,
+                   decode=True) of reduced grok1_314b (d_ff_expert from the
+                   input) on a (1, n) mesh, each case 'mode|weights|n':
+                   mode 'tp' or 'ep', weights 'bf16' (the layer's leaves as
+                   they are) or 'w8' (the reference's
+                   quantize_params_for_serving of the stacked leaves); the
+                   output on x_decode (B, 1, D)
+  engine           the reference's ServeEngine (reduced qwen3_moe_235b, W8
+                   experts, FP8 pages, the EP plan) on a (1, n) mesh over
+                   the input's prompts: each request's tokens, and its
+                   init_params(key(0)) tree as numpy leaves ('p:<path>:<dtype
+                   name>', low-precision leaves as unsigned-int views)
+  mesh_layout      jax.make_mesh's device order of the (pod, data, model)
+                   and (data, model) meshes in the input's `shapes`
   reduce_scatter   grad_comm.reduce_scatter_bucket over a (n, 1) mesh, one
                    (n, rows, TILE) input a case
   compressed_psum  runtime.compression.compressed_psum over n devices
@@ -138,6 +152,75 @@ def tp_blocks(inp):
     return out
 
 
+def moe_stage_decode(inp):
+    import dataclasses
+    from repro.configs import get_arch
+    from repro.models import lm
+    from repro.serve.w8 import quantize_params_for_serving
+    cfg = dataclasses.replace(get_arch("grok1_314b").reduced(),
+                              d_ff_expert=int(inp["d_ff"]))
+    recipe = get_recipe("fp8_flow")
+    x = jnp.asarray(inp["x_decode"]).astype(jnp.bfloat16)[:, None]
+    leaves = {"w_router": jnp.asarray(inp["wr"]),
+              "we13": jnp.asarray(inp["w13"]).astype(jnp.bfloat16),
+              "we2": jnp.asarray(inp["w2"]).astype(jnp.bfloat16)}
+    w8 = quantize_params_for_serving(
+        {"layers": {k: v[None] for k, v in leaves.items()}})["layers"]
+    w8 = jax.tree.map(lambda t: t[0], w8)
+    out = {}
+    for i, case in enumerate(str(c) for c in inp["cases"]):
+        mode, weights, n = case.split("|")
+        mesh = _mesh(int(n))
+        plan = lm.ParallelPlan(mesh=mesh, dp_axes=("data",), moe_mode=mode)
+        p = w8 if weights == "w8" else leaves
+        with mesh:
+            y, _ = jax.jit(lambda p, x, _plan=plan: lm._moe_stage(
+                cfg, recipe, _plan, p, x, decode=True))(p, x)
+        out[f"y_{i}"] = np.asarray(y[:, 0], np.float32)
+    return out
+
+
+def engine(inp):
+    from repro.configs import get_arch
+    from repro.launch.mesh import make_test_mesh
+    from repro.models.lm import ParallelPlan, init_params
+    from repro.serve.engine import ServeConfig, ServeEngine
+    from repro.serve.scheduler import Request
+    cfg = get_arch("qwen3_moe_235b").reduced()
+    plan = ParallelPlan(mesh=make_test_mesh((1, int(inp["n"]))),
+                        dp_axes=("data",))
+    params = init_params(cfg, jax.random.key(0))
+    kw = {k: int(v) for k, v in zip(("max_batch", "page_size", "n_pages",
+                                     "max_pages_per_req", "token_budget",
+                                     "bucket"), inp["ecfg"])}
+    bucket = kw.pop("bucket")
+    eng = ServeEngine(cfg, get_recipe("fp8_flow"), plan, params, ServeConfig(
+        **kw, prefill_buckets=(bucket,), fp8_kv=True, w8_weights=True))
+    reqs = [Request(prompt=[int(t) for t in row[:n]],
+                    max_new_tokens=int(inp["new"]))
+            for row, n in zip(inp["prompts"], inp["lens"])]
+    res = eng.run(reqs, realtime=False)
+    out = {"tokens": np.asarray([res[q.rid]["tokens"] for q in reqs])}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        a = np.asarray(leaf)
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        view = {1: np.uint8, 2: np.uint16}.get(a.dtype.itemsize) \
+            if a.dtype.kind == "V" or a.dtype.itemsize < 4 else None
+        out[f"p:{name}:{a.dtype.name}"] = a.view(view) if view else a
+    return out
+
+
+def mesh_layout(inp):
+    from repro.compat import make_mesh
+    out = {}
+    for i, shape in enumerate(inp["shapes"]):
+        shape = tuple(int(n) for n in shape if n)
+        names = ("pod", "data", "model")[-len(shape):]
+        m = make_mesh(shape, names)
+        out[f"ids_{i}"] = np.vectorize(lambda d: d.id)(m.devices)
+    return out
+
+
 def _mesh(n, axes=("data", "model"), data=False):
     """The first n host devices as a (1, n) mesh, or (n, 1) for `data`."""
     from jax.sharding import Mesh
@@ -186,6 +269,8 @@ def compressed_psum(inp):
 
 
 TASKS = {"ep_blocks": ep_blocks, "tp_blocks": tp_blocks,
+         "moe_stage_decode": moe_stage_decode, "mesh_layout": mesh_layout,
+         "engine": engine,
          "reduce_scatter": reduce_scatter,
          "compressed_psum": compressed_psum}
 
